@@ -7,26 +7,46 @@ Run from the root of a checkout, on a machine with one NVIDIA H100::
 
 Phases, each printing one JSON line before the next starts:
 
-1. device  — ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name
-   and power limit;
-2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``;
-3. kernels — each kernel against its plain PyTorch version on the card,
-   bit for bit, at 262,144 candidates;
+1. device  — ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name,
+   power limit and maximum SM clock;
+2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
+   one process per source, all at once;
+3. kernels — each kernel route against its plain PyTorch version on the
+   card, bit for bit: the short-text routes at 262,144 candidates, the
+   long routes (K1 over 2048- and 8192-char buckets, the run-time band,
+   the streamed band) at 2,048 candidates, where the plain versions'
+   per-step Python loops stay within seconds;
 4. serve   — ``ScanService`` over a 1,048,576-string word-like corpus
    (bucket 64) behind ``make_server``; ``/health``, ``/topk``,
    ``/distances`` (plain, ``score_cutoff``, ``score_hint``) and ``/batch``
    answers are held against the C++ oracle;
 5. wide    — a ``CorpusScanner`` over 262,144 Cyrillic strings (the
    per-query remap route), held against the oracle;
-6. timing  — each kernel and its plain version at 1,048,576 candidates;
-7. rate    — one len-64 query, then 16 per launch, against 67,108,864
+6. library — ``levenshtein.BatchComparator(q).distances`` and
+   ``levenshtein.distance_many([q], corpus, score_cutoff=...)`` over
+   65,536 strings on the card, and the four scalar scores, held against
+   the oracle;
+7. long    — ``ScanService`` over 131,072 texts of 1,025-8,192 chars
+   (bucket 8192, 1 GiB packed on the card), near copies of 300 seed
+   documents, behind ``make_server``: ``/topk``, ``/distances`` with
+   ``score_cutoff`` 3, 15 and 40 and with ``score_hint``, and ``/batch``,
+   for queries of 64, 300 and ~4,000 chars; then a second service over
+   16,384 of those texts at bucket 6000 (not a whole 512-char chunk: the
+   run-time band's route).  Every answer is held against the oracle over
+   the whole corpus where a length argument bounds the work (top-k and
+   cutoff answers), on sampled rows elsewhere;
+8. timing  — each kernel and its plain version at its main-path shape
+   (the short-text kernels at 1,048,576 candidates of the serve corpus,
+   the long ones at the long phase's corpora), with each kernel's bound;
+9. rate    — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
-Kernel launch counters are zeroed just before phase 4 and read after
-phase 5, so the counts are those of the main path alone.  Any failure
-raises: the script then exits nonzero and never prints its last line,
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-nonzero before any phase.
+Kernel launch counters are zeroed just before phase 4 and read after phase
+5, and zeroed again just before phase 7 and read after it, so the counts
+are those of the two main paths alone; every kernel must have launched in
+them.  Any failure raises: the script then exits nonzero and never prints
+its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+exits nonzero before any phase.
 """
 
 from __future__ import annotations
@@ -46,39 +66,70 @@ LB = 64
 N_SERVE = 1 << 20
 N_WIDE = 1 << 18
 N_KERNEL = 1 << 18
+N_KERNEL_LONG = 1 << 11
 N_TIMING = 1 << 20
 N_RATE = 1 << 26
 N_PLAIN_RATE = 1 << 22
 N_SAMPLE = 4096
+N_LIB = 1 << 16
+LONG_LB = 8192
+N_LONG = 1 << 17
+N_DOCS = 300
+Q_LONG = 4000
+ODD_LB = 6000
+N_ODD = 1 << 14
+LONG_SAMPLE = 256
+#: card peaks for the bounds: HBM bytes/s (NVIDIA's data sheet, H100 SXM)
+#: and INT32 lanes (132 SMs x 64); the SM clock is read from nvidia-smi
+HBM_BYTES_S = 3.35e12
+INT32_LANES = 132 * 64
+#: least integer operations per unit of work, counting each 3-input logic
+#: op (LOP3) and each shift-and-add as one: K1 per query word and text
+#: step (the Myers word: and, add, 2 x or3, 2 x lop3, and, 2 x shift-or,
+#: 2 carry shifts), K3 per band word and text step (the same plus the
+#: window's funnel shift), K2 per char (7 search probes of compare and
+#: select, the hit test, the byte pack)
+OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
+       "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
+       "remap_pack": 24}
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
     "remap_pack": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:256",
     "lev_band": "rapidfuzz_tpu/ops/pallas/band_kernel.py:388",
+    "lev_band_rt": "rapidfuzz_tpu/ops/pallas/band_kernel.py:165",
+    "lev_band_long": "rapidfuzz_tpu/ops/pallas/band_kernel.py:620",
+    "lev_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:135",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
     "lev_scan_nq": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
     "remap_pack": "rapidfuzz_tpu_torch/csrc/remap_pack.cu",
     "lev_band": "rapidfuzz_tpu_torch/csrc/lev_band.cu",
+    "lev_band_rt": "rapidfuzz_tpu_torch/csrc/lev_band.cu",
+    "lev_band_long": "rapidfuzz_tpu_torch/csrc/lev_band.cu",
+    "lev_scan_long": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
 }
+SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
+LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi() -> str:
-    p = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def nvidia_smi(query: str = "name,power.limit") -> str:
+    p = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return p.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up,
-    timed with CUDA events."""
-    fn()
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` runs (after one warm-up
+    run unless ``warm`` is false), timed with CUDA events."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
@@ -221,10 +272,70 @@ class Smoke:
                 if int((got <= cut).sum()) == 0:
                     raise AssertionError(f"band cutoff={cut}: no candidate "
                                          "accepted; inputs too far apart")
+        self.long_kernel_cases(rng, alph["byte"], salt)
         self.sync()
         emit({"phase": "kernels", "candidates": N_KERNEL,
+              "long_candidates": N_KERNEL_LONG,
               "cases": self.cases, "max_abs_err": self.err,
               "seconds": time.perf_counter() - t_start})
+
+    def long_kernel_cases(self, rng, a, salt):
+        """The long routes against their plain versions at
+        N_KERNEL_LONG candidates: K1 over 2048- and 8192-char buckets at
+        W = 2 (registers) and 10 (scratch form); the run-time band for
+        cutoffs 1-15 and queries of 8-40 chars over 64- and 2048-char
+        buckets; the streamed band at bw 1-3 over 2048- and 8192-char
+        buckets, with queries that keep its PM table in shared memory
+        (300 chars) and that read it through the cache (thousands).  The
+        plain versions take about 10 us per launch, some 20 launches per
+        step and word, so K1 at W = 10 over the 8192 bucket is the
+        longest case (seconds), and the band at bw 1 stays off that
+        bucket (held there by its plain version in the timing phase)."""
+        torch, lk, bk = self.torch, self.lk, self.bk
+        at = torch.from_numpy(a).to(self.dev)
+        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2), (LONG_LB, 10)):
+            salt += 1
+            q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+            cand, lb = self.byte_corpus(self.gen(salt), N_KERNEL_LONG, LBl,
+                                        at)
+            lb[:8] = LBl                      # the bucket's last rows
+            las, tabs = lk.stage_query(q, "byte", self.dev)
+            self.compare("lev_scan_long", lk.lev_1v_many(q, cand, lb),
+                         lk.lev_scan_plain(las, tabs[None], cand, lb)[0],
+                         f"LB={LBl} W={W}")
+        for LBl, las_ in ((64, (8, 15)), (2048, (8, 40))):
+            for la in las_:
+                salt += 1
+                q = rng.choice(a, la)
+                cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG,
+                                        LBl)
+                lb[:8] = LBl
+                _, tabs = lk.stage_query(q, "byte", self.dev)
+                cuts = range(1, min(la, 16)) if LBl == 64 else (7, 15)
+                for cut in cuts:
+                    if cut >= la:
+                        continue
+                    got = bk.lev_banded_1v_many(q, cand, lb, cutoff=cut)
+                    ref = bk.lev_band_plain(
+                        la, cut, 1, tabs[: bk.table_words(la, LBl)], cand,
+                        lb, semi=cut)
+                    self.compare("lev_band_rt", got, ref,
+                                 f"LB={LBl} la={la} cutoff={cut}")
+        for LBl, la in ((2048, 300), (2048, 2000), (LONG_LB, LONG_LB - 192)):
+            salt += 1
+            q = rng.choice(a, la)
+            cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG, LBl)
+            _, tabs = lk.stage_query(q, "byte", self.dev)
+            ws = bk.table_words(la, LBl)
+            for cut in {300: (31,), 2000: (15, 31, 47)}.get(la, (31, 47)):
+                bw = bk.band_words(cut)
+                got = bk.lev_banded_stream_1v_many(q, cand, lb, cutoff=cut)
+                ref = bk.lev_band_plain(la, cut, bw, tabs[:ws], cand, lb)
+                self.compare("lev_band_long", got, ref,
+                             f"LB={LBl} la={la} cutoff={cut} ws={ws}")
+                if int((got <= cut).sum()) == 0:
+                    raise AssertionError(f"streamed band cutoff={cut}: no "
+                                         "candidate accepted")
 
     def mutants(self, g, q, alphabet, B, lb_max):
         """Packed near-copies of ``q``: random substitutions and length
@@ -318,7 +429,7 @@ class Smoke:
         return corpus, anchors, np.unique(planted)
 
     def phase_serve(self):
-        from rapidfuzz_tpu_torch.serve import ScanService, make_server
+        from rapidfuzz_tpu_torch.serve import ScanService
 
         rng = np.random.default_rng(self.seed + 1)
         t_start = time.perf_counter()
@@ -331,26 +442,7 @@ class Smoke:
         bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
         if bad:
             raise AssertionError(f"warmup routes failed: {bad}")
-        server = make_server(service, port=0)
-        port = server.server_address[1]
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        timings = {}
-
-        def call(path, body=None):
-            t = time.perf_counter()
-            url = f"http://127.0.0.1:{port}{path}"
-            if body is None:
-                req = urllib.request.Request(url)
-            else:
-                req = urllib.request.Request(
-                    url, data=json.dumps(body).encode(),
-                    headers={"Content-Type": "application/json"})
-            with urllib.request.urlopen(req, timeout=300) as r:
-                out = json.loads(r.read())
-            timings.setdefault(path, []).append(time.perf_counter() - t)
-            return out
-
+        call, stop, timings = self.serve_http(service)
         try:
             h = call("/health")
             if not (h["ok"] and h["n"] == N_SERVE):
@@ -412,9 +504,7 @@ class Smoke:
             if st["queries"] != 4 + 3 + 20:
                 raise AssertionError(f"/stats: {st}")
         finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
+            stop()
         self.sync()
         emit({"phase": "serve", "corpus": N_SERVE, "bucket": LB,
               "generate_s": t_gen, "scanner_build_s": t_build,
@@ -424,6 +514,7 @@ class Smoke:
               "seconds": time.perf_counter() - t_start})
         self.serve_scanner = service.scanner
         self.serve_query = anchors[0]
+        self.serve_corpus = corpus
         for name in ("lev_scan", "lev_scan_nq", "lev_band"):
             if self.kc.LAUNCHES[name] == 0:
                 raise AssertionError(f"serve phase never launched {name}")
@@ -465,9 +556,260 @@ class Smoke:
         self.wide_query = sc._encode_query(query)
 
     # ------------------------------------------------------------ phase 6
-    def phase_timing(self):
-        """Each kernel and its plain version at N_TIMING candidates of
-        the serve corpus (bucket 64, len-64 query)."""
+    def phase_library(self):
+        """The library API on the card: ``BatchComparator.distances`` and
+        ``distance_many`` with a cutoff over N_LIB strings of the serve
+        corpus (one query against a corpus: the scanner route), and the
+        four scalar scores, against the oracle."""
+        from rapidfuzz_tpu_torch.distance import levenshtein
+
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus[:N_LIB]
+        q = self.serve_query
+        truth = self.oracle_rows(q, corpus)
+        res = levenshtein.BatchComparator(q).distances(corpus)
+        if not (np.array_equal(res.values, truth) and res.valid.all()):
+            raise AssertionError("BatchComparator.distances != oracle")
+        res = levenshtein.distance_many([q], corpus, score_cutoff=7)
+        ok = truth <= 7
+        if not (np.array_equal(res.valid, ok) and ok.any()
+                and np.array_equal(res.values[ok], truth[ok])):
+            raise AssertionError("distance_many score_cutoff=7 != oracle")
+        sim = levenshtein.BatchComparator(q).normalized_similarities(corpus)
+        mx = np.maximum(len(q), np.array([len(s) for s in corpus]))
+        if not np.array_equal(sim.values,
+                              1.0 - np.where(mx == 0, 0.0, truth / mx)):
+            raise AssertionError("normalized_similarities != oracle")
+        pairs = [("kitten", "sitting"), ("Иванко", "Петрунко"),
+                 (q, corpus[int(np.argmin(truth))])]
+        for s1, s2 in pairs:
+            d = int(self.oracle_rows(s1, [s2])[0])
+            m = max(len(s1), len(s2))
+            got = (levenshtein.distance(s1, s2),
+                   levenshtein.similarity(s1, s2),
+                   levenshtein.normalized_distance(s1, s2),
+                   levenshtein.normalized_similarity(s1, s2))
+            if got != (d, m - d, d / m, 1.0 - d / m):
+                raise AssertionError(f"scalar scores {s1!r} {s2!r}: {got}")
+        self.sync()
+        emit({"phase": "library", "corpus": N_LIB,
+              "seconds": time.perf_counter() - t_start})
+
+    # ------------------------------------------------------------ phase 7
+    @staticmethod
+    def edit(rng, s: str, k: int) -> str:
+        """``s`` with ``k`` random substitutions, deletions and
+        insertions of lowercase letters."""
+        s = list(s)
+        for _ in range(k):
+            i = int(rng.integers(0, len(s)))
+            op = int(rng.integers(0, 3))
+            c = chr(int(rng.integers(97, 123)))
+            if op == 0:
+                s[i] = c
+            elif op == 1:
+                del s[i]
+            else:
+                s.insert(i, c)
+        return "".join(s)
+
+    def long_corpus(self, rng):
+        """N_LONG texts of 1,025..8,192 chars, each one of N_DOCS seed
+        documents cut to a random length with up to 7 substitutions, and
+        40 near copies (0..20 edits) of the ~4,000-char query, a near copy
+        of document 0, so that the cutoffs accept rows."""
+        docs = rng.integers(97, 123, (N_DOCS, LONG_LB), dtype=np.uint8)
+        docs[rng.random(docs.shape) < 0.15] = 32
+        lens = rng.integers(1025, LONG_LB + 1, N_LONG)
+        which = rng.integers(0, N_DOCS, N_LONG)
+        nsub = rng.integers(0, 8, N_LONG)
+        pos = (rng.random((N_LONG, 7)) * lens[:, None]).astype(np.int64)
+        vals = rng.integers(97, 123, (N_LONG, 7), dtype=np.uint8)
+        corpus = []
+        for i in range(N_LONG):
+            t = docs[which[i], : lens[i]].copy()
+            t[pos[i, : nsub[i]]] = vals[i, : nsub[i]]
+            corpus.append(t.tobytes().decode("ascii"))
+        q4k = self.edit(rng, docs[0, :Q_LONG].tobytes().decode("ascii"), 5)
+        planted = rng.choice(N_LONG, 40, replace=False)
+        for m, i in enumerate(planted):
+            corpus[int(i)] = self.edit(rng, q4k, m % 21)
+        return corpus, docs, q4k, planted
+
+    def window_truth(self, q: str, corpus, lens, bound: int):
+        """Oracle distances of ``q`` to every row that can lie within
+        ``bound``: rows with ``|len - len(q)| > bound`` cannot, so only
+        the others are computed, banded at ``bound`` (exact when within
+        it, ``bound + 1`` above).  Returns (row ids, distances)."""
+        rows = np.flatnonzero(np.abs(lens - len(q)) <= bound)
+        eq = self.codec.encode_one(q)
+        d = np.array([self.oracle.levenshtein_uniform_bp(
+            eq, self.codec.encode_one(corpus[i]), bound) for i in rows],
+            np.int64)
+        return rows, d
+
+    def check_topk_window(self, q, corpus, lens, vals, ids, k, what):
+        """The whole-corpus top-k, by (distance, index): only rows within
+        the k-th returned distance can belong to it."""
+        vals, ids = np.asarray(vals), np.asarray(ids)
+        if len(ids) != k:
+            raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
+        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]))
+        keep = d <= int(vals[-1])
+        order = np.lexsort((rows[keep], d[keep]))[:k]
+        if not (np.array_equal(rows[keep][order], ids)
+                and np.array_equal(d[keep][order], vals)):
+            raise AssertionError(f"{what}: {vals.tolist()} {ids.tolist()} "
+                                 f"!= oracle {d[keep][order].tolist()} "
+                                 f"{rows[keep][order].tolist()}")
+
+    def check_cutoff_window(self, q, corpus, lens, out, cut, what,
+                            want_hits=True):
+        """A ``(values, valid)`` answer under ``cut`` against the oracle
+        over the whole corpus."""
+        valid = np.asarray(out["valid"])
+        values = np.asarray(out["values"])
+        rows, d = self.window_truth(q, corpus, lens, cut)
+        ok = np.zeros(len(corpus), bool)
+        ok[rows[d <= cut]] = True
+        if not np.array_equal(valid, ok):
+            raise AssertionError(f"{what}: valid rows != oracle")
+        truth = np.zeros(len(corpus), np.int64)
+        truth[rows] = d
+        if not np.array_equal(values[ok], truth[ok]):
+            raise AssertionError(f"{what}: values != oracle")
+        if want_hits and not ok.any():
+            raise AssertionError(f"{what}: no row accepted")
+
+    def serve_http(self, service):
+        """Start ``make_server`` on a free port; returns (call, stop)."""
+        from rapidfuzz_tpu_torch.serve import make_server
+
+        server = make_server(service, port=0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        timings = {}
+
+        def call(path, body=None):
+            t = time.perf_counter()
+            url = f"http://127.0.0.1:{port}{path}"
+            if body is None:
+                req = urllib.request.Request(url)
+            else:
+                req = urllib.request.Request(
+                    url, data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                out = json.loads(r.read())
+            timings.setdefault(path, []).append(time.perf_counter() - t)
+            return out
+
+        def stop():
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+            if thread.is_alive():
+                raise AssertionError("server thread did not stop")
+
+        return call, stop, timings
+
+    def phase_long(self):
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 5)
+        t_start = time.perf_counter()
+        corpus, docs, q4k, planted = self.long_corpus(rng)
+        t_gen = time.perf_counter() - t_start
+        lens = np.array([len(s) for s in corpus])
+        t0 = time.perf_counter()
+        service = ScanService(corpus, bucket=LONG_LB, device=self.dev)
+        t_build = time.perf_counter() - t0
+        if not service.scanner._stream:
+            raise AssertionError("bucket 8192 did not take the long routes")
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad:
+            raise AssertionError(f"long warmup routes failed: {bad}")
+        q64 = rng.integers(97, 123, 64, dtype=np.uint8).tobytes().decode()
+        q300 = self.edit(rng, docs[1, :300].tobytes().decode("ascii"), 3)
+        call, stop, timings = self.serve_http(service)
+        try:
+            h = call("/health")
+            if not (h["ok"] and h["n"] == N_LONG):
+                raise AssertionError(f"/health: {h}")
+            for q in (q64, q300, q4k):
+                out = call("/topk", {"query": q, "k": 10})
+                self.check_topk_window(q, corpus, lens, out["values"],
+                                       out["indices"], 10,
+                                       f"long /topk len {len(q)}")
+                if out["strings"] != [corpus[i] for i in out["indices"]]:
+                    raise AssertionError("long /topk strings mismatch")
+            for q, cut in ((q4k, 3), (q4k, 15), (q4k, 40), (q300, 15),
+                           (q64, 15)):
+                out = call("/distances", {"query": q, "score_cutoff": cut})
+                self.check_cutoff_window(q, corpus, lens, out, cut,
+                                         f"long /distances len {len(q)} "
+                                         f"cutoff {cut}",
+                                         want_hits=q is q4k)
+            sample = np.unique(np.r_[rng.choice(N_LONG, LONG_SAMPLE,
+                                                replace=False), planted])
+            for q, body in ((q4k, {"score_hint": 40}), (q300, {})):
+                out = call("/distances", {"query": q, **body})
+                got = np.asarray(out["values"])[sample]
+                truth = self.oracle_rows(q, [corpus[i] for i in sample])
+                if not np.array_equal(got, truth):
+                    raise AssertionError(f"long /distances len {len(q)} "
+                                         f"{body}: sampled rows != oracle")
+            bq = [q64, q300, self.edit(rng, q64, 4)]
+            out = call("/batch", {"queries": bq, "k": 10})
+            for qi, q in enumerate(bq):
+                self.check_topk_window(q, corpus, lens, out["values"][qi],
+                                       out["indices"][qi], 10,
+                                       f"long /batch query {qi}")
+        finally:
+            stop()
+        # the run-time band's route: a bucket that is not whole 512-char
+        # chunks, over the texts that fit it and the near copies of q4k
+        fits = lens <= ODD_LB
+        fits[planted] = False
+        short = np.flatnonzero(fits)[: N_ODD - len(planted)]
+        ids = np.r_[short, planted]
+        odd_corpus = [corpus[i] for i in ids]
+        odd = ScanService(odd_corpus, bucket=ODD_LB, device=self.dev)
+        if odd.scanner._stream or not odd.scanner._long:
+            raise AssertionError("bucket 6000 did not take the odd route")
+        odd_lens = lens[ids]
+        for cut in (3, 15, 40):          # run-time band, then full scan
+            out = odd.distances(q4k, score_cutoff=cut)
+            self.check_cutoff_window(q4k, odd_corpus, odd_lens, out, cut,
+                                     f"bucket {ODD_LB} cutoff {cut}")
+        vals_ids = odd.topk(q4k, 10)
+        self.check_topk_window(q4k, odd_corpus, odd_lens, vals_ids["values"],
+                               vals_ids["indices"], 10,
+                               f"bucket {ODD_LB} /topk")
+        self.sync()
+        emit({"phase": "long", "corpus": N_LONG, "bucket": LONG_LB,
+              "odd_corpus": len(odd_corpus), "odd_bucket": ODD_LB,
+              "generate_s": t_gen, "scanner_build_s": t_build,
+              "warmup_s": warm,
+              "request_s": {k: v for k, v in timings.items()},
+              "launches": dict(self.kc.LAUNCHES),
+              "seconds": time.perf_counter() - t_start})
+        self.long_scanner = service.scanner
+        self.odd_scanner = odd.scanner
+        self.long_queries = {"q64": q64, "q300": q300, "q4k": q4k}
+
+    # ------------------------------------------------------------ phase 8
+    def phase_timing(self, clock_mhz: float):
+        """Each kernel and its plain version at its main-path shape, with
+        the least time the card could take for the same work: the
+        short-text kernels at N_TIMING candidates of the serve corpus
+        (bucket 64, len-64 query), the long routes at the long phase's
+        corpora (bucket 8192 and bucket 6000, the ~4,000-char query under
+        cutoff 15 for the bands, the len-64 query for K1).  The plain
+        versions of the long routes walk 6,000-8,192 steps in Python, so
+        they run once, with no warm-up run."""
         torch, lk, bk = self.torch, self.lk, self.bk
         sc = self.serve_scanner
         n = N_TIMING
@@ -480,25 +822,44 @@ class Smoke:
                     for _ in range(15)]
         lasq, tabsq = lk.stage_queries(qs, "local", self.dev)
         ws = bk.table_words(q.size, LB)
-        rows = {}
+        rows, bounds = {}, {}
+        int_ops_s = INT32_LANES * clock_mhz * 1e6
 
-        def timed(name, kernel, plain, reps):
+        def timed(name, kernel, plain, reps, work, warm=True):
             ms = cuda_ms(torch, kernel, reps)
-            pms = cuda_ms(torch, plain, 1)
-            self.compare(name, kernel(), plain(), "timing inputs")
+            ref = []
+            pms = cuda_ms(torch, lambda: ref.append(plain()), 1, warm=warm)
+            self.compare(name, kernel(), ref[-1], "timing inputs")
             rows[name] = (ms, pms)
+            nbytes, ops = work
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = ops / int_ops_s * 1e3
+            bounds[name] = (max(t_bytes, t_ops),
+                            "bytes" if t_bytes >= t_ops else "operations")
+
+        def scan_work(name, lbv, words, nq=1, table_words=None):
+            """Bytes and u32 operations of a K1/K3 launch: each candidate's
+            packed chars, length and output once, the PM table once, and
+            OPS[name] per word and text step."""
+            steps = int(lbv.to(torch.int64).sum())
+            nbytes = (int(((lbv.to(torch.int64) + 3) // 4).sum()) * 4
+                      + lbv.numel() * 4 * (1 + nq)
+                      + nq * (table_words or words) * 1024)
+            return nbytes, OPS[name] * words * nq * steps
 
         timed("lev_scan",
               lambda: lk.lev_1v_many(q, cand, lb, staged=(las, tabs)),
-              lambda: lk.lev_scan_plain(las, tabs[None], cand, lb)[0], 20)
+              lambda: lk.lev_scan_plain(las, tabs[None], cand, lb)[0], 20,
+              scan_work("lev_scan", lb, lk.words(q.size)))
         timed("lev_scan_nq",
               lambda: lk.lev_nq_many(qs, cand, lb, staged=(lasq, tabsq)),
-              lambda: lk.lev_scan_plain(lasq, tabsq, cand, lb), 10)
+              lambda: lk.lev_scan_plain(lasq, tabsq, cand, lb), 10,
+              scan_work("lev_scan_nq", lb, 2, nq=16))
         timed("lev_band",
               lambda: bk.lev_banded_1v_many(q, cand, lb, cutoff=15,
                                             staged=(las, tabs)),
               lambda: bk.lev_band_plain(q.size, 15, 1, tabs[:ws], cand, lb),
-              20)
+              20, scan_work("lev_band", lb, 1, table_words=ws))
         # K2 at the same candidate count: the wide corpus tiled to N_TIMING
         ct = self.wide_chars_t
         reps_w = -(-n // ct.shape[1])
@@ -506,14 +867,66 @@ class Smoke:
         vocab = torch.from_numpy(lk.query_vocab(self.wide_query)[0]).to(
             self.dev)
         timed("remap_pack", lambda: lk.remap_pack(chars_t, vocab),
-              lambda: lk.remap_pack_plain(chars_t, vocab), 20)
-        self.timing = rows
+              lambda: lk.remap_pack_plain(chars_t, vocab), 20,
+              (chars_t.numel() * 5 + 512, OPS["remap_pack"] * chars_t.numel()))
+        del chars_t
+        # the long routes at the long phase's shapes
+        long_sc, odd_sc = self.long_scanner, self.odd_scanner
+        enc = {k: long_sc._encode_query(v)
+               for k, v in self.long_queries.items()}
+        q64, q4k = enc["q64"], enc["q4k"]
+        l64 = lk.stage_query(q64, "local", self.dev)
+        l4k = lk.stage_query(q4k, "local", self.dev)
+        ws_long = bk.table_words(q4k.size, LONG_LB)
+        ws_odd = bk.table_words(q4k.size, ODD_LB)
+        timed("lev_scan_long",
+              lambda: lk.lev_1v_many(q64, long_sc.cand, long_sc.lb,
+                                     staged=l64),
+              lambda: lk.lev_scan_plain(l64[0], l64[1][None], long_sc.cand,
+                                        long_sc.lb)[0], 3,
+              scan_work("lev_scan_long", long_sc.lb, 2), warm=False)
+        timed("lev_band_long",
+              lambda: bk.lev_banded_stream_1v_many(
+                  q4k, long_sc.cand, long_sc.lb, cutoff=15, staged=l4k),
+              lambda: bk.lev_band_plain(q4k.size, 15, 1, l4k[1][:ws_long],
+                                        long_sc.cand, long_sc.lb), 3,
+              scan_work("lev_band_long", long_sc.lb, 1,
+                        table_words=ws_long), warm=False)
+        timed("lev_band_rt",
+              lambda: bk.lev_banded_1v_many(
+                  q4k, odd_sc.cand, odd_sc.lb, cutoff=15, staged=l4k),
+              lambda: bk.lev_band_plain(q4k.size, 15, 1, l4k[1][:ws_odd],
+                                        odd_sc.cand, odd_sc.lb, semi=15), 5,
+              scan_work("lev_band_rt", odd_sc.lb, 1, table_words=ws_odd),
+              warm=False)
+        # K1 over the long corpus at the other query widths of the long
+        # phase: 300 chars (W = 10, the scratch form) and ~4,000 (W = 125)
+        extra = {}
+        for key in ("q300", "q4k"):
+            st = lk.stage_query(enc[key], "local", self.dev)
+            extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
+                torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
+                                              long_sc.lb, staged=st), 2)
+        steps = int(long_sc.lb.to(torch.int64).sum())
+        ms_long = rows["lev_scan_long"][0]
+        self.timing, self.bounds = rows, bounds
         emit({"phase": "timing", "candidates": n, "bucket": LB,
-              "query_len": int(q.size),
+              "query_len": int(q.size), "sm_clock_mhz": clock_mhz,
+              "long_candidates": int(long_sc.lb.numel()),
+              "long_bucket": LONG_LB, "odd_candidates":
+                  int(odd_sc.lb.numel()), "odd_bucket": ODD_LB,
+              "long_query_lens": {k: int(v.size) for k, v in enc.items()},
               "ms": {k: v[0] for k, v in rows.items()},
-              "plain_ms": {k: v[1] for k, v in rows.items()}})
+              "plain_ms": {k: v[1] for k, v in rows.items()},
+              "bound_ms": {k: v[0] for k, v in bounds.items()},
+              "bound_by": {k: v[1] for k, v in bounds.items()},
+              "lev_scan_long_pairs_per_s":
+                  long_sc.lb.numel() / ms_long * 1e3,
+              "lev_scan_long_char_steps_per_s": steps / ms_long * 1e3,
+              **extra})
+        del self.long_scanner, self.odd_scanner
 
-    # ------------------------------------------------------------ phase 7
+    # ------------------------------------------------------------ phase 9
     def phase_rate(self, card: str):
         """Each kernel at N_RATE len-64 candidates, its plain version at
         N_PLAIN_RATE; sampled rows held against the oracle."""
@@ -629,14 +1042,28 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path()})
     smoke.phase_kernels()
-    kc.reset_launches()                 # count the main path alone
+    # two main paths, each counted from zero: the serving path over
+    # short texts, then the long texts
+    kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
     launches = dict(kc.LAUNCHES)
+    for name in SHORT_PATH:
+        if launches[name] == 0:
+            raise AssertionError(f"serving path never launched {name}")
+    smoke.phase_library()
+    kc.reset_launches()
+    smoke.phase_long()
+    long_launches = dict(kc.LAUNCHES)
+    for name in LONG_PATH:
+        if long_launches[name] == 0:
+            raise AssertionError(f"long path never launched {name}")
+    launches = {k: launches[k] + long_launches[k] for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
-    smoke.phase_timing()
+    clock = float(nvidia_smi("clocks.max.sm").split()[0])
+    smoke.phase_timing(clock)
     smoke.phase_rate(card)
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(card, flush=True)
@@ -644,7 +1071,11 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": launches[name],
          "max_abs_err": smoke.err[name], "ms": smoke.timing[name][0],
-         "plain_ms": smoke.timing[name][1]}
+         "plain_ms": smoke.timing[name][1],
+         "bound_ms": smoke.bounds[name][0],
+         "bound_by": smoke.bounds[name][1],
+         # no single PyTorch call computes edit distances
+         "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

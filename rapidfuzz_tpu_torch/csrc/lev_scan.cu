@@ -1,8 +1,15 @@
 // K1: one-vs-many uniform Levenshtein (Myers/Hyyro bit-parallel), one
-// query or NQ queries per launch.
+// query or NQ queries per launch, at any bucket length.
 //
-// Replaces the TPU kernel rapidfuzz_tpu/ops/pallas/lev_kernel.py:_kernel,
-// launched there by _run (one query) and _run_nq (multiq=True, 16 queries).
+// Replaces the TPU kernels rapidfuzz_tpu/ops/pallas/lev_kernel.py:_kernel,
+// launched there by _run (one query) and _run_nq (multiq=True, 16
+// queries), and rapidfuzz_tpu/ops/pallas/stream_kernel.py:_kernel (_run),
+// which serves buckets over 1024 chars by streaming 512-char text chunks
+// through a second grid axis with VP/VN carried in VMEM.  That chunking
+// existed only because a candidate block of a long bucket did not fit
+// VMEM; here a thread walks its own candidate's steps from global memory
+// whatever the bucket, so one kernel serves every length and the wrapper
+// only counts launches at buckets > 1024 apart (lev_scan_long).
 //
 // What bounds it on an H100: integer issue.  A step costs ~17 u32 ops per
 // query word plus one shared-memory PM lookup per word; the corpus is
@@ -27,6 +34,10 @@
 //   j == lb because lanes share control flow; the scanner's length sort
 //   keeps the lengths inside one warp close.
 //   la == 0 gives lb, lb == 0 gives la.
+// * every offset into the corpus, the output and the scratch is 64-bit
+//   (row * B): a 131072-char bucket of 65,536 candidates is 8 GiB packed,
+//   past 2^31 bytes; only per-candidate lengths and the row count lb4 are
+//   32-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>

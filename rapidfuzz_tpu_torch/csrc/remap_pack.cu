@@ -37,19 +37,22 @@ __device__ __forceinline__ uint32_t lookup(const int32_t* vocab, int32_t c) {
 __global__ void __launch_bounds__(kThreads)
 remap_pack_kernel(const int32_t* __restrict__ chars_t,
                   const int32_t* __restrict__ vocab_g,
-                  uint32_t* __restrict__ out, int64_t B) {
+                  uint32_t* __restrict__ out, int64_t B, int lb4) {
     __shared__ int32_t vocab[kVocab];
     if (threadIdx.x < kVocab) vocab[threadIdx.x] = vocab_g[threadIdx.x];
     __syncthreads();
     const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
     if (b >= B) return;
-    const size_t g = blockIdx.y;  // packed row: text positions 4g .. 4g+3
-    const int32_t* src = chars_t + 4 * g * B + b;
-    uint32_t w = 0u;
+    // packed row g holds text positions 4g .. 4g+3; grid.y is capped at
+    // 65,535, so blocks stride over the rows of buckets past 262,140 chars
+    for (size_t g = blockIdx.y; g < (size_t)lb4; g += gridDim.y) {
+        const int32_t* src = chars_t + 4 * g * B + b;
+        uint32_t w = 0u;
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-        w |= lookup(vocab, src[(size_t)u * B]) << (8 * u);
-    out[g * B + b] = w;
+        for (int u = 0; u < 4; ++u)
+            w |= lookup(vocab, src[(size_t)u * B]) << (8 * u);
+        out[g * B + b] = w;
+    }
 }
 
 }  // namespace
@@ -58,7 +61,9 @@ extern "C" cudaError_t rf_remap_pack(const int32_t* chars_t,
                                      const int32_t* vocab, uint32_t* out,
                                      int64_t B, int lb4,
                                      cudaStream_t stream) {
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), lb4);
-    remap_pack_kernel<<<grid, kThreads, 0, stream>>>(chars_t, vocab, out, B);
+    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads),
+                    (unsigned)(lb4 < 65535 ? lb4 : 65535));
+    remap_pack_kernel<<<grid, kThreads, 0, stream>>>(chars_t, vocab, out, B,
+                                                     lb4);
     return cudaGetLastError();
 }

@@ -3,11 +3,12 @@
 Counterpart of ``rapidfuzz_tpu/ops/pallas/__init__.py``.  Every kernel
 under ``rapidfuzz_tpu_torch/csrc/*.cu`` exposes a plain ``extern "C"``
 entry point that launches on the caller's stream and returns the launch's
-``cudaError_t``.  At first use :func:`load` compiles all sources with
-``nvcc`` into one shared library under :data:`rapidfuzz_tpu_torch.BUILD_DIR`,
-named by a hash of the sources and flags (a changed source never loads a
-stale library), and binds it with ctypes.  A failed build raises with
-nvcc's stderr; nothing falls back.
+``cudaError_t``.  At first use :func:`load` compiles each source with its
+own ``nvcc``, all started together, links the objects into one shared
+library under :data:`rapidfuzz_tpu_torch.BUILD_DIR`, named by a hash of the
+sources and flags (a changed source never loads a stale library), and
+binds it with ctypes.  A failed build raises with nvcc's stderr; nothing
+falls back.
 
 :data:`LAUNCHES` counts kernel launches per kernel; a wrapper adds one at
 the point where it launches its kernel and nowhere else, so a run can show
@@ -32,10 +33,16 @@ from ... import BUILD_DIR
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
-#: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0}
+#: kernel name -> launches since the last :func:`reset_launches`.  The
+#: names follow the TPU kernels they replace: K1 at buckets > 1024 chars
+#: counts as ``lev_scan_long`` (``stream_kernel._kernel``), K3 with the
+#: caller's cutoff as its semiwidth as ``lev_band_rt``
+#: (``band_kernel._kernel``) and K3 on the streamed-band route as
+#: ``lev_band_long`` (``band_kernel._stream_kernel``).
+LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
+            "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -50,14 +57,19 @@ _SIGNATURES = {
     "rf_lev_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # chars_t, vocab, out, B, lb4, stream
     "rf_remap_pack": [_P, _P, _P, _I64, _I, _P],
-    # pm, ws, la, cut, bw, cand, lb, out, B, lb4, stream
-    "rf_lev_band": [_P, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _P],
+    # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, stream
+    "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _P],
 }
 
 
 def default_device() -> torch.device:
-    """``cuda`` when a card is present, else ``cpu``."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """``cuda``: the port's entry points run on the card unless the caller
+    passes ``device="cpu"``.  Raises when no card is present."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return torch.device("cuda")
 
 
 def reset_launches() -> None:
@@ -91,22 +103,43 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"librf_cuda_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds) -> None:
+    """Run the commands in parallel; raise with the first failure's
+    stderr once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [(c, p.communicate()[1], p.returncode) for c, p in
+            zip(cmds, procs)]
+    for c, err, rc in errs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc build failed ({' '.join(c)}):\n"
+                               f"{err[-8000:]}")
+
+
 def build() -> str:
     """Compile ``csrc/*.cu`` into the build directory (once per content
-    hash) and return the library's path."""
+    hash): one ``nvcc -c`` per source, all at once, then one link.
+    Returns the library's path."""
     global build_seconds
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    stem = f"{so}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{stem}.{os.path.basename(src)}.o" for src in _sources()]
     t0 = time.perf_counter()
-    p = subprocess.run(cmd, capture_output=True, text=True)
-    if p.returncode != 0:
-        raise RuntimeError(f"nvcc build failed ({' '.join(cmd)}):\n"
-                           f"{p.stderr[-8000:]}")
-    os.replace(tmp, so)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                  for src, obj in zip(_sources(), objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{stem}.tmp",
+                   *objs]])
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    os.replace(f"{stem}.tmp", so)
     build_seconds = time.perf_counter() - t0
     return so
 

@@ -1,19 +1,35 @@
 """One-vs-many banded Levenshtein under a score cutoff, on Hopper.
 
-Counterpart of ``rapidfuzz_tpu/ops/pallas/band_kernel.py:71-77,408-470``.
-``csrc/lev_band.cu`` (K3) replaces ``band_kernel._fast_kernel``: the band
-semiwidth is pinned at ``16*bw - 1`` for ``bw`` in {1, 2, 3} u32 words
-(cutoffs up to :data:`MAX_CUTOFF_FAST`), the diagonal phase runs until the
-band reaches the pattern's last row and the horizontal phase after it
-(``levenshtein.rs:509-617``).  Results are exact when ``<= cutoff`` and
-:data:`BIG` otherwise.
+Counterpart of ``rapidfuzz_tpu/ops/pallas/band_kernel.py``.  One CUDA
+kernel, ``csrc/lev_band.cu`` (K3), serves the three TPU band kernels; its
+band has a run-time semiwidth ``semi`` and a register of ``bw`` u32 words:
 
-The TPU kernel read its PM windows from per-step tables pre-shifted on
+* ``_fast_kernel`` (launch name ``lev_band``): semiwidth pinned at
+  ``16*bw - 1`` for ``bw`` in {1, 2, 3} (cutoffs up to
+  :data:`MAX_CUTOFF_FAST`), buckets up to :data:`FAST_MAX_LB`;
+* ``_stream_kernel`` (``lev_band_long``): the same pinned band over
+  buckets of any length (:func:`lev_banded_stream_1v_many`).  The TPU
+  streamed the text in 512-char chunks to fit VMEM; a CUDA thread walks
+  its candidate's whole text, so nothing is chunked;
+* ``_kernel`` (``lev_band_rt``): one word, semiwidth = the caller's cutoff
+  (up to :data:`MAX_CUTOFF`), which the JAX wrapper takes for queries no
+  longer than the pinned band or buckets over :data:`FAST_MAX_LB`.  It is
+  K3 at ``bw = 1``, ``semi = cutoff``: one kernel with a semiwidth
+  argument covers both bands, where a second kernel would repeat K3's
+  recurrence line for line (the kernel is also built with the pinned
+  semiwidth as a constant, which keeps the pinned band as fast as it
+  was).
+
+The diagonal phase runs until the band reaches the pattern's last row and
+the horizontal phase after it (``levenshtein.rs:509-617``).  Results are
+exact when ``<= cutoff`` and :data:`BIG` otherwise.
+
+The TPU kernels read their PM windows from per-step tables pre-shifted on
 the host (``build_shifted_tables``, ``probe_table``) because scalar shifts
-were slow on the v5e.  Here each step reads the two PM words around its
-window from the query's ``[W, 256]`` table (the one K1 uses) and joins
-them with a funnel shift; the probe bit is computed in-thread.  So only
-the first :func:`table_words` words of the table are ever read.
+were slow on the v5e.  Here each step reads the words around its window
+from the query's ``[W, 256]`` table (the one K1 uses) and joins them with
+a funnel shift; the probe bit is computed in-thread.  So only the first
+:func:`table_words` words of the table are ever read.
 """
 
 from __future__ import annotations
@@ -28,7 +44,7 @@ BIG = np.int32(1 << 29)
 MAX_CUTOFF = 15        # one-word band (the TPU's dynamic kernel)
 MAX_CUTOFF_FAST = 47   # pinned band of up to 3 words
 FLAT_MAX_STEPS = 512   # the TPU's flat-unroll budget (kept for routing)
-FAST_MAX_LB = 1024     # largest bucket the pinned band serves
+FAST_MAX_LB = 1024     # the TPU's bucket cap of the pinned band (routing)
 
 
 def band_words(cutoff: int) -> int:
@@ -40,30 +56,34 @@ def band_words(cutoff: int) -> int:
 def table_words(la: int, LB: int) -> int:
     """PM words a band scan over an ``LB`` bucket reads: the window of
     band word ``k`` at step ``j`` starts at pattern position
-    ``j - 16*bw + 32*k <= LB + 15``, so words past ``(LB + 16)//32 + 1``
-    are never touched."""
+    ``j + semi + 1 - 32*bw + 32*k <= LB + semi - 32 <= LB + 15`` (``semi``
+    is at most 47), so words past ``(LB + 16)//32 + 1`` are never
+    touched."""
     return min(words(la), (LB + 16) // 32 + 2)
 
 
-def _vp0(bw: int) -> list[int]:
-    """Initial VP: the register's top ``16*bw`` bits set."""
+def _vp0(bw: int, semi: int) -> list[int]:
+    """Initial VP: the register's top ``semi + 1`` bits set."""
+    lo = 32 * bw - 1 - semi
     out = []
     for k in range(bw):
-        lo_bit = 32 * k
-        if lo_bit >= 16 * bw:
+        if 32 * k >= lo:
             out.append(M32)
-        elif lo_bit + 32 <= 16 * bw:
+        elif 32 * k + 31 < lo:
             out.append(0)
         else:
-            out.append((M32 << (16 * bw - lo_bit)) & M32)
+            out.append((M32 << (lo - 32 * k)) & M32)
     return out
 
 
 def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
-                   cand: torch.Tensor, lb: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch K3 -> ``[B]`` int32, the recurrence of
-    ``band_kernel._fast_kernel`` vectorised over candidates."""
-    maxc = 16 * bw - 1
+                   cand: torch.Tensor, lb: torch.Tensor,
+                   semi: int | None = None) -> torch.Tensor:
+    """Plain PyTorch K3 -> ``[B]`` int32: the band recurrence of
+    ``band_kernel._fast_kernel`` (``semi`` = ``16*bw - 1``, the default)
+    and ``band_kernel._kernel`` (``bw = 1``, ``semi`` = the cutoff),
+    vectorised over candidates."""
+    semi = 16 * bw - 1 if semi is None else semi
     WS = tabs.shape[0]
     LB = cand.shape[0] * 4
     lbc = lb.to(torch.int64).clamp(max=LB)
@@ -71,10 +91,10 @@ def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
     tab = u32(tabs)
     c64 = u32(cand)
     zero = torch.zeros_like(lbc)
-    vp = [torch.full_like(lbc, v) for v in _vp0(bw)]
+    vp = [torch.full_like(lbc, v) for v in _vp0(bw, semi)]
     vn = [zero] * bw
-    dist = torch.full_like(lbc, maxc)
-    pstart = max(la - maxc, 0)
+    dist = torch.full_like(lbc, semi)
+    pstart = max(la - semi, 0)
     for j in range(steps):
         ch = (c64[j >> 2] >> (8 * (j & 3))) & 0xFF
 
@@ -83,7 +103,7 @@ def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
 
         x = []
         for k in range(bw):
-            start = j - 16 * bw + 32 * k
+            start = j + semi + 1 - 32 * bw + 32 * k
             widx, s = start >> 5, start & 31
             lo, hi = pmw(widx), pmw(widx + 1)
             x.append(lo if s == 0 else (lo >> s) | ((hi << (32 - s)) & M32))
@@ -94,7 +114,7 @@ def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
             carry = t >> 32
             d0k = ((t & M32) ^ vp[k]) | x[k] | vn[k]
             d0.append(d0k)
-            hp.append(vn[k] | (~(d0k | vp[k]) & M32))
+            hp.append(vn[k] | (M32 ^ (d0k | vp[k])))
             hn.append(d0k & vp[k])
         kk = j - pstart
         if 0 <= kk <= 32 * bw - 2:        # horizontal phase: probe bit
@@ -107,7 +127,7 @@ def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
         for k in range(bw):
             hi = ((d0[k + 1] << 31) & M32) if k + 1 < bw else 0
             d0s = (d0[k] >> 1) | hi
-            vp[k] = hn[k] | (~(d0s | hp[k]) & M32)
+            vp[k] = hn[k] | (M32 ^ (d0s | hp[k]))
             vn[k] = d0s & hp[k]
     lb64 = lb.to(torch.int64)
     dist = torch.where(lb64 == 0, la, dist)
@@ -122,11 +142,12 @@ def lev_banded_1v_many(query: np.ndarray, cand: torch.Tensor,
     """Banded one-vs-many Levenshtein -> ``[B]`` int32.
 
     Exact when ``<= cutoff``; candidates above the cutoff yield
-    :data:`BIG`.  Requires ``0 <= cutoff <= MAX_CUTOFF_FAST`` and
-    ``cutoff < len(query)``, as the JAX wrapper does.  Only the pinned
-    band (query longer than ``16*bw - 1``, bucket <= ``FAST_MAX_LB``) is
-    ported; the one-word run-time-shift band the JAX package routes
-    otherwise raises ``NotImplementedError``.  ``staged`` is
+    :data:`BIG`.  Routes as the JAX wrapper does: the pinned band when the
+    query is longer than it (``16*bw - 1`` chars) and the bucket is at
+    most :data:`FAST_MAX_LB`, else the run-time band of semiwidth
+    ``cutoff``, which needs ``cutoff <= MAX_CUTOFF`` (``ValueError``
+    otherwise).  Requires ``0 <= cutoff <= MAX_CUTOFF_FAST`` and
+    ``cutoff < len(query)``.  ``staged`` is
     :func:`~.lev_kernel.stage_query`'s output for this query and mode."""
     q = np.asarray(query)
     la = int(q.size)
@@ -134,6 +155,52 @@ def lev_banded_1v_many(query: np.ndarray, cand: torch.Tensor,
         raise ValueError(f"cutoff {cutoff} outside [0, {MAX_CUTOFF_FAST}]")
     if cutoff >= la:
         raise ValueError("banded kernel requires cutoff < len(query)")
+    LB = cand.shape[0] * 4
+    bw = band_words(cutoff)
+    if la > 16 * bw - 1 and LB <= FAST_MAX_LB:
+        # the pinned band (semiwidth 16*bw - 1 >= cutoff; the true
+        # cutoff applies in the final mask)
+        return _band(q, cand, lb, cutoff, bw, 16 * bw - 1, mode, staged,
+                     "lev_band")
+    if cutoff > MAX_CUTOFF:
+        raise ValueError(
+            f"cutoff {cutoff} > {MAX_CUTOFF} needs the pinned band kernel "
+            f"(query > {16 * bw - 1} chars, bucket <= {FAST_MAX_LB})")
+    return _band(q, cand, lb, cutoff, 1, cutoff, mode, staged, "lev_band_rt")
+
+
+def lev_banded_stream_1v_many(query: np.ndarray, cand: torch.Tensor,
+                              lb: torch.Tensor, *, cutoff: int,
+                              mode: str = "byte",
+                              staged=None) -> torch.Tensor:
+    """Banded scan over long (> 1024-char) candidate buckets -> ``[B]``
+    int32, the pinned band of :func:`lev_banded_1v_many` at any bucket
+    length (``band_kernel.lev_banded_stream_1v_many``).
+
+    Same contract (exact when ``<= cutoff``, :data:`BIG` above it) and the
+    JAX wrapper's refusals: ``0 <= cutoff <= MAX_CUTOFF_FAST``,
+    ``cutoff < len(query)`` and a query longer than the pinned band.  The
+    TPU kernel also needed a bucket that is a multiple of its 512-char
+    chunk; this one takes any."""
+    q = np.asarray(query)
+    la = int(q.size)
+    if not 0 <= cutoff <= MAX_CUTOFF_FAST:
+        raise ValueError(f"cutoff {cutoff} outside [0, {MAX_CUTOFF_FAST}]")
+    if cutoff >= la:
+        raise ValueError("banded kernel requires cutoff < len(query)")
+    bw = band_words(cutoff)
+    if la <= 16 * bw - 1:
+        raise ValueError("pinned band must be narrower than the pattern")
+    return _band(q, cand, lb, cutoff, bw, 16 * bw - 1, mode, staged,
+                 "lev_band_long")
+
+
+def _band(q: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, cut: int,
+          bw: int, semi: int, mode: str, staged, name: str) -> torch.Tensor:
+    """K3 with a ``bw``-word band of semiwidth ``semi`` -> ``[B]`` int32
+    (kernel on CUDA tensors counted under ``name``, plain version on CPU
+    tensors)."""
+    la = int(q.size)
     dev = cand.device
     check(cand, "cand", torch.int32, 2)
     check(lb, "lb", torch.int32, 1, dev)
@@ -141,24 +208,18 @@ def lev_banded_1v_many(query: np.ndarray, cand: torch.Tensor,
     B = lb.shape[0]
     if cand.shape[1] != B:
         raise ValueError(f"cand {tuple(cand.shape)} vs lb {tuple(lb.shape)}")
-    bw = band_words(cutoff)
-    if not (la > 16 * bw - 1 and LB <= FAST_MAX_LB):
-        raise NotImplementedError(
-            "the run-time-shift band (query <= 16*bw - 1 chars or bucket "
-            f"> {FAST_MAX_LB}) is not ported yet (ROADMAP.md queue 1, "
-            "item 4)")
     _, tabs = staged if staged is not None else stage_query(q, mode, dev)
     check(tabs, "tabs", torch.int32, 2, dev)
     if tabs.shape[1] != PM_ROWS:
         raise ValueError(f"tabs {tuple(tabs.shape)}, expected [W, 256]")
     tabs = tabs[: table_words(la, LB)]
     if dev.type == "cpu":
-        return lev_band_plain(la, cutoff, bw, tabs, cand, lb)
+        return lev_band_plain(la, cut, bw, tabs, cand, lb, semi)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        launch("lev_band", "rf_lev_band", dev, tabs.data_ptr(),
-               tabs.shape[0], la, cutoff, bw, cand.data_ptr(),
-               lb.data_ptr(), out.data_ptr(), B, cand.shape[0])
+        launch(name, "rf_lev_band", dev, tabs.data_ptr(), tabs.shape[0], la,
+               cut, semi, bw, cand.data_ptr(), lb.data_ptr(),
+               out.data_ptr(), B, cand.shape[0])
     return out

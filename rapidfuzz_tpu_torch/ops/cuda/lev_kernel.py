@@ -4,7 +4,13 @@ remap, on Hopper.
 Counterpart of ``rapidfuzz_tpu/ops/pallas/lev_kernel.py``.  Kernels:
 
 * ``csrc/lev_scan.cu`` (K1) replaces ``lev_kernel._kernel`` in both its
-  one-query form (``_run``) and its 16-query form (``_run_nq``);
+  one-query form (``_run``) and its 16-query form (``_run_nq``), and
+  ``stream_kernel._kernel`` (``_run``), which the JAX package takes for
+  buckets over 1024 chars: the TPU streamed such texts in 512-char chunks
+  because a candidate block did not fit VMEM, while a CUDA thread walks
+  its candidate's text at any length, so the same kernel serves every
+  bucket.  One-query launches over buckets longer than :data:`LONG_LB`
+  count as ``lev_scan_long``;
 * ``csrc/remap_pack.cu`` (K2) replaces ``lev_kernel._remap_kernel``
   (``remap_pack``).
 
@@ -22,8 +28,9 @@ Layouts (the JAX arrays with the TPU's ``(B/128, 128)`` tiling flattened):
 Each wrapper runs its kernel when handed CUDA tensors and the plain
 PyTorch version (``*_plain``) when handed CPU tensors; it never falls
 back from one to the other.  The plain versions compute in int64 masked
-to 32 bits after every add, complement and left shift, so shifts are
-logical and sums wrap exactly as the kernels' u32 arithmetic does.
+to 32 bits after every add and left shift, and complement by XOR with
+``0xFFFFFFFF``, so shifts are logical and sums wrap exactly as the
+kernels' u32 arithmetic does.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from . import check, launch
 LANE = 128       # the JAX package's lane width (layout mapping, pick_mode)
 PM_ROWS = 256    # PM table entries: every byte value
 MAX_REG_W = 8    # K1 keeps VP/VN in registers up to this many words
+LONG_LB = 1024   # longest bucket of the TPU's lev_kernel; longer buckets
+                 # were stream_kernel's (the lev_scan_long count)
 MISS_ID = 127    # query-local id for "not in query": PM row 127 is zero
                  # whenever the query has <= 127 distinct symbols
 M32 = 0xFFFFFFFF
@@ -108,16 +117,31 @@ def _pack4(t: torch.Tensor) -> torch.Tensor:
 
 
 def prepare_corpus(chars: torch.Tensor, lens: torch.Tensor):
-    """``[B, LB]`` int32 chars (< 256, PAD -1) -> (``[LB/4, B]`` packed
-    int32, ``[B]`` int32 lengths), on the chars' device.
+    """``[B, LB]`` chars -> (``[LB/4, B]`` packed int32, ``[B]`` int32
+    lengths), on the chars' device.
 
-    Four text positions pack into each u32 so that each text step of a
-    thread is one coalesced 4-byte load per 4 chars; pad bytes are 0 and
-    never read (a thread stops at its candidate's length)."""
-    check(chars, "chars", torch.int32, 2)
-    c = chars.clamp(min=0).to(torch.int64).t()
-    return _pack4(c), lens.to(device=chars.device,
-                              dtype=torch.int32).contiguous()
+    ``chars`` is int32 (values < 256, PAD -1) or uint8 (PAD as 0).  Four
+    text positions pack into each u32 so that each text step of a thread
+    is one coalesced 4-byte load per 4 chars; pad bytes are 0 and never
+    read (a thread stops at its candidate's length).  The bytes are
+    reinterpreted in place (little-endian: char ``j`` in byte ``j % 4``),
+    so packing needs one byte array and one transposed copy, never a wider
+    temporary."""
+    if chars.dtype == torch.int32:
+        u8 = chars.clamp(min=0).to(torch.uint8)
+    elif chars.dtype == torch.uint8:
+        u8 = chars.contiguous()
+    else:
+        raise TypeError(f"chars: dtype {chars.dtype}, expected int32 or "
+                        "uint8")
+    if u8.dim() != 2:
+        raise ValueError(f"chars: {u8.dim()}-d, expected 2-d")
+    if u8.shape[1] % 4:
+        raise ValueError(f"candidate bucket {u8.shape[1]} must be a "
+                         "multiple of 4")
+    packed = u8.view(torch.int32).t().contiguous()
+    return packed, lens.to(device=chars.device,
+                           dtype=torch.int32).contiguous()
 
 
 def transpose_corpus(chars: torch.Tensor) -> torch.Tensor:
@@ -181,43 +205,40 @@ def lev_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     """Plain PyTorch K1: ``las [NQ]``, ``tabs [NQ, W, 256]`` -> ``[NQ, B]``
     int32 distances.  The block recurrence of ``lev_kernel._kernel``
     (Hyyrö's HP/HN carry chain across W words, ``levenshtein.rs:838-875``)
-    vectorised over candidates; each distance stops at its candidate's
-    length."""
+    vectorised over queries and candidates; each distance stops at its
+    candidate's length."""
     NQ, W, _ = tabs.shape
     LB = cand.shape[0] * 4
     lbc = lb.to(torch.int64).clamp(max=LB)
     steps = int(lbc.max()) if lbc.numel() else 0
     c64 = u32(cand)
-    outs = []
-    for qi, la in enumerate(las.tolist()):
-        if la == 0:
-            outs.append(lb.to(torch.int32))
-            continue
-        tab = u32(tabs[qi])
-        last = (la - 1) & 31
-        vp = [torch.full_like(lbc, M32) for _ in range(W)]
-        vn = [torch.zeros_like(lbc) for _ in range(W)]
-        dist = torch.full_like(lbc, la)
-        for j in range(steps):
-            ch = (c64[j >> 2] >> (8 * (j & 3))) & 0xFF
-            hp_c, hn_c = 1, 0
-            delta = None
-            for w in range(W):
-                x = tab[w][ch] | hn_c
-                d0 = ((((x & vp[w]) + vp[w]) & M32) ^ vp[w]) | x | vn[w]
-                hp = vn[w] | (~(d0 | vp[w]) & M32)
-                hn = d0 & vp[w]
-                if w == W - 1:
-                    delta = ((hp >> last) & 1) - ((hn >> last) & 1)
-                hp_s = ((hp << 1) & M32) | hp_c
-                hn_s = ((hn << 1) & M32) | hn_c
-                vp[w] = hn_s | (~(d0 | hp_s) & M32)
-                vn[w] = hp_s & d0
-                hp_c, hn_c = hp >> 31, hn >> 31
-            dist = torch.where(j < lbc, dist + delta, dist)
-        outs.append(dist.to(torch.int32))
-    return torch.stack(outs) if outs else torch.empty(
-        (0, lb.numel()), dtype=torch.int32)
+    tab = u32(tabs)
+    la = las.to(torch.int64)[:, None]                    # [NQ, 1]
+    last = (la - 1) & 31
+    vp = [torch.full((NQ, lbc.numel()), M32, dtype=torch.int64,
+                     device=lb.device) for _ in range(W)]
+    vn = [torch.zeros_like(vp[0]) for _ in range(W)]
+    dist = la.expand_as(vp[0]).clone()
+    for j in range(steps):
+        ch = (c64[j >> 2] >> (8 * (j & 3))) & 0xFF
+        hp_c, hn_c = 1, 0
+        delta = None
+        for w in range(W):
+            x = tab[:, w, ch] | hn_c
+            d0 = ((((x & vp[w]) + vp[w]) & M32) ^ vp[w]) | x | vn[w]
+            hp = vn[w] | (M32 ^ (d0 | vp[w]))
+            hn = d0 & vp[w]
+            if w == W - 1:
+                delta = ((hp >> last) & 1) - ((hn >> last) & 1)
+            hp_s = ((hp << 1) & M32) | hp_c
+            hn_s = ((hn << 1) & M32) | hn_c
+            vp[w] = hn_s | (M32 ^ (d0 | hp_s))
+            vn[w] = hp_s & d0
+            hp_c, hn_c = hp >> 31, hn >> 31
+        dist = torch.where(j < lbc, dist + delta, dist)
+    # an empty query gives each candidate's length
+    dist = torch.where(la == 0, lb.to(torch.int64)[None, :], dist)
+    return dist.to(torch.int32)
 
 
 def _lev_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
@@ -253,7 +274,9 @@ def _lev_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
 
 def lev_1v_many(query: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, *,
                 mode: str = "byte", staged=None) -> torch.Tensor:
-    """One-vs-many uniform Levenshtein distances -> ``[B]`` int32.
+    """One-vs-many uniform Levenshtein distances -> ``[B]`` int32, at any
+    bucket length (``lev_kernel.lev_1v_many`` and
+    ``stream_kernel.lev_stream_1v_many``).
 
     ``cand``/``lb`` from :func:`prepare_corpus` (or :func:`remap_pack`);
     ``staged`` (from :func:`stage_query`) skips the per-call table
@@ -261,8 +284,8 @@ def lev_1v_many(query: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, *,
     q = np.asarray(query)
     las, tabs = staged if staged is not None else stage_query(
         q, mode, cand.device)
-    return _lev_scan(las, tabs.reshape(1, *tabs.shape), cand, lb,
-                     "lev_scan")[0]
+    name = "lev_scan_long" if cand.shape[0] * 4 > LONG_LB else "lev_scan"
+    return _lev_scan(las, tabs.reshape(1, *tabs.shape), cand, lb, name)[0]
 
 
 def lev_nq_many(queries, cand: torch.Tensor, lb: torch.Tensor, *,

@@ -3,9 +3,10 @@ bindings.
 
 The port's counterpart of ``rapidfuzz_tpu.oracle``: the same source and
 g++ flags, built into the port's own build directory so the two packages
-never share (or race on) one shared object.  Only the uniform
-Levenshtein entry points that the ported scans are checked against are
-bound so far.
+never share (or race on) one shared object.  Bound so far: the uniform
+Levenshtein entry points the ported scans are checked against, and the
+weighted Levenshtein and indel entry points the library's scalar path
+uses.
 """
 
 from __future__ import annotations
@@ -60,6 +61,16 @@ def _load():
             lib.rf_levenshtein_uniform_1vN.restype = None
             lib.rf_levenshtein_uniform_1vN.argtypes = [p64, i64, p64, p64,
                                                        i64, p64]
+            lib.rf_levenshtein_uniform_bp.restype = i64
+            lib.rf_levenshtein_uniform_bp.argtypes = [p64, i64, p64, i64,
+                                                      i64]
+            lib.rf_levenshtein_weighted.restype = i64
+            lib.rf_levenshtein_weighted.argtypes = [p64, i64, p64, i64, i64,
+                                                    i64, i64]
+            lib.rf_indel.restype = i64
+            lib.rf_indel.argtypes = [p64, i64, p64, i64]
+            lib.rf_indel_bp.restype = i64
+            lib.rf_indel_bp.argtypes = [p64, i64, p64, i64]
             _lib = lib
     return _lib
 
@@ -82,3 +93,63 @@ def levenshtein_uniform_1vN(q, flat, offsets) -> np.ndarray:
     out = np.empty(n, np.int64)
     _load().rf_levenshtein_uniform_1vN(q, q.size, flat, offsets, n, out)
     return out
+
+
+#: above this len1*len2 product the bit-parallel u64 kernels beat the
+#: textbook row DP (the JAX package's oracle routes on the same product)
+_BP_MIN_CELLS = 64
+
+
+def levenshtein_uniform_bp(a, b, cutoff: int = -1) -> int:
+    """Myers/Hyyrö u64 blockwise uniform Levenshtein.  ``cutoff >= 0``:
+    banded, exact when the distance is <= cutoff, else ``cutoff + 1``;
+    ``cutoff < 0``: full and exact."""
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_levenshtein_uniform_bp(a, a.size, b, b.size,
+                                                 int(cutoff)))
+
+
+def levenshtein_uniform_auto(a, b, cutoff=None, hint=None) -> int:
+    """Uniform Levenshtein with the reference's one-shot routing
+    (``levenshtein.rs:1104-1222``): tiny pairs on the quadratic DP, a
+    caller cutoff bounds the band directly, a ``score_hint`` seeds a
+    geometric band ladder (exactness never depends on the hint).
+
+    Returns the exact distance when it is <= the cutoff, else any value
+    above it (callers mask).  A cutoff at or above ``max(len)`` cannot
+    reject anything and is clamped there, so it fits the C int64."""
+    a, b = _arr(a), _arr(b)
+    m, n = a.size, b.size
+    lim = max(m, n)
+    if cutoff is not None:
+        cutoff = min(cutoff, lim)
+    lib = _load()
+    if m * n <= _BP_MIN_CELLS:
+        d = int(lib.rf_levenshtein_uniform(a, m, b, n))
+        return d if cutoff is None or d <= cutoff else int(cutoff) + 1
+    if cutoff is not None and (hint is None or hint >= cutoff):
+        return int(lib.rf_levenshtein_uniform_bp(a, m, b, n, int(cutoff)))
+    if cutoff is None and hint is None and lim <= 512:
+        # short pairs: one full blockwise pass beats the band ladder
+        return int(lib.rf_levenshtein_uniform_bp(a, m, b, n, -1))
+    k = max(int(hint) if hint is not None else 64, abs(m - n), 16)
+    while True:
+        if cutoff is not None:
+            k = min(k, int(cutoff))
+        r = int(lib.rf_levenshtein_uniform_bp(a, m, b, n, int(k)))
+        if r <= k or k >= lim or (cutoff is not None and k >= cutoff):
+            return r
+        k = min(k * 4, lim)
+
+
+def levenshtein_weighted(a, b, ins: int, dele: int, sub: int) -> int:
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_levenshtein_weighted(a, a.size, b, b.size, ins,
+                                               dele, sub))
+
+
+def indel(a, b) -> int:
+    a, b = _arr(a), _arr(b)
+    if a.size * b.size > _BP_MIN_CELLS:
+        return int(_load().rf_indel_bp(a, a.size, b, b.size))
+    return int(_load().rf_indel(a, a.size, b, b.size))

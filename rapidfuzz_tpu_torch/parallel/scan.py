@@ -4,10 +4,13 @@ Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform
 Levenshtein: the corpus is encoded once, length-sorted, packed and kept
 on the device, and every query scan reuses it — the reference's
 ``BatchComparator`` pattern (``levenshtein.rs:1625-1657``) over a corpus.
-Routing follows the JAX scanner rule for rule (the rules were tuned on a
-TPU and are kept for parity); only the ops wrappers choose between a
-kernel (CUDA tensors) and its plain version (CPU tensors), so the host
-logic is the same on both.
+Routing follows the JAX scanner's Pallas rules (they were tuned on a TPU
+and are kept for parity), with one exception: a bucket over 1024 chars
+that is not whole 512-char chunks leaves the JAX scanner's Pallas kernels
+for its XLA scan, and there the port picks its own route, the run-time
+band or the full scan.  Only the ops wrappers choose between a kernel
+(CUDA tensors) and its plain version (CPU tensors), so the host logic is
+the same on both.
 """
 
 from __future__ import annotations
@@ -25,19 +28,34 @@ from ..utils import codec as _codec
 
 #: candidates per CUDA block: the corpus pads to a whole block
 BLOCK = 256
-#: longest candidate bucket the ported kernels scan
-MAX_LB = 1024
+#: the JAX scanner streams buckets over 1024 chars that are whole 512-char
+#: chunks (scan.py:212-216) and scans other long buckets with XLA
+#: (:227-231); the port keeps the split so that stream buckets route as
+#: there, though its kernels need no chunks
+STREAM_CHUNK = 512
 
 
 class CorpusScanner:
     """One-vs-many uniform Levenshtein scan over a device-resident corpus.
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
-    (default: ``cuda`` when a card is present).  Corpora with chars >= 256
-    are kept unpacked and remapped per query to query-local ids (K2).
-    ``weights`` = ``(insertion, deletion, substitution)`` costs reduce as
-    in the JAX scanner: a multiple of uniform scales the distances, zero
-    insert/delete costs give all-zero distances.
+    (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
+    Corpora with chars >= 256 are kept unpacked and remapped per query to
+    query-local ids (K2).  ``weights`` = ``(insertion, deletion,
+    substitution)`` costs reduce as in the JAX scanner: a multiple of
+    uniform scales the distances, zero insert/delete costs give all-zero
+    distances.  Every bucket length is served; buckets over 1024 chars
+    that are whole 512-char chunks take the JAX scanner's long routes
+    (the streamed band and the full scan), other long buckets, which the
+    JAX scanner leaves to XLA, the port's own (the run-time band and the
+    full scan).
+
+    Device memory is planned here, once: ``LB`` bytes per candidate for
+    the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
+    per query), 4 for its length.  Per query a scan adds an int32 output,
+    for queries over 256 chars K1's ``[2W, B]`` int32 carry scratch, and
+    for a hint scan its stragglers, compacted in chunks of at most an
+    eighth of the corpus, so no scan stages a second corpus-sized copy.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
@@ -91,7 +109,7 @@ class CorpusScanner:
         # checkpoints refuse to resume against a different corpus of the
         # same shape; chars+lens+vocab determine the original elements
         h = hashlib.sha1()
-        h.update(chars.tobytes())
+        h.update(np.ascontiguousarray(chars))    # hashed in place, no copy
         h.update(lens.tobytes())
         if self._vocab is not None:
             h.update(self._vocab.tobytes())
@@ -99,35 +117,43 @@ class CorpusScanner:
         n = len(lens)
         self.lengths = lens[:n].copy()     # host lengths, corpus order
         self._cmax = int(chars.max()) if chars.size else 0
-        self._LB = chars.shape[1]
-        if self._LB > MAX_LB:
-            raise NotImplementedError(
-                f"buckets > {MAX_LB} chars (streamed scans) are not ported "
-                "yet (ROADMAP.md queue 1, item 9)")
+        # a packed word holds 4 chars: a bucket that is not a multiple of
+        # 4 gains PAD columns, which change no distance
+        self._LB = -(-chars.shape[1] // 4) * 4
+        self._long = self._LB > _lk.LONG_LB
+        self._stream = self._long and self._LB % STREAM_CHUNK == 0
         self._wide = self._cmax >= 256
         padded = -(-max(n, 1) // BLOCK) * BLOCK
-        if padded != n:
-            chars = np.concatenate(
-                [chars, np.full((padded - n, self._LB), _codec.PAD,
-                                np.int32)])
-            # padded rows have length 0 and are masked out by _valid
-            lens = np.concatenate([lens, np.zeros(padded - n, np.int32)])
+        # padding rows have length 0 and are masked out by _valid
+        lens = np.concatenate([lens, np.zeros(padded - n, np.int32)])
         self.n = n
         # length sort: a warp's candidates then run similar step counts;
         # padding rows (length 0) sort to the front
         self._order = np.argsort(lens, kind="stable")
         self._valid = self._order < n
-        chars = chars[self._order]
-        lens = lens[self._order]
-        dev_chars = torch.from_numpy(chars).to(self.device)
-        self.lb = torch.from_numpy(lens).to(self.device)
+        real = self._order[self._valid]
+        self.lb = torch.from_numpy(lens[self._order]).to(self.device)
+        width = chars.shape[1]
         if self._wide:
             # kept unpacked and pre-transposed: each query remaps it to
             # query-local byte ids (K2)
-            self._chars_dev = _lk.transpose_corpus(dev_chars)
+            srt = np.full((padded, self._LB), _codec.PAD, np.int32)
+            srt[self._valid, :width] = chars[real]
+            del chars
+            self._chars_dev = _lk.transpose_corpus(
+                torch.from_numpy(srt).to(self.device))
             self.cand = None
         else:
-            self.cand, _ = _lk.prepare_corpus(dev_chars, self.lb)
+            # chars < 256: sort and pack bytes, so neither the host nor
+            # the device holds another copy as wide as the codec output
+            np.maximum(chars, 0, out=chars)
+            c8 = chars.astype(np.uint8)
+            del chars
+            srt = np.zeros((padded, self._LB), np.uint8)
+            srt[self._valid, :width] = c8[real]
+            del c8
+            self.cand, _ = _lk.prepare_corpus(
+                torch.from_numpy(srt).to(self.device), self.lb)
             self._chars_dev = None
 
     def _encode_query(self, query):
@@ -165,86 +191,116 @@ class CorpusScanner:
         return q_local, "local", cand
 
     def _distances_dev(self, query, score_cutoff=None, score_hint=None):
-        """Distances in sorted (padded) corpus order, as host int32."""
+        """Distances in sorted (padded) corpus order, as host int32,
+        routed as the JAX scanner routes (``scan.py:678-797``)."""
         q = self._encode_query(query)
         if self._zero:
             return np.zeros(self.lb.shape[0], np.int64)
         qk, mode, cand = self._query_view(q)
-        eff_cut = (None if score_cutoff is None or self._wscale != 1
-                   else score_cutoff)
-        if eff_cut is None and score_hint is not None and self._wscale == 1:
+        cut = (None if score_cutoff is None or self._wscale != 1
+               else score_cutoff)
+        if cut is not None and self._stream:
+            cut = int(cut)   # the streamed rules test the int (scan.py:685)
+        if cut is None and score_hint is not None and self._wscale == 1:
             out = self._lev_hint_scan(qk, mode, cand, int(score_hint))
             if out is not None:
                 return out
-        band_ok = (eff_cut is not None
-                   and 0 <= eff_cut <= _bk.MAX_CUTOFF_FAST
-                   and self._band_pays(int(eff_cut), q.size))
-        if band_ok:
-            # banded fast path: exact when <= cutoff, masked after
-            out = _bk.lev_banded_1v_many(qk.astype(np.int32), cand, self.lb,
-                                         cutoff=int(eff_cut), mode=mode)
-            return out.cpu().numpy()
+        if cut is not None and 0 <= cut <= _bk.MAX_CUTOFF_FAST \
+                and cut < q.size:
+            band = self._band_route(int(cut), q.size)
+            if band is not None:
+                # banded: exact when <= cutoff, BIG above it
+                out = band(qk.astype(np.int32), cand, self.lb,
+                           cutoff=int(cut), mode=mode)
+                return out.cpu().numpy()
         out = _lk.lev_1v_many(qk, cand, self.lb, mode=mode)
         if self._wscale != 1:
             out = out * self._wscale
         return out.cpu().numpy()
 
+    def _band_route(self, cut: int, qsize: int):
+        """The band wrapper the JAX scanner's rules pick for a cutoff
+        ``cut < qsize``, or None for the full scan.  The crossovers were
+        measured on a TPU v5e and are kept for parity:
+
+        * streamed buckets (``scan.py:693-697``): the pinned band once the
+          query's word count clears ``2*bw + 1``;
+        * other buckets (``scan.py:766-784``): the pinned band for a query
+          longer than it over a bucket of at most ``FAST_MAX_LB``, paying
+          once ``Wq >= 2*bw`` (flat form, ``LB*bw <= FLAT_MAX_STEPS``) or
+          ``2*bw + 1``; otherwise the run-time band for queries over 160
+          chars and cutoffs up to ``MAX_CUTOFF``.  Only buckets over 1024
+          that are not whole stream chunks reach that branch, and the JAX
+          scanner scans those with XLA, so there the rule is the port's
+          own choice."""
+        bw = _bk.band_words(cut)
+        Wq = _lk.words(qsize)
+        if self._stream:
+            if qsize > 16 * bw - 1 and Wq >= 2 * bw + 1:
+                return _bk.lev_banded_stream_1v_many
+            return None
+        if qsize > 16 * bw - 1 and self._LB <= _bk.FAST_MAX_LB:
+            if self._LB * bw <= _bk.FLAT_MAX_STEPS:
+                ok = Wq >= 2 * bw
+            else:
+                ok = Wq >= 2 * bw + 1
+        else:
+            ok = qsize > 160 and cut <= _bk.MAX_CUTOFF
+        return _bk.lev_banded_1v_many if ok else None
+
     def _lev_hint_scan(self, qk, mode, cand, hint):
         """Two-pass hint scan (the reference's score-hint ladder,
-        ``levenshtein.rs:1069-1088``): pass 1 runs the banded kernel at
-        the hint; the candidates it rejected are gathered into a dense
-        sub-corpus for one full-kernel pass, so every distance stays
-        exact.  Returns None when the hint isn't band-eligible."""
+        ``levenshtein.rs:1069-1088``; ``scan.py:904-957``): pass 1 runs
+        the banded kernel at the hint; the candidates it rejected are
+        gathered into dense sub-corpora for full-kernel passes, so every
+        distance stays exact.  Returns None when the hint isn't
+        band-eligible."""
         q = np.asarray(qk)
         cut = max(1, min(int(hint), _bk.MAX_CUTOFF_FAST))
         bw = _bk.band_words(cut)
         Wq = _lk.words(q.size)
-        if not (cut < q.size and q.size > 16 * bw - 1
-                and self._LB <= _bk.FAST_MAX_LB and Wq >= 2 * bw):
+        if not (cut < q.size and q.size > 16 * bw - 1):
             return None
+        if self._stream:
+            if Wq < 2 * bw + 1:
+                return None
+            band_fn = _bk.lev_banded_stream_1v_many
+        else:
+            if not (self._LB <= _bk.FAST_MAX_LB and Wq >= 2 * bw):
+                return None
+            band_fn = _bk.lev_banded_1v_many
         staged = _lk.stage_query(q, mode, self.device)
-        band = _bk.lev_banded_1v_many(q.astype(np.int32), cand, self.lb,
-                                      cutoff=cut, mode=mode, staged=staged)
+        band = band_fn(q.astype(np.int32), cand, self.lb, cutoff=cut,
+                       mode=mode, staged=staged)
         idx = torch.nonzero(band >= int(_bk.BIG)).reshape(-1)
-        m = int(idx.numel())
-        if m == 0:
-            return band.cpu().numpy()
-        # compact the stragglers into a whole number of CUDA blocks
-        npad = -(-m // BLOCK) * BLOCK
-        idx_pad = torch.cat([idx, idx[:1].expand(npad - m)])
-        sub_c = cand.index_select(1, idx_pad)
-        sub_lb = self.lb.index_select(0, idx_pad)
-        full = _lk.lev_1v_many(q, sub_c, sub_lb, mode=mode, staged=staged)
-        band[idx] = full[:m]
+        # the stragglers, compacted into whole CUDA blocks, at most an
+        # eighth of the corpus at a time
+        B = self.lb.shape[0]
+        chunk = max(BLOCK, B // 8 // BLOCK * BLOCK)
+        for s in range(0, int(idx.numel()), chunk):
+            part = idx[s: s + chunk]
+            m = int(part.numel())
+            npad = -(-m // BLOCK) * BLOCK
+            part_pad = torch.cat([part, part[:1].expand(npad - m)])
+            sub_c = cand.index_select(1, part_pad)
+            sub_lb = self.lb.index_select(0, part_pad)
+            full = _lk.lev_1v_many(q, sub_c, sub_lb, mode=mode,
+                                   staged=staged)
+            band[part] = full[:m]
         return band.cpu().numpy()
-
-    def _band_pays(self, cut: int, qsize: int) -> bool:
-        """The JAX scanner's band routing rule (scan.py:758-784, crossovers
-        measured on a TPU v5e): the pinned band needs a query longer than
-        the band and pays once the query's word count clears the band's.
-        The rule's other branch (the run-time-shift band for queries > 160
-        chars) needs a query no longer than the pinned band or a bucket
-        > 1024, neither of which reaches this scanner."""
-        bw = _bk.band_words(cut)
-        if not (cut < qsize and qsize > 16 * bw - 1
-                and self._LB <= _bk.FAST_MAX_LB):
-            return False
-        Wq = _lk.words(qsize)
-        if self._LB * bw <= _bk.FLAT_MAX_STEPS:
-            return Wq >= 2 * bw
-        return Wq >= 2 * bw + 1
 
     def _band_auto_cut(self, query):
         """Cheapest band cutoff the routing would actually accelerate for
-        this query, or None."""
-        if self._wscale != 1:
+        this query, or None (``scan.py:959-986``: the pinned band over
+        buckets of at most ``FAST_MAX_LB`` only)."""
+        if self._wscale != 1 or self._LB > _bk.FAST_MAX_LB:
             return None
         qsize = int(_codec.encode_one(query).size)
         if self._wide and qsize > 127:
             # the query may exceed the 128-entry local-remap vocab
             return None
         for cut in (_bk.MAX_CUTOFF, 31, _bk.MAX_CUTOFF_FAST):
-            if self._band_pays(cut, qsize):
+            if cut < qsize and self._band_route(cut, qsize) is not None:
                 return cut
         return None
 
@@ -288,8 +344,9 @@ class CorpusScanner:
     def _nq_eligible(self) -> bool:
         """scan_many batches queries into one multi-query launch when the
         packed corpus is query-independent (not on the wide-alphabet
-        route, which remaps the corpus per query)."""
-        return not self._wide and not self._zero
+        route, which remaps the corpus per query) and, as in the JAX
+        scanner, the bucket is at most 1024 chars."""
+        return not self._wide and not self._zero and not self._long
 
     def _distances_many(self, queries):
         """``[len(queries), n]`` distances via grouped multi-query launches.

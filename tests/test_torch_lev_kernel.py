@@ -21,7 +21,10 @@ from rapidfuzz_tpu_torch.ops.cuda import band_kernel as bk
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 
 B = 4096   # one JAX grid cell (32 x 128)
-LB = 64
+#: candidate bucket: not a multiple of 16, so the JAX kernels in interpret
+#: mode unroll their text loops by 4 rather than 16 and compile in about a
+#: third of the time; the routes are those of the 64 bucket
+LB = 60
 
 
 def _corpus(rng, query, alphabet, n=B, lb_max=LB):
@@ -150,8 +153,8 @@ def test_lev_banded_matches_jax(mode, cutoffs):
 
 
 def test_banded_preconditions():
-    """The JAX wrapper's ValueErrors, and NotImplementedError for the
-    run-time-shift band the port does not carry yet."""
+    """The JAX wrapper's ValueErrors, and the run-time band the port now
+    serves for a query no longer than the pinned band."""
     rng = np.random.default_rng(0)
     q = rng.choice(ALPHABETS["local"], 20)
     chars, lens = _corpus(rng, q, ALPHABETS["local"], n=256)
@@ -161,8 +164,14 @@ def test_banded_preconditions():
         bk.lev_banded_1v_many(q, cand, lb, cutoff=48)
     with pytest.raises(ValueError):
         bk.lev_banded_1v_many(q, cand, lb, cutoff=20)
-    with pytest.raises(NotImplementedError, match="queue 1"):
+    with pytest.raises(ValueError, match="needs the pinned band"):
         bk.lev_banded_1v_many(q, cand, lb, cutoff=16)   # la <= 16*2 - 1
+    full = lk.lev_1v_many(q[:12], cand, lb).numpy()
+    got = bk.lev_banded_1v_many(q[:12], cand, lb, cutoff=9).numpy()
+    ok = full <= 9
+    assert ok.any() and (~ok).any()
+    np.testing.assert_array_equal(got[ok], full[ok])
+    assert (got[~ok] == bk.BIG).all()
     assert bk.band_words(15) == 1 and bk.band_words(16) == 2
     assert bk.band_words(47) == 3
 
@@ -218,6 +227,24 @@ def test_kernel_matches_plain_on_card(cuda_device, kernel):
         got = bk.lev_banded_1v_many(q, cand, lb, cutoff=31)
         ref = bk.lev_band_plain(56, 31, 2, tabs[: bk.table_words(56, LB)],
                                 cand, lb)
+    elif kernel == "lev_band_rt":
+        got = bk.lev_banded_1v_many(q[:12], cand, lb, cutoff=9)
+        _, t12 = lk.stage_query(q[:12], "byte", cuda_device)
+        ref = bk.lev_band_plain(12, 9, 1, t12[: bk.table_words(12, LB)],
+                                cand, lb, semi=9)
+    elif kernel in ("lev_scan_long", "lev_band_long"):
+        lchars, llens = _corpus(rng, q, a, lb_max=1536)
+        cand, lb = lk.prepare_corpus(
+            torch.from_numpy(lchars).to(cuda_device),
+            torch.from_numpy(llens).to(cuda_device))
+        if kernel == "lev_scan_long":
+            got = lk.lev_1v_many(q, cand, lb)
+            ref = lk.lev_scan_plain(las, tabs[None], cand, lb)[0]
+        else:
+            got = bk.lev_banded_stream_1v_many(q, cand, lb, cutoff=31)
+            ref = bk.lev_band_plain(56, 31, 2,
+                                    tabs[: bk.table_words(56, 1536)],
+                                    cand, lb)
     else:
         vocab, _ = lk.query_vocab(q)
         ct = lk.transpose_corpus(torch.from_numpy(chars).to(cuda_device))
