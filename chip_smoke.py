@@ -13,9 +13,12 @@ Phases, each printing one JSON line before the next starts:
    one process per source, all at once;
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
-   long routes (K1 over 2048- and 8192-char buckets, the run-time band,
-   the streamed band) at 2,048 candidates, where the plain versions'
-   per-step Python loops stay within seconds;
+   long routes (K1 and K4 over 2048- and 8192-char buckets, the run-time
+   band, the streamed bands) at 2,048 candidates, where the plain
+   versions' per-step Python loops stay within seconds; K4 (the LCS scan)
+   at W = 1, 2, 8 and 17 (its first scratch width), 16 queries per
+   launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
+   band;
 4. serve   — ``ScanService`` over a 1,048,576-string word-like corpus
    (bucket 64) behind ``make_server``; ``/health``, ``/topk``,
    ``/distances`` (plain, ``score_cutoff``, ``score_hint``) and ``/batch``
@@ -26,7 +29,16 @@ Phases, each printing one JSON line before the next starts:
    ``levenshtein.distance_many([q], corpus, score_cutoff=...)`` over
    65,536 strings on the card, and the four scalar scores, held against
    the oracle;
-7. long    — ``ScanService`` over 131,072 texts of 1,025-8,192 chars
+7. lcs     — the LCS family: ``ScanService(metric="indel")`` over the
+   serve corpus behind ``make_server`` (``/topk``, ``/distances`` plain
+   and under a cutoff, ``/batch`` of 20 queries), ``CorpusScanner`` under
+   lcs_seq and under the weights (2, 2, 5), a mid corpus of 262,144 texts
+   of 225-1,024 chars (bucket 1024, near copies of 300 seed passages)
+   under indel and lcs_seq cutoffs for 300- and 900-char queries (the LCS
+   band), and ``fuzz.ratio_many``, ``RatioBatchComparator`` and
+   ``indel.distance_many`` over 65,536 of its texts, all held against the
+   oracle;
+8. long    — ``ScanService`` over 131,072 texts of 1,025-8,192 chars
    (bucket 8192, 1 GiB packed on the card), near copies of 300 seed
    documents, behind ``make_server``: ``/topk``, ``/distances`` with
    ``score_cutoff`` 3, 15 and 40 and with ``score_hint``, and ``/batch``,
@@ -34,19 +46,24 @@ Phases, each printing one JSON line before the next starts:
    16,384 of those texts at bucket 6000 (not a whole 512-char chunk: the
    run-time band's route).  Every answer is held against the oracle over
    the whole corpus where a length argument bounds the work (top-k and
-   cutoff answers), on sampled rows elsewhere;
-8. timing  — each kernel and its plain version at its main-path shape
+   cutoff answers), on sampled rows elsewhere; then a service with
+   ``metric="indel"`` over the same texts: ``/topk`` for the three
+   queries (K4 in register and scratch form) and ``score_cutoff`` 15 and
+   31 for the ~4,000-char query (the streamed LCS band);
+9. timing  — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
-   the long ones at the long phase's corpora), with each kernel's bound;
-9. rate    — one len-64 query, then 16 per launch, against 67,108,864
+   the LCS band at the mid corpus, the long ones at the long phase's
+   corpora), with each kernel's bound;
+10. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
-5, and zeroed again just before phase 7 and read after it, so the counts
-are those of the two main paths alone; every kernel must have launched in
-them.  Any failure raises: the script then exits nonzero and never prints
-its last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
-exits nonzero before any phase.
+5, zeroed again just before phase 7 and read after it, and again just
+before phase 8 and read after it, so the counts are those of the three
+main paths alone; every kernel must have launched in them.  Any failure
+raises: the script then exits nonzero and never prints its last line,
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
+nonzero before any phase.
 """
 
 from __future__ import annotations
@@ -79,6 +96,11 @@ Q_LONG = 4000
 ODD_LB = 6000
 N_ODD = 1 << 14
 LONG_SAMPLE = 256
+N_MID = 1 << 18
+MID_LB = 1024
+MID_MIN = 225
+N_PASSAGES = 300
+N_RATIO = 1 << 16
 #: card peaks for the bounds: HBM bytes/s (NVIDIA's data sheet, H100 SXM)
 #: and INT32 lanes (132 SMs x 64); the SM clock is read from nvidia-smi
 HBM_BYTES_S = 3.35e12
@@ -88,10 +110,17 @@ INT32_LANES = 132 * 64
 #: step (the Myers word: and, add, 2 x or3, 2 x lop3, and, 2 x shift-or,
 #: 2 carry shifts), K3 per band word and text step (the same plus the
 #: window's funnel shift), K2 per char (7 search probes of compare and
-#: select, the hit test, the byte pack)
+#: select, the hit test, the byte pack); K4 per query word and text step
+#: (the Hyyro word: u = s & pm, the 3-input add s + u + carry, its
+#: carry-out, one lop3 for t | (s & ~u)), K5 per band word and text step
+#: (the window's funnel shift, and, the 3-input add, its carry-out, the
+#: lop3 t | (s ^ u), the slide's funnel shift), plus LCS_BAND_STEP_OPS
+#: once per text step for the accumulator
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
-       "remap_pack": 24}
+       "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
+       "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6}
+LCS_BAND_STEP_OPS = 1
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
@@ -100,6 +129,11 @@ REPLACES = {
     "lev_band_rt": "rapidfuzz_tpu/ops/pallas/band_kernel.py:165",
     "lev_band_long": "rapidfuzz_tpu/ops/pallas/band_kernel.py:620",
     "lev_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:135",
+    "lcs_scan": "rapidfuzz_tpu/ops/pallas/lcs_kernel.py:107",
+    "lcs_scan_nq": "rapidfuzz_tpu/ops/pallas/lcs_kernel.py:141",
+    "lcs_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:271",
+    "lcs_band": "rapidfuzz_tpu/ops/pallas/lcs_band_kernel.py:148",
+    "lcs_band_long": "rapidfuzz_tpu/ops/pallas/lcs_band_kernel.py:276",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -109,9 +143,16 @@ SOURCES = {
     "lev_band_rt": "rapidfuzz_tpu_torch/csrc/lev_band.cu",
     "lev_band_long": "rapidfuzz_tpu_torch/csrc/lev_band.cu",
     "lev_scan_long": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
+    "lcs_scan": "rapidfuzz_tpu_torch/csrc/lcs_scan.cu",
+    "lcs_scan_nq": "rapidfuzz_tpu_torch/csrc/lcs_scan.cu",
+    "lcs_scan_long": "rapidfuzz_tpu_torch/csrc/lcs_scan.cu",
+    "lcs_band": "rapidfuzz_tpu_torch/csrc/lcs_band.cu",
+    "lcs_band_long": "rapidfuzz_tpu_torch/csrc/lcs_band.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
-LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long")
+LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
+LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long",
+             "lcs_scan_long", "lcs_band_long")
 
 
 def emit(obj) -> None:
@@ -148,10 +189,13 @@ class Smoke:
         from rapidfuzz_tpu_torch import oracle
         from rapidfuzz_tpu_torch.ops import cuda as kc
         from rapidfuzz_tpu_torch.ops.cuda import band_kernel as bk
+        from rapidfuzz_tpu_torch.ops.cuda import lcs_band_kernel as cbk
+        from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
+        self.ck, self.cbk = ck, cbk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -272,7 +316,8 @@ class Smoke:
                 if int((got <= cut).sum()) == 0:
                     raise AssertionError(f"band cutoff={cut}: no candidate "
                                          "accepted; inputs too far apart")
-        self.long_kernel_cases(rng, alph["byte"], salt)
+        salt = self.long_kernel_cases(rng, alph["byte"], salt)
+        self.lcs_kernel_cases(rng, alph, salt)
         self.sync()
         emit({"phase": "kernels", "candidates": N_KERNEL,
               "long_candidates": N_KERNEL_LONG,
@@ -336,6 +381,114 @@ class Smoke:
                 if int((got <= cut).sum()) == 0:
                     raise AssertionError(f"streamed band cutoff={cut}: no "
                                          "candidate accepted")
+        return salt
+
+    def lcs_kernel_cases(self, rng, alph, salt):
+        """K4 and K5 against their plain versions: ``lcs_scan`` at W = 1,
+        2, 8 and 17 (the first scratch width) and ``lcs_scan_nq`` over
+        N_KERNEL candidates at bucket 64, in both PM modes; ``lcs_scan_long``
+        at W = 2 and 10 over 2048- and 8192-char buckets; ``lcs_band`` at
+        indel cutoffs 3, 15, 31 and 47 (bw 1-3) over near copies of a
+        100-char query with candidates far out of band (bucket 128); the
+        streamed band at bw 1 and 2 over a 2048-char bucket and over 8192,
+        where the ~8,000-char query's PM table is read through the cache.
+        Every candidate's value is compared, the band's underestimates
+        for rows out of band included."""
+        torch, lk, ck, cbk = self.torch, self.lk, self.ck, self.cbk
+        for W in (1, 2, 8, ck.MAX_REG_W + 1):
+            for mode in ("byte", "local"):
+                salt += 1
+                a = alph[mode]
+                q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+                cand, lb = self.byte_corpus(self.gen(salt), N_KERNEL, LB,
+                                            torch.from_numpy(a).to(self.dev))
+                _, tabs = lk.stage_query(q, mode, self.dev)
+                self.compare("lcs_scan", ck.lcs_1v_many(q, cand, lb,
+                                                        mode=mode),
+                             ck.lcs_scan_plain(tabs[None], cand, lb)[0],
+                             f"W={W} {mode}")
+        for W in (1, 2):
+            salt += 1
+            a = alph["byte"]
+            qs = [rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+                  for _ in range(16)]
+            if W == 1:
+                qs[3] = np.empty(0, np.int64)
+            cand, lb = self.byte_corpus(self.gen(salt), N_KERNEL, LB,
+                                        torch.from_numpy(a).to(self.dev))
+            _, tabs = lk.stage_queries(qs, "byte", self.dev)
+            self.compare("lcs_scan_nq", ck.lcs_nq_many(qs, cand, lb),
+                         ck.lcs_scan_plain(tabs, cand, lb),
+                         f"16 queries W={W}")
+        at = torch.from_numpy(alph["byte"]).to(self.dev)
+        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2), (LONG_LB, 10)):
+            salt += 1
+            q = rng.choice(alph["byte"],
+                           32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+            cand, lb = self.byte_corpus(self.gen(salt), N_KERNEL_LONG, LBl,
+                                        at)
+            lb[:8] = LBl
+            _, tabs = lk.stage_query(q, "byte", self.dev)
+            self.compare("lcs_scan_long", ck.lcs_1v_many(q, cand, lb),
+                         ck.lcs_scan_plain(tabs[None], cand, lb)[0],
+                         f"LB={LBl} W={W}")
+        for mode in ("byte", "local"):
+            salt += 1
+            a = alph[mode]
+            q = rng.choice(a, 100)
+            cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL, 128)
+            # rows holding the query 64 chars off the diagonal: past any
+            # band, which undercounts their LCS
+            far = np.r_[rng.choice(a, 64), q][:128]
+            self.plant_rows(cand, lb, torch.from_numpy(far).to(self.dev),
+                            N_KERNEL // 16)
+            _, tabs = lk.stage_query(q, mode, self.dev)
+            full = ck.lcs_1v_many(q, cand, lb, mode=mode)
+            indel = q.size + lb - 2 * full
+            for cut in (3, 15, 31, 47):
+                bw = cbk.band_words(cut)
+                got = cbk.lcs_banded_1v_many(q, cand, lb, cutoff=cut,
+                                             mode=mode)
+                self.compare("lcs_band", got, cbk.lcs_band_plain(
+                    bw, tabs[: cbk.table_words(100, 128)], cand, lb),
+                             f"{mode} cutoff={cut} bw={bw}")
+                ok = indel <= cut
+                if not (ok.any() and (~ok).any()
+                        and torch.equal(got[ok], full[ok])
+                        and bool((got < full).any())):
+                    raise AssertionError(f"lcs band cutoff={cut}: needs "
+                                         "rows in and out of band, exact "
+                                         "within it")
+        for LBl, la, cuts in ((2048, 300, (15, 31)),
+                              (LONG_LB, LONG_LB - 192, (15, 31))):
+            salt += 1
+            q = rng.choice(alph["byte"], la)
+            cand, lb = self.mutants(self.gen(salt), q, alph["byte"],
+                                    N_KERNEL_LONG, LBl)
+            self.plant_rows(cand, lb, torch.from_numpy(q[:-5]).to(self.dev),
+                            4)
+            _, tabs = lk.stage_query(q, "byte", self.dev)
+            ws = cbk.table_words(la, LBl)
+            for cut in cuts:
+                got = cbk.lcs_banded_stream_1v_many(q, cand, lb, cutoff=cut)
+                self.compare("lcs_band_long", got, cbk.lcs_band_plain(
+                    cbk.band_words(cut), tabs[:ws], cand, lb),
+                             f"LB={LBl} la={la} cutoff={cut} ws={ws}")
+                if int((la + lb - 2 * got <= cut).sum()) == 0:
+                    raise AssertionError(f"streamed lcs band cutoff={cut}: "
+                                         "no candidate accepted")
+
+    def plant_rows(self, cand, lb, row, n):
+        """Overwrite the last ``n`` candidates of a packed corpus with the
+        text ``row``."""
+        torch = self.torch
+        chars = torch.full((1, cand.shape[0] * 4), -1, dtype=torch.int32,
+                           device=self.dev)
+        chars[0, : row.numel()] = row.to(torch.int32)
+        packed, _ = self.lk.prepare_corpus(
+            chars, torch.tensor([row.numel()], device=self.dev))
+        cand[:, -n:] = packed
+        lb[-n:] = row.numel()
 
     def mutants(self, g, q, alphabet, B, lb_max):
         """Packed near-copies of ``q``: random substitutions and length
@@ -360,33 +513,58 @@ class Smoke:
         return self.lk.prepare_corpus(chars, lens)
 
     # ------------------------------------------------------------ helpers
-    def oracle_rows(self, query: str, strings) -> np.ndarray:
-        """Oracle distances of ``query`` to ``strings``."""
+    def oracle_rows(self, query: str, strings,
+                    metric: str = "levenshtein") -> np.ndarray:
+        """Oracle distances of ``query`` to ``strings`` under ``metric``
+        (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``)."""
         enc = [self.codec.encode_one(s) for s in strings]
         lens = np.fromiter((e.size for e in enc), np.int64, len(enc))
         offs = np.r_[0, np.cumsum(lens)]
         flat = np.concatenate(enc) if enc else np.empty(0, np.int64)
-        return self.oracle.levenshtein_uniform_1vN(
-            self.codec.encode_one(query), flat, offs)
+        eq = self.codec.encode_one(query)
+        if metric == "levenshtein":
+            return self.oracle.levenshtein_uniform_1vN(eq, flat, offs)
+        d = self.oracle.indel_1vN(eq, flat, offs)
+        if metric == "indel":
+            return d
+        return np.maximum(eq.size, lens) - (eq.size + lens - d) // 2
+
+    def oracle_full(self, queries, corpus, metric: str):
+        """Whole-corpus oracle rows for each query, the queries in
+        parallel (ctypes drops the GIL)."""
+        enc = [self.codec.encode_one(s) for s in corpus]
+        lens = np.fromiter((e.size for e in enc), np.int64, len(enc))
+        offs = np.r_[0, np.cumsum(lens)]
+        flat = np.concatenate(enc)
+        one = (self.oracle.levenshtein_uniform_1vN if metric == "levenshtein"
+               else self.oracle.indel_1vN)
+        with ThreadPoolExecutor(4) as ex:
+            rows = list(ex.map(lambda q: one(self.codec.encode_one(q), flat,
+                                             offs), queries))
+        if metric == "lcs_seq":
+            rows = [np.maximum(len(q), lens) - (len(q) + lens - d) // 2
+                    for q, d in zip(queries, rows)]
+        return rows
 
     @staticmethod
     def expected_topk(d: np.ndarray, k: int):
         ids = np.lexsort((np.arange(d.size), d))[:k]
         return d[ids], ids
 
-    def check_topk_sampled(self, query, corpus, vals, ids, sample, k, what):
+    def check_topk_sampled(self, query, corpus, vals, ids, sample, k, what,
+                           metric: str = "levenshtein"):
         """The returned (value, index) pairs are true distances, ordered by
         (distance, index), and no sampled row beats the k-th pair."""
         vals, ids = np.asarray(vals), np.asarray(ids)
         if len(ids) != k:
             raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
-        truth = self.oracle_rows(query, [corpus[i] for i in ids])
+        truth = self.oracle_rows(query, [corpus[i] for i in ids], metric)
         if not np.array_equal(truth, vals):
             raise AssertionError(f"{what}: values {vals} != oracle {truth}")
         key = list(zip(vals.tolist(), ids.tolist()))
         if key != sorted(key):
             raise AssertionError(f"{what}: not ordered by (distance, index)")
-        ds = self.oracle_rows(query, [corpus[i] for i in sample])
+        ds = self.oracle_rows(query, [corpus[i] for i in sample], metric)
         kth = key[-1]
         chosen = set(ids.tolist())
         for dv, i in zip(ds.tolist(), sample.tolist()):
@@ -514,6 +692,7 @@ class Smoke:
               "seconds": time.perf_counter() - t_start})
         self.serve_scanner = service.scanner
         self.serve_query = anchors[0]
+        self.serve_anchors = anchors
         self.serve_corpus = corpus
         for name in ("lev_scan", "lev_scan_nq", "lev_band"):
             if self.kc.LAUNCHES[name] == 0:
@@ -596,6 +775,173 @@ class Smoke:
               "seconds": time.perf_counter() - t_start})
 
     # ------------------------------------------------------------ phase 7
+    def mid_corpus(self, rng):
+        """N_MID texts of MID_MIN..MID_LB chars, each one of N_PASSAGES
+        seed passages cut to a random length with up to 7 substitutions,
+        and 40 near copies (0..20 edits) each of a 300- and a 900-char
+        query (near copies of passages 0 and 1), so that the cutoffs
+        accept rows."""
+        docs = rng.integers(97, 123, (N_PASSAGES, MID_LB), dtype=np.uint8)
+        docs[rng.random(docs.shape) < 0.15] = 32
+        lens = rng.integers(MID_MIN, MID_LB + 1, N_MID)
+        which = rng.integers(0, N_PASSAGES, N_MID)
+        nsub = rng.integers(0, 8, N_MID)
+        pos = (rng.random((N_MID, 7)) * lens[:, None]).astype(np.int64)
+        vals = rng.integers(97, 123, (N_MID, 7), dtype=np.uint8)
+        corpus = []
+        for i in range(N_MID):
+            t = docs[which[i], : lens[i]].copy()
+            t[pos[i, : nsub[i]]] = vals[i, : nsub[i]]
+            corpus.append(t.tobytes().decode("ascii"))
+        queries = [self.edit(rng, docs[k, :n].tobytes().decode("ascii"), 3)
+                   for k, n in ((0, 300), (1, 900))]
+        planted = rng.choice(N_MID, 80, replace=False)
+        for m, i in enumerate(planted):
+            corpus[int(i)] = self.edit(rng, queries[m % 2], (m // 2) % 21)
+        return corpus, queries
+
+    def phase_lcs(self):
+        """The LCS family on its main path: ``ScanService(metric="indel")``
+        over the serve corpus (1,048,576 strings, bucket 64) behind
+        ``make_server`` -- ``/topk``, ``/distances`` plain and under a
+        cutoff, ``/batch`` of 20 queries; ``CorpusScanner`` under lcs_seq
+        and under the weights (2, 2, 5) over the same corpus; a mid corpus
+        of N_MID texts of 225-1,024 chars (bucket 1024) under indel
+        cutoffs 7-47 and lcs_seq cutoffs 7 and 15 for 300- and 900-char
+        queries (the LCS band); ``fuzz.ratio_many``,
+        ``RatioBatchComparator`` and ``indel.distance_many`` over N_RATIO
+        of its texts.  Every answer is held against the C++ oracle over
+        the whole corpus (cutoff answers: every row that can lie within
+        the cutoff)."""
+        from rapidfuzz_tpu_torch import fuzz
+        from rapidfuzz_tpu_torch.distance import indel
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 6)
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus
+        t0 = time.perf_counter()
+        service = ScanService(corpus, metric="indel", bucket=LB,
+                              device=self.dev)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad or "distances_hint" in warm:
+            raise AssertionError(f"indel warmup routes: {warm}")
+        q_rand = rng.integers(97, 123, LB, dtype=np.uint8).tobytes().decode()
+        queries = list(self.serve_anchors) + [q_rand]
+        full = self.oracle_full(queries, corpus, "indel")
+        call, stop, timings = self.serve_http(service)
+        try:
+            for q, d in zip(queries, full):
+                ans = call("/topk", {"query": q, "k": 10})
+                ev, ei = self.expected_topk(d, 10)
+                if ans["indices"] != ei.tolist() or \
+                        ans["values"] != ev.tolist():
+                    raise AssertionError(
+                        f"indel /topk {q!r}: {ans['values']} "
+                        f"{ans['indices']} != oracle {ev.tolist()} "
+                        f"{ei.tolist()}")
+            q0, d0 = queries[0], full[0]
+            out = call("/distances", {"query": q0})
+            if not np.array_equal(np.asarray(out["values"]), d0):
+                raise AssertionError("indel /distances != oracle")
+            out = call("/distances", {"query": q0, "score_cutoff": 9})
+            ok = d0 <= 9
+            if not (np.array_equal(np.asarray(out["valid"]), ok) and
+                    ok.any() and np.array_equal(
+                        np.asarray(out["values"])[ok], d0[ok])):
+                raise AssertionError("indel /distances cutoff 9 != oracle")
+            bq = list(queries)
+            while len(bq) < 20:
+                n = int(rng.integers(33, LB + 1))
+                bq.append(rng.integers(97, 123, n, dtype=np.uint8)
+                          .tobytes().decode("ascii"))
+            out = call("/batch", {"queries": bq, "k": 10})
+            sample = rng.choice(N_SERVE, N_SAMPLE, replace=False)
+            for qi, q in enumerate(bq):
+                self.check_topk_sampled(q, corpus, out["values"][qi],
+                                        out["indices"][qi], sample, 10,
+                                        f"indel /batch query {qi}", "indel")
+        finally:
+            stop()
+        del service
+        lcs = CorpusScanner(corpus, metric="lcs_seq", bucket=LB,
+                            device=self.dev)
+        lens = np.array([len(s) for s in corpus])
+        truth = (np.maximum(len(q0), lens)
+                 - (len(q0) + lens - d0) // 2)
+        if not np.array_equal(lcs.distances(q0), truth):
+            raise AssertionError("lcs_seq distances != oracle")
+        vals, ids = lcs.topk(q0, 10)
+        ev, ei = self.expected_topk(truth, 10)
+        if not (np.array_equal(vals, ev) and np.array_equal(ids, ei)):
+            raise AssertionError("lcs_seq topk != oracle")
+        del lcs
+        w225 = CorpusScanner(corpus, bucket=LB, weights=(2, 2, 5),
+                             device=self.dev)
+        if w225.metric != "indel" or not np.array_equal(
+                w225.distances(q0), 2 * d0):
+            raise AssertionError("weights (2, 2, 5) != 2 x indel")
+        del w225
+        # the mid corpus: the LCS band's route (queries of 8+ words)
+        t0 = time.perf_counter()
+        mid, mq = self.mid_corpus(rng)
+        t_mid = time.perf_counter() - t0
+        mid_lens = np.array([len(s) for s in mid])
+        mids = {m: CorpusScanner(mid, metric=m, bucket=MID_LB,
+                                 device=self.dev)
+                for m in ("indel", "lcs_seq")}
+        before = self.kc.LAUNCHES["lcs_band"]
+        for metric, cuts in (("indel", (7, 15, 31, 47)),
+                             ("lcs_seq", (7, 15))):
+            for q in mq:
+                for cut in cuts:
+                    res = mids[metric].distances(q, score_cutoff=cut)
+                    self.check_cutoff_window(
+                        q, mid, mid_lens,
+                        {"values": res.values, "valid": res.valid}, cut,
+                        f"mid {metric} len {len(q)} cutoff {cut}",
+                        metric=metric)
+        if self.kc.LAUNCHES["lcs_band"] - before != 12:
+            raise AssertionError("mid cutoffs did not all take the band")
+        vals, ids = mids["indel"].topk(mq[0], 10)
+        self.check_topk_window(mq[0], mid, mid_lens, vals, ids, 10,
+                               "mid indel topk", "indel")
+        # the library on the mid texts: fuzz.ratio_many under a cutoff
+        # (the band), RatioBatchComparator and indel.distance_many
+        sub = mid[:N_RATIO]
+        q = mq[0]
+        d = self.oracle_rows(q, sub, "indel")
+        mx = len(q) + mid_lens[:N_RATIO]
+        ratio = 1.0 - np.where(mx == 0, 0.0, d / np.maximum(mx, 1))
+        before = self.kc.LAUNCHES["lcs_band"]
+        res = fuzz.ratio_many(q, sub, score_cutoff=0.97)
+        ok = ratio >= 0.97
+        if not (self.kc.LAUNCHES["lcs_band"] > before and ok.any()
+                and np.array_equal(res.valid, ok)
+                and np.array_equal(res.values[ok], ratio[ok])):
+            raise AssertionError("fuzz.ratio_many cutoff 0.97 != oracle")
+        res = fuzz.RatioBatchComparator(q).similarities(sub)
+        if not np.array_equal(res.values, ratio):
+            raise AssertionError("RatioBatchComparator != oracle")
+        res = indel.distance_many([q], sub)
+        if not np.array_equal(res.values, d):
+            raise AssertionError("indel.distance_many != oracle")
+        if fuzz.ratio(q, sub[0]) != ratio[0]:
+            raise AssertionError("fuzz.ratio != oracle")
+        self.sync()
+        emit({"phase": "lcs", "corpus": N_SERVE, "bucket": LB,
+              "mid_corpus": N_MID, "mid_bucket": MID_LB,
+              "scanner_build_s": t_build, "mid_generate_s": t_mid,
+              "warmup_s": warm,
+              "request_s": {k: v for k, v in timings.items()},
+              "launches": dict(self.kc.LAUNCHES),
+              "seconds": time.perf_counter() - t_start})
+        self.mid_scanner = mids["indel"]
+        self.mid_query = mq[0]
+
     @staticmethod
     def edit(rng, s: str, k: int) -> str:
         """``s`` with ``k`` random substitutions, deletions and
@@ -636,25 +982,32 @@ class Smoke:
             corpus[int(i)] = self.edit(rng, q4k, m % 21)
         return corpus, docs, q4k, planted
 
-    def window_truth(self, q: str, corpus, lens, bound: int):
+    def window_truth(self, q: str, corpus, lens, bound: int,
+                     metric: str = "levenshtein"):
         """Oracle distances of ``q`` to every row that can lie within
-        ``bound``: rows with ``|len - len(q)| > bound`` cannot, so only
-        the others are computed, banded at ``bound`` (exact when within
-        it, ``bound + 1`` above).  Returns (row ids, distances)."""
+        ``bound``: rows with ``|len - len(q)| > bound`` cannot (each of
+        the three metrics is at least the length difference), so only the
+        others are computed; Levenshtein banded at ``bound`` (exact when
+        within it, ``bound + 1`` above), the LCS metrics exact.  Returns
+        (row ids, distances)."""
         rows = np.flatnonzero(np.abs(lens - len(q)) <= bound)
+        if metric != "levenshtein":
+            return rows, self.oracle_rows(q, [corpus[i] for i in rows],
+                                          metric)
         eq = self.codec.encode_one(q)
         d = np.array([self.oracle.levenshtein_uniform_bp(
             eq, self.codec.encode_one(corpus[i]), bound) for i in rows],
             np.int64)
         return rows, d
 
-    def check_topk_window(self, q, corpus, lens, vals, ids, k, what):
+    def check_topk_window(self, q, corpus, lens, vals, ids, k, what,
+                          metric: str = "levenshtein"):
         """The whole-corpus top-k, by (distance, index): only rows within
         the k-th returned distance can belong to it."""
         vals, ids = np.asarray(vals), np.asarray(ids)
         if len(ids) != k:
             raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
-        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]))
+        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]), metric)
         keep = d <= int(vals[-1])
         order = np.lexsort((rows[keep], d[keep]))[:k]
         if not (np.array_equal(rows[keep][order], ids)
@@ -664,12 +1017,12 @@ class Smoke:
                                  f"{rows[keep][order].tolist()}")
 
     def check_cutoff_window(self, q, corpus, lens, out, cut, what,
-                            want_hits=True):
+                            want_hits=True, metric: str = "levenshtein"):
         """A ``(values, valid)`` answer under ``cut`` against the oracle
         over the whole corpus."""
         valid = np.asarray(out["valid"])
         values = np.asarray(out["values"])
-        rows, d = self.window_truth(q, corpus, lens, cut)
+        rows, d = self.window_truth(q, corpus, lens, cut, metric)
         ok = np.zeros(len(corpus), bool)
         ok[rows[d <= cut]] = True
         if not np.array_equal(valid, ok):
@@ -777,6 +1130,7 @@ class Smoke:
         ids = np.r_[short, planted]
         odd_corpus = [corpus[i] for i in ids]
         odd = ScanService(odd_corpus, bucket=ODD_LB, device=self.dev)
+        odd_scanner = odd.scanner
         if odd.scanner._stream or not odd.scanner._long:
             raise AssertionError("bucket 6000 did not take the odd route")
         odd_lens = lens[ids]
@@ -788,16 +1142,39 @@ class Smoke:
         self.check_topk_window(q4k, odd_corpus, odd_lens, vals_ids["values"],
                                vals_ids["indices"], 10,
                                f"bucket {ODD_LB} /topk")
+        del odd
+        # the LCS family over the same texts: the full long scan in its
+        # register (64, 300 chars) and scratch (~4,000) forms, and the
+        # streamed band under indel cutoffs 15 (bw 1) and 31 (bw 2)
+        indel = ScanService(corpus, metric="indel", bucket=LONG_LB,
+                            device=self.dev)
+        call, stop, indel_timings = self.serve_http(indel)
+        try:
+            for q in (q64, q300, q4k):
+                out = call("/topk", {"query": q, "k": 10})
+                self.check_topk_window(q, corpus, lens, out["values"],
+                                       out["indices"], 10,
+                                       f"long indel /topk len {len(q)}",
+                                       metric="indel")
+            for cut in (15, 31):
+                out = call("/distances", {"query": q4k, "score_cutoff": cut})
+                self.check_cutoff_window(q4k, corpus, lens, out, cut,
+                                         f"long indel cutoff {cut}",
+                                         metric="indel")
+        finally:
+            stop()
+        del indel
         self.sync()
         emit({"phase": "long", "corpus": N_LONG, "bucket": LONG_LB,
               "odd_corpus": len(odd_corpus), "odd_bucket": ODD_LB,
               "generate_s": t_gen, "scanner_build_s": t_build,
               "warmup_s": warm,
               "request_s": {k: v for k, v in timings.items()},
+              "indel_request_s": indel_timings,
               "launches": dict(self.kc.LAUNCHES),
               "seconds": time.perf_counter() - t_start})
         self.long_scanner = service.scanner
-        self.odd_scanner = odd.scanner
+        self.odd_scanner = odd_scanner
         self.long_queries = {"q64": q64, "q300": q300, "q4k": q4k}
 
     # ------------------------------------------------------------ phase 8
@@ -899,13 +1276,58 @@ class Smoke:
                                         odd_sc.cand, odd_sc.lb, semi=15), 5,
               scan_work("lev_band_rt", odd_sc.lb, 1, table_words=ws_odd),
               warm=False)
-        # K1 over the long corpus at the other query widths of the long
-        # phase: 300 chars (W = 10, the scratch form) and ~4,000 (W = 125)
+        # K4 and K5: the short scans at the serve corpus, the band at the
+        # mid corpus (300-char query, cutoff 15), the long routes at the
+        # long corpus
+        ck, cbk = self.ck, self.cbk
+
+        def band_work(name, lbv, bw, table_words):
+            nbytes, _ = scan_work(name, lbv, bw, table_words=table_words)
+            steps = int(lbv.to(torch.int64).sum())
+            return nbytes, (OPS[name] * bw + LCS_BAND_STEP_OPS) * steps
+
+        timed("lcs_scan",
+              lambda: ck.lcs_1v_many(q, cand, lb, staged=(las, tabs)),
+              lambda: ck.lcs_scan_plain(tabs[None], cand, lb)[0], 20,
+              scan_work("lcs_scan", lb, lk.words(q.size)))
+        timed("lcs_scan_nq",
+              lambda: ck.lcs_nq_many(qs, cand, lb, staged=(lasq, tabsq)),
+              lambda: ck.lcs_scan_plain(tabsq, cand, lb), 10,
+              scan_work("lcs_scan_nq", lb, 2, nq=16))
+        mid = self.mid_scanner
+        qm = mid._encode_query(self.mid_query)
+        lm = lk.stage_query(qm, "local", self.dev)
+        ws_mid = cbk.table_words(qm.size, MID_LB)
+        timed("lcs_band",
+              lambda: cbk.lcs_banded_1v_many(qm, mid.cand, mid.lb,
+                                             cutoff=15, staged=lm),
+              lambda: cbk.lcs_band_plain(1, lm[1][:ws_mid], mid.cand,
+                                         mid.lb), 10,
+              band_work("lcs_band", mid.lb, 1, ws_mid))
+        timed("lcs_scan_long",
+              lambda: ck.lcs_1v_many(q64, long_sc.cand, long_sc.lb,
+                                     staged=l64),
+              lambda: ck.lcs_scan_plain(l64[1][None], long_sc.cand,
+                                        long_sc.lb)[0], 3,
+              scan_work("lcs_scan_long", long_sc.lb, 2), warm=False)
+        timed("lcs_band_long",
+              lambda: cbk.lcs_banded_stream_1v_many(
+                  q4k, long_sc.cand, long_sc.lb, cutoff=15, staged=l4k),
+              lambda: cbk.lcs_band_plain(1, l4k[1][:ws_long], long_sc.cand,
+                                         long_sc.lb), 3,
+              band_work("lcs_band_long", long_sc.lb, 1, ws_long),
+              warm=False)
+        # K1 and K4 over the long corpus at the other query widths of the
+        # long phase: 300 chars (K1's scratch form, K4's registers) and
+        # ~4,000 (both scratch forms)
         extra = {}
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
             extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
+                                              long_sc.lb, staged=st), 2)
+            extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
+                torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
@@ -924,7 +1346,7 @@ class Smoke:
                   long_sc.lb.numel() / ms_long * 1e3,
               "lev_scan_long_char_steps_per_s": steps / ms_long * 1e3,
               **extra})
-        del self.long_scanner, self.odd_scanner
+        del self.long_scanner, self.odd_scanner, self.mid_scanner
 
     # ------------------------------------------------------------ phase 9
     def phase_rate(self, card: str):
@@ -1053,12 +1475,19 @@ def main(argv=None) -> int:
             raise AssertionError(f"serving path never launched {name}")
     smoke.phase_library()
     kc.reset_launches()
+    smoke.phase_lcs()
+    lcs_launches = dict(kc.LAUNCHES)
+    for name in LCS_PATH:
+        if lcs_launches[name] == 0:
+            raise AssertionError(f"LCS serving path never launched {name}")
+    kc.reset_launches()
     smoke.phase_long()
     long_launches = dict(kc.LAUNCHES)
     for name in LONG_PATH:
         if long_launches[name] == 0:
             raise AssertionError(f"long path never launched {name}")
-    launches = {k: launches[k] + long_launches[k] for k in launches}
+    launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
+                for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -1074,7 +1503,8 @@ def main(argv=None) -> int:
          "plain_ms": smoke.timing[name][1],
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
-         # no single PyTorch call computes edit distances
+         # no single PyTorch call computes an edit distance or an LCS
+         # length
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

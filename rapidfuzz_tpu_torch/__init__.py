@@ -21,7 +21,7 @@ __version__ = "0.1.0"
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "_build")
 
-_LAZY = ("common", "distance", "parallel", "serve")
+_LAZY = ("common", "distance", "fuzz", "parallel", "serve")
 
 
 def __getattr__(name):

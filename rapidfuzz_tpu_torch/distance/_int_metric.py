@@ -28,18 +28,33 @@ from ..utils import codec as _codec
 #: (the JAX package's threshold); smaller ones run the aligned-pair ops
 SCAN_MIN = 4096
 #: metrics the port's CorpusScanner serves with identical semantics
-_SCANNABLE = frozenset({"levenshtein"})
+_SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq"})
 
 
-def scan_one_vs_many(name: str, q, corpus, weights=None, device=None):
+def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,
+                     score_cutoff=None):
     """One-vs-many distances via a one-off CorpusScanner on ``device``, or
-    None for a metric the scanner does not serve."""
+    None for a metric the scanner does not serve.
+
+    ``score_cutoff`` (a distance bound) routes the scanner's banded
+    kernels; entries above it come back with some value above the cutoff
+    (callers re-apply the same mask)."""
     if name not in _SCANNABLE:
         return None
     from ..parallel.scan import CorpusScanner
     sc = CorpusScanner(list(corpus), metric=name, weights=weights,
                        device=device)
-    return np.asarray(sc.distances(q), np.int64)
+    res = sc.distances(q, score_cutoff=score_cutoff)
+    if score_cutoff is not None:
+        res = res.values                       # masks re-applied upstream
+    return np.asarray(res, np.int64)
+
+
+def editops_not_ported() -> NotImplementedError:
+    """The error every ``editops``/``opcodes``/``editops_many`` of the
+    port raises until the recording scans are ported."""
+    return NotImplementedError(
+        "editops/opcodes are not ported yet (ROADMAP.md queue 1, item 13)")
 
 
 class IntMetric:

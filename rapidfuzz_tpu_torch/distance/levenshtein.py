@@ -12,8 +12,9 @@ batch APIs ``*_many`` and a ``BatchComparator``.
 * Batch scores run on ``device`` (default ``cuda``; ``device="cpu"`` runs
   the kernels' plain versions): one query against at least
   :data:`~._int_metric.SCAN_MIN` strings through the port's
-  ``CorpusScanner`` and its CUDA kernels, other batches through the
-  aligned-pair ops (``ops/levenshtein.py``, ``ops/lcs.py``).
+  ``CorpusScanner`` and its CUDA kernels (weights that reduce to indel
+  through its LCS kernels), other batches through the aligned-pair ops
+  (``ops/levenshtein.py``, ``ops/lcs.py``).
 * ``maximum`` follows ``levenshtein.rs:263-277``; weight special cases
   (``levenshtein.rs:1244-1279``): ins == del == 0 -> 0, uniform * factor,
   sub >= ins + del -> indel * factor.
@@ -21,9 +22,8 @@ batch APIs ``*_many`` and a ``BatchComparator``.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
 queue 1 item: ``editops``/``opcodes`` (item 13), the device scalar
 backend's route for one long pair (item 17), and on a one-vs-many batch
-of ``SCAN_MIN`` strings or more the weights that reduce to indel (item 5:
-the LCS kernels) and general weights (item 10: the wlev kernel); the
-aligned-pair ops do not stand in for those kernels.
+of ``SCAN_MIN`` strings or more general weights (item 10: the wlev
+kernel); the aligned-pair ops do not stand in for that kernel.
 """
 
 from __future__ import annotations
@@ -52,24 +52,19 @@ __all__ = [
 ]
 
 
-def _editops_not_ported():
-    return NotImplementedError(
-        "editops/opcodes are not ported yet (ROADMAP.md queue 1, item 13)")
-
-
 def editops(s1, s2):
     """Minimal uniform-Levenshtein edit script: not ported yet."""
-    raise _editops_not_ported()
+    raise _int_metric.editops_not_ported()
 
 
 def editops_many(s1, choices):
     """Edit scripts from ``s1`` to every choice: not ported yet."""
-    raise _editops_not_ported()
+    raise _int_metric.editops_not_ported()
 
 
 def opcodes(s1, s2):
     """difflib-style grouped edit operations: not ported yet."""
-    raise _editops_not_ported()
+    raise _int_metric.editops_not_ported()
 
 
 @dataclass(frozen=True)
@@ -286,10 +281,10 @@ def _raw_distance_batch(c1, l1, c2, l2, weights: WeightTable,
 
 def _batch_raw(s1s, s2s, weights: WeightTable, device=None):
     weights = as_weight_table(weights)
-    # one query against a corpus: the scanner and its kernels.  The
-    # scanner raises for the weights whose kernels are not ported: the
-    # indel reduction (ROADMAP.md queue 1, item 5) and general weights
-    # (item 10); the aligned-pair ops stand in for neither
+    # one query against a corpus: the scanner and its kernels (weights
+    # with sub >= ins + del reduce to indel there).  The scanner raises for
+    # general weights, whose kernel is not ported (ROADMAP.md queue 1,
+    # item 10); the aligned-pair ops do not stand in for it
     if len(s1s) == 1 and len(s2s) >= _int_metric.SCAN_MIN:
         d = _int_metric.scan_one_vs_many("levenshtein", s1s[0], s2s,
                                          weights=weights.costs(),

@@ -40,9 +40,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: counts as ``lev_scan_long`` (``stream_kernel._kernel``), K3 with the
 #: caller's cutoff as its semiwidth as ``lev_band_rt``
 #: (``band_kernel._kernel``) and K3 on the streamed-band route as
-#: ``lev_band_long`` (``band_kernel._stream_kernel``).
+#: ``lev_band_long`` (``band_kernel._stream_kernel``); likewise K4 (the
+#: LCS scan) at buckets > 1024 as ``lcs_scan_long``
+#: (``stream_kernel._lcs_kernel``) and K5 (the LCS band) on the streamed
+#: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
-            "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0}
+            "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
+            "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
+            "lcs_band": 0, "lcs_band_long": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -59,6 +64,10 @@ _SIGNATURES = {
     "rf_remap_pack": [_P, _P, _P, _I64, _I, _P],
     # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, stream
     "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _P],
+    # pm, cand, lb, out, scratch, B, lb4, W, nq, stream
+    "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # pm, ws, bw, cand, lb, out, B, lb4, stream
+    "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
 }
 
 

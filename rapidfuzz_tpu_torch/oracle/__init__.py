@@ -4,9 +4,8 @@ bindings.
 The port's counterpart of ``rapidfuzz_tpu.oracle``: the same source and
 g++ flags, built into the port's own build directory so the two packages
 never share (or race on) one shared object.  Bound so far: the uniform
-Levenshtein entry points the ported scans are checked against, and the
-weighted Levenshtein and indel entry points the library's scalar path
-uses.
+Levenshtein, indel and LCS entry points the ported scans are checked
+against and the library's scalar paths use, and weighted Levenshtein.
 """
 
 from __future__ import annotations
@@ -71,6 +70,12 @@ def _load():
             lib.rf_indel.argtypes = [p64, i64, p64, i64]
             lib.rf_indel_bp.restype = i64
             lib.rf_indel_bp.argtypes = [p64, i64, p64, i64]
+            lib.rf_indel_1vN.restype = None
+            lib.rf_indel_1vN.argtypes = [p64, i64, p64, p64, i64, p64]
+            lib.rf_lcs_seq.restype = i64
+            lib.rf_lcs_seq.argtypes = [p64, i64, p64, i64]
+            lib.rf_lcs_seq_bp.restype = i64
+            lib.rf_lcs_seq_bp.argtypes = [p64, i64, p64, i64]
             _lib = lib
     return _lib
 
@@ -153,3 +158,21 @@ def indel(a, b) -> int:
     if a.size * b.size > _BP_MIN_CELLS:
         return int(_load().rf_indel_bp(a, a.size, b, b.size))
     return int(_load().rf_indel(a, a.size, b, b.size))
+
+
+def indel_1vN(q, flat, offsets) -> np.ndarray:
+    """Indel distances of ``q`` to each of ``len(offsets) - 1`` strings
+    stored back to back in ``flat`` (as :func:`levenshtein_uniform_1vN`)."""
+    q, flat, offsets = _arr(q), _arr(flat), _arr(offsets)
+    n = offsets.size - 1
+    out = np.empty(n, np.int64)
+    _load().rf_indel_1vN(q, q.size, flat, offsets, n, out)
+    return out
+
+
+def lcs_seq(a, b) -> int:
+    """LCS length (similarity), routed as :func:`indel`."""
+    a, b = _arr(a), _arr(b)
+    if a.size * b.size > _BP_MIN_CELLS:
+        return int(_load().rf_lcs_seq_bp(a, a.size, b, b.size))
+    return int(_load().rf_lcs_seq(a, a.size, b, b.size))

@@ -1,16 +1,17 @@
 """One-vs-many and many-vs-many corpus scans on one device.
 
-Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform
-Levenshtein: the corpus is encoded once, length-sorted, packed and kept
-on the device, and every query scan reuses it — the reference's
-``BatchComparator`` pattern (``levenshtein.rs:1625-1657``) over a corpus.
-Routing follows the JAX scanner's Pallas rules (they were tuned on a TPU
-and are kept for parity), with one exception: a bucket over 1024 chars
-that is not whole 512-char chunks leaves the JAX scanner's Pallas kernels
-for its XLA scan, and there the port picks its own route, the run-time
-band or the full scan.  Only the ops wrappers choose between a kernel
-(CUDA tensors) and its plain version (CPU tensors), so the host logic is
-the same on both.
+Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform Levenshtein
+and the LCS family (indel, lcs_seq): the corpus is encoded once,
+length-sorted, packed and kept on the device, and every query scan reuses
+it — the reference's ``BatchComparator`` pattern
+(``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
+scanner's Pallas rules (they were tuned on a TPU and are kept for
+parity), with one exception: a bucket over 1024 chars that is not whole
+512-char chunks leaves the JAX scanner's Pallas kernels for its XLA scan,
+and there the port picks its own routes (Levenshtein: the run-time band
+or the full scan; LCS: the streamed routes).  Only the ops wrappers
+choose between a kernel (CUDA tensors) and its plain version (CPU
+tensors), so the host logic is the same on both.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 
 from ..ops.cuda import band_kernel as _bk
 from ..ops.cuda import default_device
+from ..ops.cuda import lcs_band_kernel as _cbk
+from ..ops.cuda import lcs_kernel as _ck
 from ..ops.cuda import lev_kernel as _lk
 from ..utils import codec as _codec
 
@@ -33,47 +36,57 @@ BLOCK = 256
 #: (:227-231); the port keeps the split so that stream buckets route as
 #: there, though its kernels need no chunks
 STREAM_CHUNK = 512
+#: metrics the scanner serves
+METRICS = ("levenshtein", "indel", "lcs_seq")
+#: narrowest query (in u32 words) the LCS band serves: the TPU rule
+#: (``scan.py:866-872``), kept for parity
+LCS_BAND_MIN_W = 8
 
 
 class CorpusScanner:
-    """One-vs-many uniform Levenshtein scan over a device-resident corpus.
+    """One-vs-many scan over a device-resident corpus: uniform
+    Levenshtein, indel or lcs_seq distances.
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
     Corpora with chars >= 256 are kept unpacked and remapped per query to
-    query-local ids (K2).  ``weights`` = ``(insertion, deletion,
-    substitution)`` costs reduce as in the JAX scanner: a multiple of
-    uniform scales the distances, zero insert/delete costs give all-zero
-    distances.  Every bucket length is served; buckets over 1024 chars
-    that are whole 512-char chunks take the JAX scanner's long routes
-    (the streamed band and the full scan), other long buckets, which the
-    JAX scanner leaves to XLA, the port's own (the run-time band and the
-    full scan).
+    query-local ids (K2).  Levenshtein ``weights`` = ``(insertion,
+    deletion, substitution)`` costs reduce as in the JAX scanner: a
+    multiple of uniform scales the distances, zero insert/delete costs
+    give all-zero distances, and ``sub >= ins + del`` with ``ins == del``
+    is ``ins`` times indel, which the scanner then serves as metric
+    ``indel`` (other metrics ignore ``weights``, as there).  Every bucket
+    length is served; buckets over 1024 chars that are whole 512-char
+    chunks take the JAX scanner's long routes (the streamed bands and the
+    full scans), other long buckets, which the JAX scanner leaves to XLA,
+    the port's own (Levenshtein: the run-time band and the full scan;
+    LCS: the streamed routes).
 
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
     per query), 4 for its length.  Per query a scan adds an int32 output,
     for queries over 256 chars K1's ``[2W, B]`` int32 carry scratch, and
     for a hint scan its stragglers, compacted in chunks of at most an
-    eighth of the corpus, so no scan stages a second corpus-sized copy.
+    eighth of the corpus, so no scan stages a second corpus-sized copy;
+    the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
 
     def __init__(self, corpus, metric: str = "levenshtein",
                  bucket: int | None = None, weights=None, device=None):
-        if metric != "levenshtein":
+        if metric not in METRICS:
             raise NotImplementedError(
                 f"metric {metric!r} is not ported yet (ROADMAP.md queue 1, "
-                "items 5-12)")
+                "items 6-12)")
         self.metric = metric
         self.device = torch.device(device) if device is not None \
             else default_device()
         # weighted Levenshtein reduces algebraically where possible
-        # (levenshtein.rs:1244-1279)
+        # (levenshtein.rs:1244-1279; scan.py:146-156)
         self._wscale = 1
         self._zero = False
-        if weights is not None:
+        if weights is not None and metric == "levenshtein":
             ins, dele, sub = (int(w) for w in weights)
             if not ins == dele == sub == 1:
                 if ins == dele == 0:
@@ -81,9 +94,8 @@ class CorpusScanner:
                 elif ins == dele == sub:
                     self._wscale = ins
                 elif ins == dele and sub >= ins + dele:
-                    raise NotImplementedError(
-                        "the weighted-to-indel reduction is not ported yet "
-                        "(ROADMAP.md queue 1, item 5)")
+                    self.metric = "indel"
+                    self._wscale = ins
                 else:
                     raise NotImplementedError(
                         "general weighted Levenshtein is not ported yet "
@@ -191,12 +203,14 @@ class CorpusScanner:
         return q_local, "local", cand
 
     def _distances_dev(self, query, score_cutoff=None, score_hint=None):
-        """Distances in sorted (padded) corpus order, as host int32,
-        routed as the JAX scanner routes (``scan.py:678-797``)."""
+        """Distances in sorted (padded) corpus order, as host integers,
+        routed as the JAX scanner routes (``scan.py:678-915``)."""
         q = self._encode_query(query)
         if self._zero:
             return np.zeros(self.lb.shape[0], np.int64)
         qk, mode, cand = self._query_view(q)
+        if self.metric != "levenshtein":
+            return self._lcs_distances(q, qk, mode, cand, score_cutoff)
         cut = (None if score_cutoff is None or self._wscale != 1
                else score_cutoff)
         if cut is not None and self._stream:
@@ -217,6 +231,40 @@ class CorpusScanner:
         if self._wscale != 1:
             out = out * self._wscale
         return out.cpu().numpy()
+
+    def _lcs_distances(self, q, qk, mode, cand, score_cutoff):
+        """Indel or lcs_seq distances, sorted order (``scan.py:855-915``):
+        an indel cutoff ``k`` bounds the LCS to a band of ``k`` (an
+        lcs_seq cutoff ``k`` to indel ``2k``), which serves queries of at
+        least :data:`LCS_BAND_MIN_W` words, up to 2 band words over long
+        buckets; not under a weight scale, and in byte mode not for a
+        query holding NUL (the pad byte, which the TPU band reads).
+        Otherwise the full LCS scan.  The LCS lengths are finished here
+        into ``la + lb - 2*lcs`` (indel, times the weight scale) or
+        ``max(la, lb) - lcs``."""
+        eff = (None if score_cutoff is None or self._wscale != 1
+               else int(score_cutoff))
+        band_cut = (eff if self.metric == "indel"
+                    else None if eff is None else 2 * eff)
+        band = None
+        if (band_cut is not None and 0 <= band_cut <= _cbk.MAX_CUTOFF
+                and _lk.words(q.size) >= LCS_BAND_MIN_W
+                and (mode == "local" or not np.any(np.asarray(qk) == 0))):
+            if not self._long:
+                band = _cbk.lcs_banded_1v_many
+            elif _bk.band_words(band_cut) <= 2:
+                band = _cbk.lcs_banded_stream_1v_many
+        if band is not None:
+            sim = band(np.asarray(qk, np.int32), cand, self.lb,
+                       cutoff=band_cut, mode=mode)
+        else:
+            sim = _ck.lcs_1v_many(qk, cand, self.lb, mode=mode)
+        la, lb = int(q.size), self.lb.to(torch.int64)
+        if self.metric == "indel":
+            d = (la + lb - 2 * sim) * self._wscale
+        else:
+            d = torch.clamp(lb, min=la) - sim
+        return d.cpu().numpy()
 
     def _band_route(self, cut: int, qsize: int):
         """The band wrapper the JAX scanner's rules pick for a cutoff
@@ -255,6 +303,8 @@ class CorpusScanner:
         gathered into dense sub-corpora for full-kernel passes, so every
         distance stays exact.  Returns None when the hint isn't
         band-eligible."""
+        if self.metric != "levenshtein":
+            return None
         q = np.asarray(qk)
         cut = max(1, min(int(hint), _bk.MAX_CUTOFF_FAST))
         bw = _bk.band_words(cut)
@@ -293,7 +343,8 @@ class CorpusScanner:
         """Cheapest band cutoff the routing would actually accelerate for
         this query, or None (``scan.py:959-986``: the pinned band over
         buckets of at most ``FAST_MAX_LB`` only)."""
-        if self._wscale != 1 or self._LB > _bk.FAST_MAX_LB:
+        if (self.metric != "levenshtein" or self._wscale != 1
+                or self._LB > _bk.FAST_MAX_LB):
             return None
         qsize = int(_codec.encode_one(query).size)
         if self._wide and qsize > 127:
@@ -353,7 +404,9 @@ class CorpusScanner:
 
         Queries are encoded, grouped by (word bucket, PM mode), padded to
         :data:`NQ_GROUP` by repeating the group's last query (padded rows
-        are dropped), and run through ``lev_kernel.lev_nq_many``.
+        are dropped), and run through ``lev_kernel.lev_nq_many`` or
+        ``lcs_kernel.lcs_nq_many``; LCS lengths are finished per metric on
+        the corpus-order host lengths (``scan.py:1316-1333``).
         """
         enc = [self._encode_query(q) for q in queries]
         out = np.zeros((len(enc), self.n), np.int64)
@@ -361,17 +414,23 @@ class CorpusScanner:
         for i, q in enumerate(enc):
             groups.setdefault((_lk.words(q.size),
                                _lk.pick_mode(q, self._cmax)), []).append(i)
+        nq_fn = (_lk.lev_nq_many if self.metric == "levenshtein"
+                 else _ck.lcs_nq_many)
+        lens = self.lengths.astype(np.int64)
         for (_, mode), idxs in groups.items():
             for s in range(0, len(idxs), self.NQ_GROUP):
                 part = idxs[s: s + self.NQ_GROUP]
                 qs = [enc[i] for i in part]
                 qs = qs + [qs[-1]] * (self.NQ_GROUP - len(qs))
-                d = _lk.lev_nq_many(qs, self.cand, self.lb,
-                                    mode=mode).cpu().numpy()
-                if self._wscale != 1:
-                    d = d * self._wscale
+                d = nq_fn(qs, self.cand, self.lb, mode=mode).cpu().numpy()
                 for row, i in enumerate(part):
-                    out[i] = self._unsort(d[row])
+                    r = self._unsort(d[row]).astype(np.int64)
+                    la = enc[i].size
+                    if self.metric == "indel":
+                        r = la + lens - 2 * r
+                    elif self.metric == "lcs_seq":
+                        r = np.maximum(la, lens) - r
+                    out[i] = r * self._wscale
         return out
 
     def _ckpt_fingerprint(self, queries) -> str:

@@ -1,7 +1,8 @@
 """Serving layer: an HTTP daemon around :class:`CorpusScanner`.
 
 Counterpart of ``rapidfuzz_tpu/serve.py``: load the corpus once, keep it
-on the device, answer one-vs-many queries over HTTP.  Stdlib-only.
+on the device, answer one-vs-many queries over HTTP under one metric
+(``--metric levenshtein``, ``indel`` or ``lcs_seq``).  Stdlib-only.
 
 Endpoints (JSON):
 
@@ -29,6 +30,7 @@ Endpoints (JSON):
 Run::
 
     python -m rapidfuzz_tpu_torch.serve --corpus words.txt --port 8947
+    python -m rapidfuzz_tpu_torch.serve --corpus words.txt --metric indel
 
 Requests serialize through a lock: one scan saturates the card, so
 concurrency would only interleave kernel launches.
@@ -71,12 +73,13 @@ class ScanService:
         """Run the corpus's scan routes once before serving traffic.
 
         The first call builds the CUDA kernels (nvcc, once per source
-        hash) and loads them; ``full`` also runs the cutoff (banded), hint,
-        top-k and grouped scan_many routes, over a long bucket the
-        streamed band, the run-time band and the long full scan among
-        them.  Returns a route -> seconds table; a route the corpus cannot
-        serve yet records its ``NotImplementedError``, and anything else,
-        a failed build or launch among them, raises."""
+        hash) and loads them; ``full`` also runs the cutoff (banded), hint
+        (Levenshtein only, as the JAX server), top-k and grouped scan_many
+        routes, over a long bucket the streamed bands, the run-time band
+        and the long full scans among them.  Returns a route -> seconds
+        table; a route the corpus cannot serve yet records its
+        ``NotImplementedError``, and anything else, a failed build or
+        launch among them, raises."""
         if not self.corpus:
             return {}
         q = max(self.corpus, key=len)[: self.WARM_LEN] or "a"
@@ -101,8 +104,9 @@ class ScanService:
                 step(f"distances_cutoff{cut}",
                      lambda c=cut: self.scanner.distances(
                          q, score_cutoff=c))
-            step("distances_hint",
-                 lambda: self.scanner.distances(q, score_hint=8))
+            if self.scanner.metric == "levenshtein":
+                step("distances_hint",
+                     lambda: self.scanner.distances(q, score_hint=8))
             step("topk", lambda: self.scanner.topk(q, k=3))
             step("scan_many",
                  lambda: self.scanner.scan_many([q, q[:-1] or "a"]))
@@ -226,7 +230,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus", required=True,
                     help="text file, one corpus string per line")
-    ap.add_argument("--metric", default="levenshtein")
+    ap.add_argument("--metric", default="levenshtein",
+                    help="levenshtein, indel or lcs_seq")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8947)
     ap.add_argument("--bucket", type=int, default=None,

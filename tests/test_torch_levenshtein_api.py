@@ -95,15 +95,15 @@ def test_scores_match_jax(w):
 def test_one_vs_many_scan_route(monkeypatch):
     """With ``SCAN_MIN`` lowered, one query against a corpus goes through
     the port's ``CorpusScanner`` for the weight reductions it serves and
-    returns what the JAX package returns; the indel reduction, whose
-    kernels are not ported, raises rather than run the aligned-pair ops."""
+    returns what the JAX package returns; the weights that reduce to indel
+    go through its LCS kernels."""
     monkeypatch.setattr(_int_metric, "SCAN_MIN", 4)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        lev.distance_many(["kitten"], CORPUS, weights=(1, 1, 2),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        lev.BatchComparator("kittens", (2, 2, 5)).distances(CORPUS,
-                                                           device="cpu")
+    _same(lev.distance_many(["kitten"], CORPUS, weights=(1, 1, 2),
+                            device="cpu"),
+          jlev.distance_many(["kitten"], CORPUS, weights=(1, 1, 2)))
+    _same(lev.BatchComparator("kittens", (2, 2, 5)).distances(CORPUS,
+                                                             device="cpu"),
+          jlev.BatchComparator("kittens", (2, 2, 5)).distances(CORPUS))
     _same(lev.distance_many(["kitten"], CORPUS[:3], weights=(1, 1, 2),
                             device="cpu"),
           jlev.distance_many(["kitten"], CORPUS[:3], weights=(1, 1, 2)))

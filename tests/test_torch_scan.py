@@ -15,6 +15,7 @@ import pytest
 import jax
 from jax.sharding import Mesh
 
+from rapidfuzz_tpu.distance import levenshtein as jlev
 from rapidfuzz_tpu.parallel.scan import CorpusScanner as JaxScanner
 from rapidfuzz_tpu_torch.parallel import CorpusScanner
 from rapidfuzz_tpu_torch.utils import codec
@@ -162,15 +163,17 @@ def test_weights_vocab_remap_and_unported_cases():
     big = [[2 ** 40, 5, 7], [5, 7], [2 ** 40]]
     vs = CorpusScanner(big, device="cpu")
     np.testing.assert_array_equal(vs.distances([2 ** 40, 7]), [1, 1, 1])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        CorpusScanner(corpus, weights=(1, 1, 2), device="cpu")
+    np.testing.assert_array_equal(
+        CorpusScanner(corpus, weights=(1, 1, 2),
+                      device="cpu").distances("sitting"),
+        [jlev.distance("sitting", s, weights=(1, 1, 2)) for s in corpus])
     with pytest.raises(NotImplementedError, match="item 10"):
         CorpusScanner(corpus, weights=(1, 2, 3), device="cpu")
     # buckets over 1024 chars are served (the long routes)
     np.testing.assert_array_equal(
         CorpusScanner(["a" * 1500, "ab"], device="cpu").distances("aa"),
         [1498, 1])
-    with pytest.raises(NotImplementedError, match="items 5-12"):
+    with pytest.raises(NotImplementedError, match="items 6-12"):
         CorpusScanner(corpus, metric="osa", device="cpu")
     wide = CorpusScanner(corpus + ["а"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
