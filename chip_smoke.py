@@ -10,7 +10,8 @@ Phases, each printing one JSON line before the next starts:
 1. device  — ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s name,
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
-   one process per source, all at once;
+   one process per source, all at once, and reports each kernel's
+   registers and spills (``ptxas -v``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
    long routes (K1 and K4 over 2048- and 8192-char buckets, the run-time
@@ -18,7 +19,12 @@ Phases, each printing one JSON line before the next starts:
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first scratch width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
-   band;
+   band, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first scratch width)
+   and 16 queries per launch over near copies with adjacent swaps planted
+   across query words and packed 4-char rows, and over 2048- and
+   8192-char buckets; and one K2 case whose bucket (300,000 chars) makes
+   its blocks stride past 65,535 grid rows, its scan held against the
+   oracle on a sampled row;
 4. serve   — ``ScanService`` over a 1,048,576-string word-like corpus
    (bucket 64) behind ``make_server``; ``/health``, ``/topk``,
    ``/distances`` (plain, ``score_cutoff``, ``score_hint``) and ``/batch``
@@ -50,17 +56,26 @@ Phases, each printing one JSON line before the next starts:
    ``metric="indel"`` over the same texts: ``/topk`` for the three
    queries (K4 in register and scratch form) and ``score_cutoff`` 15 and
    31 for the ~4,000-char query (the streamed LCS band);
-9. timing  — each kernel and its plain version at its main-path shape
+9. osa     — OSA: ``ScanService(metric="osa")`` over the serve corpus
+   behind ``make_server`` (``/topk``, ``/distances`` plain and under a
+   cutoff, ``/batch`` of 20 queries), a ``CorpusScanner(metric="osa")``
+   over the long corpus for the 64- and 300-char queries, an OSA service
+   over the bucket-6000 texts for the ~4,000-char query (K6's scratch
+   form), and ``osa.distance_many`` over 65,536 strings, all held against
+   the oracle (whole-corpus windows: OSA is at least the length
+   difference and at least half the Levenshtein distance);
+10. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound;
-10. rate   — one len-64 query, then 16 per launch, against 67,108,864
+11. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
-5, zeroed again just before phase 7 and read after it, and again just
-before phase 8 and read after it, so the counts are those of the three
-main paths alone; every kernel must have launched in them.  Any failure
+5, zeroed again just before phase 7 and read after it, just before phase
+8 and read after it, and just before phase 9 and read after it, so the
+counts are those of the four main paths alone; every kernel must have
+launched in them.  Any failure
 raises: the script then exits nonzero and never prints its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 nonzero before any phase.
@@ -70,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -101,6 +117,9 @@ MID_LB = 1024
 MID_MIN = 225
 N_PASSAGES = 300
 N_RATIO = 1 << 16
+#: K2's stride case: a bucket past 65,535 packed rows of 4 chars
+STRIDE_LB = 300_000
+N_STRIDE = 256
 #: card peaks for the bounds: HBM bytes/s (NVIDIA's data sheet, H100 SXM)
 #: and INT32 lanes (132 SMs x 64); the SM clock is read from nvidia-smi
 HBM_BYTES_S = 3.35e12
@@ -115,11 +134,15 @@ INT32_LANES = 132 * 64
 #: carry-out, one lop3 for t | (s & ~u)), K5 per band word and text step
 #: (the window's funnel shift, and, the 3-input add, its carry-out, the
 #: lop3 t | (s ^ u), the slide's funnel shift), plus LCS_BAND_STEP_OPS
-#: once per text step for the accumulator
+#: once per text step for the accumulator; K6 per query word and text step
+#: (K1's 11, plus the and-not t = ~d0_prev & pm, the funnel shift of t
+#: with the lower word's t, and the and with pm_prev; the or into d0 folds
+#: into K1's 3-input or)
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
        "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
-       "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6}
+       "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
+       "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14}
 LCS_BAND_STEP_OPS = 1
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
@@ -134,6 +157,9 @@ REPLACES = {
     "lcs_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:271",
     "lcs_band": "rapidfuzz_tpu/ops/pallas/lcs_band_kernel.py:148",
     "lcs_band_long": "rapidfuzz_tpu/ops/pallas/lcs_band_kernel.py:276",
+    "osa_scan": "rapidfuzz_tpu/ops/pallas/osa_kernel.py:118",
+    "osa_scan_nq": "rapidfuzz_tpu/ops/pallas/osa_kernel.py:172",
+    "osa_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:425",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -148,11 +174,15 @@ SOURCES = {
     "lcs_scan_long": "rapidfuzz_tpu_torch/csrc/lcs_scan.cu",
     "lcs_band": "rapidfuzz_tpu_torch/csrc/lcs_band.cu",
     "lcs_band_long": "rapidfuzz_tpu_torch/csrc/lcs_band.cu",
+    "osa_scan": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
+    "osa_scan_nq": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
+    "osa_scan_long": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
 LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long",
              "lcs_scan_long", "lcs_band_long")
+OSA_PATH = ("osa_scan", "osa_scan_nq", "osa_scan_long")
 
 
 def emit(obj) -> None:
@@ -164,6 +194,18 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return p.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(report: dict) -> dict:
+    """Per source, from ``ptxas -v``: each kernel's registers (in the
+    order ptxas compiled them) and the spill bytes of all its kernels."""
+    out = {}
+    for src, log in sorted(report.items()):
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        out[src] = {"registers": regs, "spill_bytes": spills}
+    return out
 
 
 def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
@@ -192,10 +234,11 @@ class Smoke:
         from rapidfuzz_tpu_torch.ops.cuda import lcs_band_kernel as cbk
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
+        from rapidfuzz_tpu_torch.ops.cuda import osa_kernel as ok
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
-        self.ck, self.cbk = ck, cbk
+        self.ck, self.cbk, self.ok = ck, cbk, ok
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -317,7 +360,9 @@ class Smoke:
                     raise AssertionError(f"band cutoff={cut}: no candidate "
                                          "accepted; inputs too far apart")
         salt = self.long_kernel_cases(rng, alph["byte"], salt)
-        self.lcs_kernel_cases(rng, alph, salt)
+        salt = self.lcs_kernel_cases(rng, alph, salt)
+        salt = self.osa_kernel_cases(rng, alph, salt)
+        self.stride_case(rng)
         self.sync()
         emit({"phase": "kernels", "candidates": N_KERNEL,
               "long_candidates": N_KERNEL_LONG,
@@ -477,6 +522,95 @@ class Smoke:
                 if int((la + lb - 2 * got <= cut).sum()) == 0:
                     raise AssertionError(f"streamed lcs band cutoff={cut}: "
                                          "no candidate accepted")
+        return salt
+
+    def osa_kernel_cases(self, rng, alph, salt):
+        """K6 against its plain version over near copies of the query
+        with adjacent swaps planted across query bits 31/32 and across
+        packed 4-char rows (text chars 3/4 and 7/8): ``osa_scan`` at W =
+        1, 2, 4 and 9 (the first scratch width) over N_KERNEL candidates,
+        in both PM modes; ``osa_scan_nq`` for a one-word group holding an
+        empty query and a two-word group; ``osa_scan_long`` at W = 2 over
+        2048- and 8192-char buckets and at W = 9 over 2048, at
+        N_KERNEL_LONG candidates.  In every case K6 must also beat K1 on
+        some row, so the transposition term fired."""
+        torch, lk, ok = self.torch, self.lk, self.ok
+
+        def case(name, q, mode, cand, lb, what):
+            las, tabs = lk.stage_query(q, mode, self.dev)
+            got = ok.osa_1v_many(q, cand, lb, mode=mode)
+            self.compare(name, got, ok.osa_scan_plain(las, tabs[None], cand,
+                                                      lb)[0], what)
+            lev = lk.lev_1v_many(q, cand, lb, mode=mode)
+            if not (bool((got < lev).any()) and bool((got <= lev).all())):
+                raise AssertionError(f"{name} {what}: OSA should beat "
+                                     "Levenshtein on the swapped rows")
+
+        for W in (1, 2, 4, ok.MAX_REG_W + 1):
+            for mode in ("byte", "local"):
+                salt += 1
+                a = alph[mode]
+                q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+                cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL,
+                                        LB if W <= 2 else 320, swaps=True)
+                case("osa_scan", q, mode, cand, lb, f"W={W} {mode}")
+        for W in (1, 2):
+            salt += 1
+            a = alph["byte"]
+            q0 = rng.choice(a, 32 * W)
+            qs = [q0] + [rng.choice(a, 32 * (W - 1) + 1
+                                    + int(rng.integers(0, 32)))
+                         for _ in range(15)]
+            if W == 1:
+                qs[3] = np.empty(0, np.int64)
+            cand, lb = self.mutants(self.gen(salt), q0, a, N_KERNEL, LB,
+                                    swaps=True)
+            las, tabs = lk.stage_queries(qs, "byte", self.dev)
+            self.compare("osa_scan_nq", ok.osa_nq_many(qs, cand, lb),
+                         ok.osa_scan_plain(las, tabs, cand, lb),
+                         f"16 queries W={W}")
+        for LBl, W in ((2048, 2), (2048, ok.MAX_REG_W + 1), (LONG_LB, 2)):
+            salt += 1
+            a = alph["byte"]
+            q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+            cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG, LBl,
+                                    swaps=True)
+            lb[:8] = LBl                      # the bucket's last rows
+            case("osa_scan_long", q, "byte", cand, lb, f"LB={LBl} W={W}")
+        return salt
+
+    def stride_case(self, rng):
+        """K2 over a bucket of STRIDE_LB chars (75,000 packed rows: its
+        blocks stride past the 65,535 rows grid.y can hold) of N_STRIDE
+        Cyrillic candidates, about 300 MiB unpacked: bit for bit against
+        its plain version, and the Levenshtein scan of the remapped corpus
+        against the C++ oracle on a sampled row that runs to the end of
+        the bucket."""
+        torch, lk = self.torch, self.lk
+        g = self.gen(4242)
+        pool = np.arange(0x430, 0x450)
+        chars_t = torch.from_numpy(pool).to(self.dev, torch.int32)[
+            torch.randint(0, pool.size, (STRIDE_LB, N_STRIDE), generator=g,
+                          device=self.dev)]
+        lens = torch.randint(STRIDE_LB // 2, STRIDE_LB + 1, (N_STRIDE,),
+                             generator=g, device=self.dev, dtype=torch.int32)
+        row = int(rng.integers(0, N_STRIDE))
+        lens[row] = STRIDE_LB
+        chars_t = torch.where(torch.arange(STRIDE_LB, device=self.dev)[:, None]
+                              < lens[None, :], chars_t, -1)
+        q = rng.choice(pool[:20], 40)
+        vocab, q_local = lk.query_vocab(q)
+        vocab_t = torch.from_numpy(vocab).to(self.dev)
+        got = lk.remap_pack(chars_t, vocab_t)
+        self.compare("remap_pack", got, lk.remap_pack_plain(chars_t, vocab_t),
+                     f"bucket {STRIDE_LB}, {STRIDE_LB // 4} rows")
+        d = lk.lev_1v_many(q_local, got, lens, mode="local")
+        text = chars_t[:, row].cpu().numpy()
+        truth = self.oracle.levenshtein_uniform_bp(q, text.astype(np.int64))
+        if int(d[row]) != truth:
+            raise AssertionError(f"K2 stride case: row {row} distance "
+                                 f"{int(d[row])} != oracle {truth}")
+        del chars_t, got
 
     def plant_rows(self, cand, lb, row, n):
         """Overwrite the last ``n`` candidates of a packed corpus with the
@@ -490,9 +624,11 @@ class Smoke:
         cand[:, -n:] = packed
         lb[-n:] = row.numel()
 
-    def mutants(self, g, q, alphabet, B, lb_max):
+    def mutants(self, g, q, alphabet, B, lb_max, swaps: bool = False):
         """Packed near-copies of ``q``: random substitutions and length
-        changes, so distances spread across the band cutoffs."""
+        changes, so distances spread across the band cutoffs; with
+        ``swaps``, one adjacent swap per row, at text chars 31/32 (across
+        query words), 3/4 or 7/8 (across packed rows) or at random."""
         torch = self.torch
         a = torch.from_numpy(alphabet).to(self.dev)
         base = torch.full((lb_max,), int(alphabet[0]), device=self.dev,
@@ -505,6 +641,15 @@ class Smoke:
         sub = torch.rand((B, lb_max), generator=g, device=self.dev) < rate
         chars = torch.where(sub, rnd, base[None, :])
         chars[:, q.size:] = rnd[:, q.size:]
+        if swaps:
+            p = torch.randint(0, lb_max - 1, (B,), generator=g,
+                              device=self.dev)
+            fixed = torch.tensor([31, 3, 7], device=self.dev).clamp(
+                max=lb_max - 2)
+            r = torch.arange(B, device=self.dev) % 4
+            p = torch.where(r < 3, fixed[r.clamp(max=2)], p)[:, None]
+            a, b = chars.gather(1, p), chars.gather(1, p + 1)
+            chars = chars.scatter(1, p, b).scatter(1, p + 1, a)
         lens = (q.size + torch.randint(-30, 31, (B,), generator=g,
                                        device=self.dev)).clamp(0, lb_max)
         lens = lens.to(torch.int32)
@@ -516,8 +661,13 @@ class Smoke:
     def oracle_rows(self, query: str, strings,
                     metric: str = "levenshtein") -> np.ndarray:
         """Oracle distances of ``query`` to ``strings`` under ``metric``
-        (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``)."""
+        (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``; OSA one
+        scalar call per string)."""
         enc = [self.codec.encode_one(s) for s in strings]
+        if metric == "osa":
+            eq = self.codec.encode_one(query)
+            return np.fromiter((self.oracle.osa(eq, e) for e in enc),
+                               np.int64, len(enc))
         lens = np.fromiter((e.size for e in enc), np.int64, len(enc))
         offs = np.r_[0, np.cumsum(lens)]
         flat = np.concatenate(enc) if enc else np.empty(0, np.int64)
@@ -694,6 +844,8 @@ class Smoke:
         self.serve_query = anchors[0]
         self.serve_anchors = anchors
         self.serve_corpus = corpus
+        self.serve_queries, self.serve_lev = queries, full
+        self.serve_planted = planted
         for name in ("lev_scan", "lev_scan_nq", "lev_band"):
             if self.kc.LAUNCHES[name] == 0:
                 raise AssertionError(f"serve phase never launched {name}")
@@ -983,14 +1135,19 @@ class Smoke:
         return corpus, docs, q4k, planted
 
     def window_truth(self, q: str, corpus, lens, bound: int,
-                     metric: str = "levenshtein"):
+                     metric: str = "levenshtein", lev=None):
         """Oracle distances of ``q`` to every row that can lie within
         ``bound``: rows with ``|len - len(q)| > bound`` cannot (each of
-        the three metrics is at least the length difference), so only the
-        others are computed; Levenshtein banded at ``bound`` (exact when
-        within it, ``bound + 1`` above), the LCS metrics exact.  Returns
-        (row ids, distances)."""
-        rows = np.flatnonzero(np.abs(lens - len(q)) <= bound)
+        the four metrics is at least the length difference), nor, under
+        OSA, rows whose Levenshtein distance ``lev`` (where given) exceeds
+        ``2 * bound`` (one OSA edit is at most two Levenshtein edits), so
+        only the others are computed; Levenshtein banded at ``bound``
+        (exact when within it, ``bound + 1`` above), the other metrics
+        exact.  Returns (row ids, distances)."""
+        near = np.abs(lens - len(q)) <= bound
+        if lev is not None:
+            near &= lev <= 2 * bound
+        rows = np.flatnonzero(near)
         if metric != "levenshtein":
             return rows, self.oracle_rows(q, [corpus[i] for i in rows],
                                           metric)
@@ -1001,13 +1158,14 @@ class Smoke:
         return rows, d
 
     def check_topk_window(self, q, corpus, lens, vals, ids, k, what,
-                          metric: str = "levenshtein"):
+                          metric: str = "levenshtein", lev=None):
         """The whole-corpus top-k, by (distance, index): only rows within
         the k-th returned distance can belong to it."""
         vals, ids = np.asarray(vals), np.asarray(ids)
         if len(ids) != k:
             raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
-        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]), metric)
+        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]), metric,
+                                    lev)
         keep = d <= int(vals[-1])
         order = np.lexsort((rows[keep], d[keep]))[:k]
         if not (np.array_equal(rows[keep][order], ids)
@@ -1017,12 +1175,13 @@ class Smoke:
                                  f"{rows[keep][order].tolist()}")
 
     def check_cutoff_window(self, q, corpus, lens, out, cut, what,
-                            want_hits=True, metric: str = "levenshtein"):
+                            want_hits=True, metric: str = "levenshtein",
+                            lev=None):
         """A ``(values, valid)`` answer under ``cut`` against the oracle
         over the whole corpus."""
         valid = np.asarray(out["valid"])
         values = np.asarray(out["values"])
-        rows, d = self.window_truth(q, corpus, lens, cut, metric)
+        rows, d = self.window_truth(q, corpus, lens, cut, metric, lev)
         ok = np.zeros(len(corpus), bool)
         ok[rows[d <= cut]] = True
         if not np.array_equal(valid, ok):
@@ -1176,8 +1335,147 @@ class Smoke:
         self.long_scanner = service.scanner
         self.odd_scanner = odd_scanner
         self.long_queries = {"q64": q64, "q300": q300, "q4k": q4k}
+        self.long_corpus, self.long_lens = corpus, lens
+        self.odd_corpus, self.odd_lens = odd_corpus, odd_lens
 
-    # ------------------------------------------------------------ phase 8
+    # ------------------------------------------------------------ phase 9
+    def phase_osa(self):
+        """OSA on its main path: ``ScanService(metric="osa")`` over the
+        serve corpus behind ``make_server`` -- ``/topk`` for the three
+        anchors (whole corpus) and a random query (sampled rows),
+        ``/distances`` plain (every row within the Levenshtein bounds,
+        ``lev / 2 <= osa <= lev``, sampled and planted rows exact) and
+        under cutoff 3 (whole corpus), ``/batch`` of 20 queries (sampled
+        rows); a ``CorpusScanner(metric="osa")`` over the long corpus for
+        the 64- and 300-char queries, and an OSA service over the
+        bucket-6000 texts for the ~4,000-char query under top-k and cutoff
+        15 (whole corpus); ``osa.distance_many`` over N_LIB strings (every
+        row) and the scalar scores.  Whole-corpus checks compute the
+        oracle only on rows that can lie within the bound: OSA is at least
+        the length difference and at least half the Levenshtein distance
+        (the serve phase's oracle rows)."""
+        from rapidfuzz_tpu_torch.distance import osa
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 7)
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus
+        lens = np.array([len(s) for s in corpus])
+        t0 = time.perf_counter()
+        service = ScanService(corpus, metric="osa", bucket=LB,
+                              device=self.dev)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad or "distances_hint" in warm:
+            raise AssertionError(f"osa warmup routes: {warm}")
+        queries, levs = self.serve_queries, self.serve_lev
+        sample = np.unique(np.r_[rng.choice(N_SERVE, N_SAMPLE,
+                                            replace=False),
+                                 self.serve_planted])
+        call, stop, timings = self.serve_http(service)
+        try:
+            for qi, (q, lev) in enumerate(zip(queries, levs)):
+                out = call("/topk", {"query": q, "k": 10})
+                if qi < len(self.serve_anchors):
+                    self.check_topk_window(q, corpus, lens, out["values"],
+                                           out["indices"], 10,
+                                           f"osa /topk anchor {qi}", "osa",
+                                           lev)
+                else:
+                    self.check_topk_sampled(q, corpus, out["values"],
+                                            out["indices"], sample, 10,
+                                            "osa /topk random", "osa")
+            q0, lev0 = queries[0], levs[0]
+            d = np.asarray(call("/distances", {"query": q0})["values"])
+            lo = np.maximum(np.abs(lens - len(q0)), (lev0 + 1) // 2)
+            if not ((d >= lo).all() and (d <= lev0).all()):
+                raise AssertionError("osa /distances outside the "
+                                     "Levenshtein bounds")
+            if not np.array_equal(d[sample], self.oracle_rows(
+                    q0, [corpus[i] for i in sample], "osa")):
+                raise AssertionError("osa /distances != oracle on sampled "
+                                     "rows")
+            if not (d < lev0).any():
+                raise AssertionError("osa /distances never beat "
+                                     "Levenshtein")
+            out = call("/distances", {"query": q0, "score_cutoff": 3})
+            self.check_cutoff_window(q0, corpus, lens, out, 3,
+                                     "osa /distances cutoff 3",
+                                     metric="osa", lev=lev0)
+            bq = list(queries)
+            while len(bq) < 20:
+                n = int(rng.integers(33, LB + 1))
+                bq.append(rng.integers(97, 123, n, dtype=np.uint8)
+                          .tobytes().decode("ascii"))
+            out = call("/batch", {"queries": bq, "k": 10})
+            for qi, q in enumerate(bq):
+                self.check_topk_sampled(q, corpus, out["values"][qi],
+                                        out["indices"][qi], sample, 10,
+                                        f"osa /batch query {qi}", "osa")
+        finally:
+            stop()
+        del service
+        # the library: one query against N_LIB strings (the scanner), and
+        # the scalar scores
+        sub = corpus[:N_LIB]
+        truth = self.oracle_rows(q0, sub, "osa")
+        res = osa.distance_many([q0], sub)
+        if not (np.array_equal(res.values, truth) and res.valid.all()):
+            raise AssertionError("osa.distance_many != oracle")
+        for s1, s2, want in (("CA", "ABC", 3), ("CA", "AC", 1),
+                             (q0, sub[int(np.argmin(truth))],
+                              int(truth.min()))):
+            m = max(len(s1), len(s2))
+            got = (osa.distance(s1, s2), osa.similarity(s1, s2),
+                   osa.normalized_distance(s1, s2))
+            if got != (want, m - want, want / m):
+                raise AssertionError(f"osa scalar scores {s1!r} {s2!r}: "
+                                     f"{got}")
+        # the long texts: K6 over buckets > 1024 in register form (64 and
+        # 300 chars) and scratch form (~4,000 chars)
+        qs = self.long_queries
+        long_corpus, long_lens = self.long_corpus, self.long_lens
+        t0 = time.perf_counter()
+        long_sc = CorpusScanner(long_corpus, metric="osa", bucket=LONG_LB,
+                                device=self.dev)
+        t_long = time.perf_counter() - t0
+        long_s = {}
+        for key in ("q64", "q300"):
+            t0 = time.perf_counter()
+            vals, ids = long_sc.topk(qs[key], 10)
+            long_s[key] = time.perf_counter() - t0
+            self.check_topk_window(qs[key], long_corpus, long_lens, vals,
+                                   ids, 10, f"osa long topk {key}", "osa")
+        del long_sc
+        odd = ScanService(self.odd_corpus, metric="osa", bucket=ODD_LB,
+                          device=self.dev)
+        if odd.scanner._stream or not odd.scanner._long:
+            raise AssertionError("bucket 6000 did not take the odd route")
+        q4k = qs["q4k"]
+        t0 = time.perf_counter()
+        out = odd.topk(q4k, 10)
+        long_s["q4k"] = time.perf_counter() - t0
+        self.check_topk_window(q4k, self.odd_corpus, self.odd_lens,
+                               out["values"], out["indices"], 10,
+                               "osa bucket 6000 topk q4k", "osa")
+        out = odd.distances(q4k, score_cutoff=15)
+        self.check_cutoff_window(q4k, self.odd_corpus, self.odd_lens, out, 15,
+                                 "osa bucket 6000 cutoff 15", metric="osa")
+        del odd
+        self.sync()
+        emit({"phase": "osa", "corpus": N_SERVE, "bucket": LB,
+              "long_corpus": len(long_corpus), "odd_corpus":
+                  len(self.odd_corpus), "scanner_build_s": t_build,
+              "long_build_s": t_long, "warmup_s": warm,
+              "request_s": {k: v for k, v in timings.items()},
+              "long_topk_s": long_s,
+              "launches": dict(self.kc.LAUNCHES),
+              "seconds": time.perf_counter() - t_start})
+        del self.long_corpus, self.odd_corpus, self.serve_lev
+
+    # ------------------------------------------------------------ phase 10
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -1317,9 +1615,26 @@ class Smoke:
                                          long_sc.lb), 3,
               band_work("lcs_band_long", long_sc.lb, 1, ws_long),
               warm=False)
-        # K1 and K4 over the long corpus at the other query widths of the
-        # long phase: 300 chars (K1's scratch form, K4's registers) and
-        # ~4,000 (both scratch forms)
+        # K6 as K1: the short scans at the serve corpus, the long scan with
+        # the len-64 query over the long corpus
+        ok = self.ok
+        timed("osa_scan",
+              lambda: ok.osa_1v_many(q, cand, lb, staged=(las, tabs)),
+              lambda: ok.osa_scan_plain(las, tabs[None], cand, lb)[0], 20,
+              scan_work("osa_scan", lb, lk.words(q.size)))
+        timed("osa_scan_nq",
+              lambda: ok.osa_nq_many(qs, cand, lb, staged=(lasq, tabsq)),
+              lambda: ok.osa_scan_plain(lasq, tabsq, cand, lb), 10,
+              scan_work("osa_scan_nq", lb, 2, nq=16))
+        timed("osa_scan_long",
+              lambda: ok.osa_1v_many(q64, long_sc.cand, long_sc.lb,
+                                     staged=l64),
+              lambda: ok.osa_scan_plain(l64[0], l64[1][None], long_sc.cand,
+                                        long_sc.lb)[0], 3,
+              scan_work("osa_scan_long", long_sc.lb, 2), warm=False)
+        # K1, K4 and K6 over the long corpus at the other query widths of
+        # the long phase: 300 chars (K1's and K6's scratch forms, K4's
+        # registers) and ~4,000 (every scratch form)
         extra = {}
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
@@ -1328,6 +1643,9 @@ class Smoke:
                                               long_sc.lb, staged=st), 2)
             extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
+                                              long_sc.lb, staged=st), 2)
+            extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
+                torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
@@ -1348,10 +1666,11 @@ class Smoke:
               **extra})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 9
+    # ------------------------------------------------------------ phase 11
     def phase_rate(self, card: str):
-        """Each kernel at N_RATE len-64 candidates, its plain version at
-        N_PLAIN_RATE; sampled rows held against the oracle."""
+        """Each short-text kernel (K1 in both forms, K3, K6, K2) at N_RATE
+        len-64 candidates, its plain version at N_PLAIN_RATE; sampled rows
+        held against the oracle."""
         torch, lk, bk = self.torch, self.lk, self.bk
         t_start = time.perf_counter()
         g = self.gen(999)
@@ -1404,6 +1723,12 @@ class Smoke:
                 band_truth[0] > 15:
             raise AssertionError("rate: band kernel != oracle")
         del db
+        do = rate("osa_scan", lambda: self.ok.osa_1v_many(
+            q, cand, lb, staged=(las, tabs)), N_RATE, 5)
+        if not np.array_equal(do[sdev].cpu().numpy(),
+                              self.oracle_rows(qstr[0], strs, "osa")):
+            raise AssertionError("rate: OSA kernel != oracle")
+        del do
         # plain versions on the first N_PLAIN_RATE candidates, held to
         # the kernels bit for bit
         c4 = cand[:, :N_PLAIN_RATE].contiguous()
@@ -1419,7 +1744,11 @@ class Smoke:
                 ("lev_band",
                  lambda: bk.lev_banded_1v_many(q, c4, l4, cutoff=15,
                                                staged=(las, tabs)),
-                 lambda: bk.lev_band_plain(LB, 15, 1, tabs[:ws], c4, l4))):
+                 lambda: bk.lev_band_plain(LB, 15, 1, tabs[:ws], c4, l4)),
+                ("osa_scan",
+                 lambda: self.ok.osa_1v_many(q, c4, l4, staged=(las, tabs)),
+                 lambda: self.ok.osa_scan_plain(las, tabs[None], c4,
+                                                l4)[0])):
             out[f"{name}_plain_ms"] = cuda_ms(torch, plain, 1)
             self.compare(name, kern(), plain(), "rate slice")
         del cand, c4
@@ -1462,10 +1791,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kc.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": kc.build_seconds, "library": kc.library_path()})
+          "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
+          "ptxas": ptxas_summary(kc.ptxas_report)})
     smoke.phase_kernels()
-    # two main paths, each counted from zero: the serving path over
-    # short texts, then the long texts
+    # the main paths, each counted from zero: the serving path over
+    # short texts, the LCS family's, the long texts', then OSA's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -1486,8 +1816,14 @@ def main(argv=None) -> int:
     for name in LONG_PATH:
         if long_launches[name] == 0:
             raise AssertionError(f"long path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_osa()
+    osa_launches = dict(kc.LAUNCHES)
+    for name in OSA_PATH:
+        if osa_launches[name] == 0:
+            raise AssertionError(f"OSA path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
-                for k in launches}
+                + osa_launches[k] for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")

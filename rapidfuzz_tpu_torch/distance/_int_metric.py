@@ -28,7 +28,7 @@ from ..utils import codec as _codec
 #: (the JAX package's threshold); smaller ones run the aligned-pair ops
 SCAN_MIN = 4096
 #: metrics the port's CorpusScanner serves with identical semantics
-_SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq"})
+_SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq", "osa"})
 
 
 def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,

@@ -1,0 +1,38 @@
+"""Optimal string alignment distance (the reference crate's
+``src/distance/osa.rs``): Levenshtein plus adjacent transpositions, each
+substring edited at most once.
+
+Counterpart of ``rapidfuzz_tpu/distance/osa.py``:
+``maximum = max(len1, len2)`` (``osa.rs:232-234``).  Scalar scores run on
+the host oracle; batch scores on ``device`` (default ``cuda``): one query
+against at least :data:`~._int_metric.SCAN_MIN` strings through the
+port's ``CorpusScanner`` and its OSA kernel, other batches through the
+aligned-pair ``ops/osa.osa_distance``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import oracle as _oracle
+from ..ops import dispatch as _dispatch
+from ..ops import osa as _ops
+from . import _int_metric
+
+
+def _maximum(l1, l2):
+    return np.maximum(l1, l2) if isinstance(l1, np.ndarray) else max(l1, l2)
+
+
+def _raw_distance(u1, u2):
+    return _oracle.osa(u1, u2)
+
+
+def _batch_distance(c1, l1, c2, l2, device=None):
+    return _dispatch.run_pairs(_ops.osa_distance, c1, l1, c2, l2,
+                               device=device)
+
+
+METRIC = _int_metric.IntMetric("osa", _maximum, _raw_distance,
+                               _batch_distance)
+_int_metric.build_module(METRIC, globals())

@@ -42,17 +42,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (``band_kernel._kernel``) and K3 on the streamed-band route as
 #: ``lev_band_long`` (``band_kernel._stream_kernel``); likewise K4 (the
 #: LCS scan) at buckets > 1024 as ``lcs_scan_long``
-#: (``stream_kernel._lcs_kernel``) and K5 (the LCS band) on the streamed
-#: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``).
+#: (``stream_kernel._lcs_kernel``), K5 (the LCS band) on the streamed
+#: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``) and K6
+#: (the OSA scan) at buckets > 1024 as ``osa_scan_long``
+#: (``stream_kernel._osa_kernel``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
             "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
-            "lcs_band": 0, "lcs_band_long": 0}
+            "lcs_band": 0, "lcs_band_long": 0, "osa_scan": 0,
+            "osa_scan_nq": 0, "osa_scan_long": 0}
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last nvcc build took (None: the library was already built)
 build_seconds = None
+#: source file name -> ptxas's resource report (registers, shared memory,
+#: spills per kernel) from the last build
+ptxas_report: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +74,8 @@ _SIGNATURES = {
     "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # pm, ws, bw, cand, lb, out, B, lb4, stream
     "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
+    # pm, las, cand, lb, out, scratch, B, lb4, W, nq, stream
+    "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
 }
 
 
@@ -112,9 +120,9 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"librf_cuda_{h.hexdigest()[:16]}.so")
 
 
-def _run_all(cmds) -> None:
+def _run_all(cmds) -> list[str]:
     """Run the commands in parallel; raise with the first failure's
-    stderr once all have ended."""
+    stderr once all have ended, else return each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -124,6 +132,7 @@ def _run_all(cmds) -> None:
         if rc != 0:
             raise RuntimeError(f"nvcc build failed ({' '.join(c)}):\n"
                                f"{err[-8000:]}")
+    return [err for _, err, _ in errs]
 
 
 def build() -> str:
@@ -140,8 +149,10 @@ def build() -> str:
     objs = [f"{stem}.{os.path.basename(src)}.o" for src in _sources()]
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
-                  for src, obj in zip(_sources(), objs)])
+        # -Xptxas -v reports each kernel's registers and spills; it does
+        # not change the code
+        logs = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", src,
+                          "-o", obj] for src, obj in zip(_sources(), objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", f"{stem}.tmp",
                    *objs]])
     finally:
@@ -150,6 +161,9 @@ def build() -> str:
                 os.remove(obj)
     os.replace(f"{stem}.tmp", so)
     build_seconds = time.perf_counter() - t0
+    ptxas_report.clear()
+    ptxas_report.update({os.path.basename(src): log
+                         for src, log in zip(_sources(), logs)})
     return so
 
 

@@ -5,7 +5,8 @@ The port's counterpart of ``rapidfuzz_tpu.oracle``: the same source and
 g++ flags, built into the port's own build directory so the two packages
 never share (or race on) one shared object.  Bound so far: the uniform
 Levenshtein, indel and LCS entry points the ported scans are checked
-against and the library's scalar paths use, and weighted Levenshtein.
+against and the library's scalar paths use, weighted Levenshtein, and
+OSA (``rf_osa`` and ``rf_osa_bp``).
 """
 
 from __future__ import annotations
@@ -76,6 +77,10 @@ def _load():
             lib.rf_lcs_seq.argtypes = [p64, i64, p64, i64]
             lib.rf_lcs_seq_bp.restype = i64
             lib.rf_lcs_seq_bp.argtypes = [p64, i64, p64, i64]
+            lib.rf_osa.restype = i64
+            lib.rf_osa.argtypes = [p64, i64, p64, i64]
+            lib.rf_osa_bp.restype = i64
+            lib.rf_osa_bp.argtypes = [p64, i64, p64, i64]
             _lib = lib
     return _lib
 
@@ -176,3 +181,23 @@ def lcs_seq(a, b) -> int:
     if a.size * b.size > _BP_MIN_CELLS:
         return int(_load().rf_lcs_seq_bp(a, a.size, b, b.size))
     return int(_load().rf_lcs_seq(a, a.size, b, b.size))
+
+
+def osa(a, b) -> int:
+    """Optimal string alignment distance, routed as :func:`indel`."""
+    a, b = _arr(a), _arr(b)
+    if a.size * b.size > _BP_MIN_CELLS:
+        return int(_load().rf_osa_bp(a, a.size, b, b.size))
+    return int(_load().rf_osa(a, a.size, b, b.size))
+
+
+def osa_dp(a, b) -> int:
+    """Quadratic textbook OSA (third opinion vs the bit-parallel path)."""
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_osa(a, a.size, b, b.size))
+
+
+def osa_bp(a, b) -> int:
+    """Hyyro u64 bit-parallel OSA, O(ceil(N/64)*M) (osa.rs:84-227)."""
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_osa_bp(a, a.size, b, b.size))

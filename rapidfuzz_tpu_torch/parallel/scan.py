@@ -1,7 +1,7 @@
 """One-vs-many and many-vs-many corpus scans on one device.
 
-Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform Levenshtein
-and the LCS family (indel, lcs_seq): the corpus is encoded once,
+Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform Levenshtein,
+the LCS family (indel, lcs_seq) and OSA: the corpus is encoded once,
 length-sorted, packed and kept on the device, and every query scan reuses
 it — the reference's ``BatchComparator`` pattern
 (``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
@@ -9,9 +9,9 @@ scanner's Pallas rules (they were tuned on a TPU and are kept for
 parity), with one exception: a bucket over 1024 chars that is not whole
 512-char chunks leaves the JAX scanner's Pallas kernels for its XLA scan,
 and there the port picks its own routes (Levenshtein: the run-time band
-or the full scan; LCS: the streamed routes).  Only the ops wrappers
-choose between a kernel (CUDA tensors) and its plain version (CPU
-tensors), so the host logic is the same on both.
+or the full scan; LCS and OSA: the streamed routes).  Only the ops
+wrappers choose between a kernel (CUDA tensors) and its plain version
+(CPU tensors), so the host logic is the same on both.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..ops.cuda import default_device
 from ..ops.cuda import lcs_band_kernel as _cbk
 from ..ops.cuda import lcs_kernel as _ck
 from ..ops.cuda import lev_kernel as _lk
+from ..ops.cuda import osa_kernel as _ok
 from ..utils import codec as _codec
 
 #: candidates per CUDA block: the corpus pads to a whole block
@@ -37,7 +38,7 @@ BLOCK = 256
 #: there, though its kernels need no chunks
 STREAM_CHUNK = 512
 #: metrics the scanner serves
-METRICS = ("levenshtein", "indel", "lcs_seq")
+METRICS = ("levenshtein", "indel", "lcs_seq", "osa")
 #: narrowest query (in u32 words) the LCS band serves: the TPU rule
 #: (``scan.py:866-872``), kept for parity
 LCS_BAND_MIN_W = 8
@@ -45,7 +46,7 @@ LCS_BAND_MIN_W = 8
 
 class CorpusScanner:
     """One-vs-many scan over a device-resident corpus: uniform
-    Levenshtein, indel or lcs_seq distances.
+    Levenshtein, indel, lcs_seq or OSA distances.
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
@@ -60,7 +61,10 @@ class CorpusScanner:
     chunks take the JAX scanner's long routes (the streamed bands and the
     full scans), other long buckets, which the JAX scanner leaves to XLA,
     the port's own (Levenshtein: the run-time band and the full scan;
-    LCS: the streamed routes).
+    LCS and OSA: the streamed routes).  OSA has no band and no hint
+    route, as in the JAX scanner: a cutoff masks the full scan.
+    ``weights`` may be a ``(insertion, deletion, substitution)`` tuple or
+    a :class:`~rapidfuzz_tpu_torch.distance.levenshtein.WeightTable`.
 
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
@@ -68,7 +72,8 @@ class CorpusScanner:
     for queries over 256 chars K1's ``[2W, B]`` int32 carry scratch, and
     for a hint scan its stragglers, compacted in chunks of at most an
     eighth of the corpus, so no scan stages a second corpus-sized copy;
-    the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch.
+    the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch,
+    the OSA kernel queries over 256 chars in a ``[3W, B]`` scratch.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
@@ -78,7 +83,7 @@ class CorpusScanner:
         if metric not in METRICS:
             raise NotImplementedError(
                 f"metric {metric!r} is not ported yet (ROADMAP.md queue 1, "
-                "items 6-12)")
+                "items 7-12)")
         self.metric = metric
         self.device = torch.device(device) if device is not None \
             else default_device()
@@ -87,7 +92,11 @@ class CorpusScanner:
         self._wscale = 1
         self._zero = False
         if weights is not None and metric == "levenshtein":
-            ins, dele, sub = (int(w) for w in weights)
+            # a WeightTable or a tuple, as the JAX scanner takes
+            # (scan.py:142-144); imported here, as the JAX scanner does,
+            # so that importing the scanner imports no library module
+            from ..distance.levenshtein import as_weight_table
+            ins, dele, sub = as_weight_table(weights).costs()
             if not ins == dele == sub == 1:
                 if ins == dele == 0:
                     self._zero = True
@@ -209,6 +218,10 @@ class CorpusScanner:
         if self._zero:
             return np.zeros(self.lb.shape[0], np.int64)
         qk, mode, cand = self._query_view(q)
+        if self.metric == "osa":
+            # the full scan at every bucket; no band, no hint route
+            # (scan.py:798-808); a cutoff masks it in distances()
+            return _ok.osa_1v_many(qk, cand, self.lb, mode=mode).cpu().numpy()
         if self.metric != "levenshtein":
             return self._lcs_distances(q, qk, mode, cand, score_cutoff)
         cut = (None if score_cutoff is None or self._wscale != 1
@@ -404,8 +417,9 @@ class CorpusScanner:
 
         Queries are encoded, grouped by (word bucket, PM mode), padded to
         :data:`NQ_GROUP` by repeating the group's last query (padded rows
-        are dropped), and run through ``lev_kernel.lev_nq_many`` or
-        ``lcs_kernel.lcs_nq_many``; LCS lengths are finished per metric on
+        are dropped), and run through ``lev_kernel.lev_nq_many``,
+        ``osa_kernel.osa_nq_many`` or ``lcs_kernel.lcs_nq_many``
+        (``scan.py:1307-1310``); LCS lengths are finished per metric on
         the corpus-order host lengths (``scan.py:1316-1333``).
         """
         enc = [self._encode_query(q) for q in queries]
@@ -414,8 +428,8 @@ class CorpusScanner:
         for i, q in enumerate(enc):
             groups.setdefault((_lk.words(q.size),
                                _lk.pick_mode(q, self._cmax)), []).append(i)
-        nq_fn = (_lk.lev_nq_many if self.metric == "levenshtein"
-                 else _ck.lcs_nq_many)
+        nq_fn = {"levenshtein": _lk.lev_nq_many,
+                 "osa": _ok.osa_nq_many}.get(self.metric, _ck.lcs_nq_many)
         lens = self.lengths.astype(np.int64)
         for (_, mode), idxs in groups.items():
             for s in range(0, len(idxs), self.NQ_GROUP):

@@ -2,7 +2,8 @@
 
 Counterpart of ``rapidfuzz_tpu/serve.py``: load the corpus once, keep it
 on the device, answer one-vs-many queries over HTTP under one metric
-(``--metric levenshtein``, ``indel`` or ``lcs_seq``).  Stdlib-only.
+(``--metric levenshtein``, ``indel``, ``lcs_seq`` or ``osa``).
+Stdlib-only.
 
 Endpoints (JSON):
 
@@ -10,8 +11,9 @@ Endpoints (JSON):
 * ``GET /stats``                  -> counters (queries, pairs, seconds)
 * ``POST /reload`` body ``{"corpus": [str]}`` or ``{"path": file}``
                                   -> ``{"ok": true, "n": new_size}``
-  (hot corpus swap: the new scanner builds outside the lock, in-flight
-  queries keep the old corpus until the atomic swap.  ``path`` reads a
+  (hot corpus swap: the new scanner builds and runs the routes the last
+  warmup ran outside the lock, in-flight queries keep the old corpus
+  until the atomic swap.  ``path`` reads a
   server-local file — operator input; the daemon binds 127.0.0.1 by
   default and has no auth, so do not expose it beyond trusted hosts)
 * ``POST /topk``    body ``{"query": str, "k": int, "score_cutoff"?: num}``
@@ -31,6 +33,7 @@ Run::
 
     python -m rapidfuzz_tpu_torch.serve --corpus words.txt --port 8947
     python -m rapidfuzz_tpu_torch.serve --corpus words.txt --metric indel
+    python -m rapidfuzz_tpu_torch.serve --corpus words.txt --metric osa
 
 Requests serialize through a lock: one scan saturates the card, so
 concurrency would only interleave kernel launches.
@@ -63,6 +66,10 @@ class ScanService:
         self.metric = metric
         self._lock = threading.Lock()
         self.stats = {"queries": 0, "pairs": 0, "device_seconds": 0.0}
+        #: the level of the last warmup (a reload warms its scanner the
+        #: same way) and the route table of the last reload's warmup
+        self._warm_full = False
+        self.reload_warmup = {}
 
     #: longest warmup query: long enough for every band route (the
     #: run-time band wants > 160 chars), short enough that a corpus of
@@ -80,9 +87,14 @@ class ScanService:
         table; a route the corpus cannot serve yet records its
         ``NotImplementedError``, and anything else, a failed build or
         launch among them, raises."""
-        if not self.corpus:
+        self._warm_full = full
+        return self._warm(self.scanner, self.corpus, full)
+
+    def _warm(self, scanner, corpus, full: bool):
+        """:meth:`warmup`'s routes over ``scanner`` and its ``corpus``."""
+        if not corpus:
             return {}
-        q = max(self.corpus, key=len)[: self.WARM_LEN] or "a"
+        q = max(corpus, key=len)[: self.WARM_LEN] or "a"
         q_short = q[:64] or "a"
         times = {}
 
@@ -95,29 +107,31 @@ class ScanService:
                 return
             times[name] = round(time.perf_counter() - t0, 3)
 
-        step("distances", lambda: self.scanner.distances(q))
+        step("distances", lambda: scanner.distances(q))
         if q_short != q:
-            step("distances_short",
-                 lambda: self.scanner.distances(q_short))
+            step("distances_short", lambda: scanner.distances(q_short))
         if full:
             for cut in (2, 7, 15):
                 step(f"distances_cutoff{cut}",
-                     lambda c=cut: self.scanner.distances(
-                         q, score_cutoff=c))
-            if self.scanner.metric == "levenshtein":
+                     lambda c=cut: scanner.distances(q, score_cutoff=c))
+            if scanner.metric == "levenshtein":
                 step("distances_hint",
-                     lambda: self.scanner.distances(q, score_hint=8))
-            step("topk", lambda: self.scanner.topk(q, k=3))
+                     lambda: scanner.distances(q, score_hint=8))
+            step("topk", lambda: scanner.topk(q, k=3))
             step("scan_many",
-                 lambda: self.scanner.scan_many([q, q[:-1] or "a"]))
+                 lambda: scanner.scan_many([q, q[:-1] or "a"]))
         return times
 
     def reload(self, corpus):
         """Swap in a new corpus: the replacement scanner (and its device
-        upload) is built outside the lock, so in-flight queries keep
-        serving the old corpus until the atomic swap."""
+        upload) is built, and the routes of the last :meth:`warmup` run
+        on it once, outside the lock, so in-flight queries keep serving
+        the old corpus until the atomic swap and the first request after
+        it pays no first-run cost.  A route that fails raises before the
+        swap, leaving the old corpus in service."""
         corpus = list(corpus)
         scanner = CorpusScanner(corpus, **self._build_kw)
+        self.reload_warmup = self._warm(scanner, corpus, self._warm_full)
         with self._lock:
             self.corpus = corpus
             self.scanner = scanner
@@ -231,7 +245,7 @@ def main(argv=None):
     ap.add_argument("--corpus", required=True,
                     help="text file, one corpus string per line")
     ap.add_argument("--metric", default="levenshtein",
-                    help="levenshtein, indel or lcs_seq")
+                    help="levenshtein, indel, lcs_seq or osa")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8947)
     ap.add_argument("--bucket", type=int, default=None,

@@ -27,12 +27,16 @@ def test_port_imports_without_jax():
         "import rapidfuzz_tpu_torch\n"
         "import rapidfuzz_tpu_torch.parallel.scan\n"
         "import rapidfuzz_tpu_torch.serve\n"
-        "from rapidfuzz_tpu_torch.distance import indel, lcs_seq\n"
+        "from rapidfuzz_tpu_torch.distance import indel, lcs_seq, osa\n"
         "from rapidfuzz_tpu_torch.distance import levenshtein\n"
         "from rapidfuzz_tpu_torch import fuzz, oracle\n"
         "import rapidfuzz_tpu_torch.ops.cuda.lcs_band_kernel\n"
+        "import rapidfuzz_tpu_torch.ops.cuda.osa_kernel\n"
+        "import rapidfuzz_tpu_torch.ops.osa\n"
         "assert indel.distance('lewenstein', 'levenshtein') == 3\n"
         "assert lcs_seq.distance('lewenstein', 'levenshtein') == 2\n"
+        "assert osa.distance('CA', 'AC') == 1\n"
+        "assert oracle.osa_dp([1, 2], [2, 1]) == 1\n"
         "assert fuzz.ratio('ab', 'abc') == 0.8\n"
         "assert rapidfuzz_tpu_torch.parallel.CorpusScanner\n"
         "assert rapidfuzz_tpu_torch.common.mask_distance\n"

@@ -203,8 +203,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", sorted(k for k in kc.LAUNCHES
-                                          if not k.startswith("lcs_")))
+@pytest.mark.parametrize("kernel", sorted(
+    k for k in kc.LAUNCHES if not k.startswith(("lcs_", "osa_"))))
 def test_kernel_matches_plain_on_card(cuda_device, kernel):
     """Each CUDA kernel equals its plain PyTorch version on the card and
     moves its launch counter."""
