@@ -22,9 +22,14 @@ Phases, each printing one JSON line before the next starts:
    band, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first scratch width)
    and 16 queries per launch over near copies with adjacent swaps planted
    across query words and packed 4-char rows, and over 2048- and
-   8192-char buckets; and one K2 case whose bucket (300,000 chars) makes
-   its blocks stride past 65,535 grid rows, its scan held against the
-   oracle on a sampled row;
+   8192-char buckets; K7 (weighted Levenshtein) under the tables
+   (1, 2, 3), (3, 2, 1) and (2, 2, 3) in its register form at one and two
+   words, its scratch form at the first scratch width (also launched over
+   several chunks of a small scratch budget) and for the empty query, at
+   262,144 candidates in byte and local mode, and over 2048- and 8192-char
+   buckets; and one K2 case whose bucket (300,000 chars) makes its blocks
+   stride past 65,535 grid rows, its scan held against the oracle on a
+   sampled row;
 4. serve   — ``ScanService`` over a 1,048,576-string word-like corpus
    (bucket 64) behind ``make_server``; ``/health``, ``/topk``,
    ``/distances`` (plain, ``score_cutoff``, ``score_hint``) and ``/batch``
@@ -64,18 +69,28 @@ Phases, each printing one JSON line before the next starts:
    form), and ``osa.distance_many`` over 65,536 strings, all held against
    the oracle (whole-corpus windows: OSA is at least the length
    difference and at least half the Levenshtein distance);
-10. timing — each kernel and its plain version at its main-path shape
+10. wlev   — weighted Levenshtein: ``ScanService(weights=(2, 2, 3))``
+   over the serve corpus behind ``make_server`` (``/topk``, ``/distances``
+   plain and under a cutoff, ``/batch`` of 20 queries), weighted
+   ``CorpusScanner``s under (1, 2, 3) over the long corpus for the 64- and
+   300-char queries, over the bucket-6000 texts for the ~4,000-char query
+   (the scratch form) and over the Cyrillic corpus, and
+   ``levenshtein.distance_many`` with a cutoff and
+   ``BatchComparator.normalized_similarities`` over 65,536 strings, all
+   held against the oracle (whole-corpus windows: a weighted distance is
+   at least the length difference times the insertion or deletion cost
+   and at least the Levenshtein distance times the cheapest cost);
+11. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound;
-11. rate   — one len-64 query, then 16 per launch, against 67,108,864
+12. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
-5, zeroed again just before phase 7 and read after it, just before phase
-8 and read after it, and just before phase 9 and read after it, so the
-counts are those of the four main paths alone; every kernel must have
-launched in them.  Any failure
+5, zeroed again just before phase 7 and read after it, just before phases
+8, 9 and 10 and read after each, so the counts are those of the five main
+paths alone; every kernel must have launched in them.  Any failure
 raises: the script then exits nonzero and never prints its last line,
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
 nonzero before any phase.
@@ -120,6 +135,15 @@ N_RATIO = 1 << 16
 #: K2's stride case: a bucket past 65,535 packed rows of 4 chars
 STRIDE_LB = 300_000
 N_STRIDE = 256
+#: the timing phase runs K7's long plain version on every PLAIN_SLICE-th
+#: candidate of the long corpus (over 10 s on the whole corpus)
+PLAIN_SLICE = 8
+#: K7's weight tables (insertion, deletion, substitution): asymmetric or
+#: not reducible to uniform or indel, so an orientation slip shows
+WLEV_TABLES = ((1, 2, 3), (3, 2, 1), (2, 2, 3))
+#: the weighted service's table and the weighted scanners'
+WLEV_SERVE = (2, 2, 3)
+WLEV_SCAN = (1, 2, 3)
 #: card peaks for the bounds: HBM bytes/s (NVIDIA's data sheet, H100 SXM)
 #: and INT32 lanes (132 SMs x 64); the SM clock is read from nvidia-smi
 HBM_BYTES_S = 3.35e12
@@ -137,12 +161,19 @@ INT32_LANES = 132 * 64
 #: once per text step for the accumulator; K6 per query word and text step
 #: (K1's 11, plus the and-not t = ~d0_prev & pm, the funnel shift of t
 #: with the lower word's t, and the and with pm_prev; the or into d0 folds
-#: into K1's 3-input or)
+#: into K1's 3-input or); K7 per query position and text step on the
+#: INT32 lanes, counted from the SASS of its unrolled row: two DPX
+#: add-mins (VIADDMNMX: min(old + ins, diagonal + cost) and
+#: min(left + del, that)) and, for the PM bit test and the cost's select,
+#: about half a SEL, a quarter of an ISETP and an eighth of an R2P, 2.9 in
+#: all, rounded up; the add of the cost and the moves issue as IMADs on
+#: the FMA lanes, twice as many, so they do not bind)
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
        "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
        "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
-       "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14}
+       "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
+       "wlev_scan": 3, "wlev_scan_long": 3}
 LCS_BAND_STEP_OPS = 1
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
@@ -160,6 +191,8 @@ REPLACES = {
     "osa_scan": "rapidfuzz_tpu/ops/pallas/osa_kernel.py:118",
     "osa_scan_nq": "rapidfuzz_tpu/ops/pallas/osa_kernel.py:172",
     "osa_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:425",
+    "wlev_scan": "rapidfuzz_tpu/ops/pallas/wlev_kernel.py:103",
+    "wlev_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:862",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -177,12 +210,15 @@ SOURCES = {
     "osa_scan": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
     "osa_scan_nq": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
     "osa_scan_long": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
+    "wlev_scan": "rapidfuzz_tpu_torch/csrc/wlev_scan.cu",
+    "wlev_scan_long": "rapidfuzz_tpu_torch/csrc/wlev_scan.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
 LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long",
              "lcs_scan_long", "lcs_band_long")
 OSA_PATH = ("osa_scan", "osa_scan_nq", "osa_scan_long")
+WLEV_PATH = ("wlev_scan", "wlev_scan_long")
 
 
 def emit(obj) -> None:
@@ -235,10 +271,11 @@ class Smoke:
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
         from rapidfuzz_tpu_torch.ops.cuda import osa_kernel as ok
+        from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel as wk
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
-        self.ck, self.cbk, self.ok = ck, cbk, ok
+        self.ck, self.cbk, self.ok, self.wk = ck, cbk, ok, wk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -362,6 +399,7 @@ class Smoke:
         salt = self.long_kernel_cases(rng, alph["byte"], salt)
         salt = self.lcs_kernel_cases(rng, alph, salt)
         salt = self.osa_kernel_cases(rng, alph, salt)
+        salt = self.wlev_kernel_cases(rng, alph, salt)
         self.stride_case(rng)
         self.sync()
         emit({"phase": "kernels", "candidates": N_KERNEL,
@@ -579,6 +617,66 @@ class Smoke:
             case("osa_scan_long", q, "byte", cand, lb, f"LB={LBl} W={W}")
         return salt
 
+    def wlev_kernel_cases(self, rng, alph, salt):
+        """K7 against its plain version over near copies of the query,
+        under each of WLEV_TABLES: ``wlev_scan`` in its register form at
+        one, two and three or four words (1-32, 33-64 and 65-128 chars),
+        its scratch form at the first scratch width (129-160 chars) and
+        for the empty query, over
+        N_KERNEL candidates, in byte mode and, under the first table, in
+        local mode; the scratch form once more over chunks of a scratch
+        budget a quarter of the candidates' (several launches, each at
+        its own candidate offset); ``wlev_scan_long`` at two words over
+        2048- and 8192-char buckets and in scratch form over 2048, at
+        N_KERNEL_LONG candidates."""
+        torch, lk, wk, kc = self.torch, self.lk, self.wk, self.kc
+        if wk.MAX_REG_LA != 128:
+            raise AssertionError("K7's forms moved: update these cases")
+
+        def case(name, q, mode, cand, lb, w, what, **kw):
+            _, tabs = lk.stage_query(q, mode, self.dev)
+            got = wk.wlev_1v_many(q, cand, lb, ins=w[0], dele=w[1],
+                                  sub_cost=w[2], mode=mode, **kw)
+            self.compare(name, got, wk.wlev_scan_plain(q.size, tabs, cand,
+                                                       lb, *w), what)
+
+        for lo, hi, lbm in ((1, 32, LB), (33, 64, LB), (65, 128, 192),
+                            (129, 160, 320), (0, 0, LB)):
+            la = int(rng.integers(lo, hi + 1))
+            for w in WLEV_TABLES:
+                modes = ("byte", "local") if w == WLEV_TABLES[0] else \
+                    ("byte",)
+                for mode in modes:
+                    salt += 1
+                    a = alph[mode]
+                    q = rng.choice(a, la)
+                    cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL,
+                                            lbm)
+                    case("wlev_scan", q, mode, cand, lb, w,
+                         f"la={la} {w} {mode}")
+                    if la > wk.MAX_REG_LA and mode == "local":
+                        budget = 4 * la * (N_KERNEL // 4)
+                        chunk = budget // (4 * la) // wk.BLOCK * wk.BLOCK
+                        before = kc.LAUNCHES["wlev_scan"]
+                        case("wlev_scan", q, mode, cand, lb, w,
+                             f"la={la} {w} over chunks of {chunk}",
+                             scratch_bytes=budget)
+                        if kc.LAUNCHES["wlev_scan"] - before != \
+                                -(-N_KERNEL // chunk):
+                            raise AssertionError("K7 scratch: wrong number "
+                                                 "of chunk launches")
+        for k, (LBl, lo, hi) in enumerate(((2048, 33, 64), (2048, 129, 160),
+                                           (LONG_LB, 33, 64))):
+            salt += 1
+            a = alph["byte"]
+            q = rng.choice(a, int(rng.integers(lo, hi + 1)))
+            cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG, LBl)
+            lb[:8] = LBl                      # the bucket's last rows
+            w = WLEV_TABLES[k]
+            case("wlev_scan_long", q, "byte", cand, lb, w,
+                 f"LB={LBl} la={q.size} {w}")
+        return salt
+
     def stride_case(self, rng):
         """K2 over a bucket of STRIDE_LB chars (75,000 packed rows: its
         blocks stride past the 65,535 rows grid.y can hold) of N_STRIDE
@@ -659,15 +757,24 @@ class Smoke:
 
     # ------------------------------------------------------------ helpers
     def oracle_rows(self, query: str, strings,
-                    metric: str = "levenshtein") -> np.ndarray:
+                    metric="levenshtein") -> np.ndarray:
         """Oracle distances of ``query`` to ``strings`` under ``metric``
         (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``; OSA one
-        scalar call per string)."""
+        scalar call per string; a weight tuple ``(ins, del, sub)`` is
+        weighted Levenshtein with the query as the pattern, one scalar
+        call per string)."""
         enc = [self.codec.encode_one(s) for s in strings]
-        if metric == "osa":
+        if metric == "osa" or isinstance(metric, tuple):
             eq = self.codec.encode_one(query)
-            return np.fromiter((self.oracle.osa(eq, e) for e in enc),
-                               np.int64, len(enc))
+            one = (self.oracle.osa if metric == "osa" else
+                   lambda a, b: self.oracle.levenshtein_weighted(a, b,
+                                                                 *metric))
+            # eight slices in parallel (ctypes drops the GIL)
+            parts = np.array_split(np.arange(len(enc)), 8)
+            with ThreadPoolExecutor(8) as ex:
+                done = list(ex.map(lambda ix: [one(eq, enc[i]) for i in ix],
+                                   parts))
+            return np.array([d for part in done for d in part], np.int64)
         lens = np.fromiter((e.size for e in enc), np.int64, len(enc))
         offs = np.r_[0, np.cumsum(lens)]
         flat = np.concatenate(enc) if enc else np.empty(0, np.int64)
@@ -702,7 +809,7 @@ class Smoke:
         return d[ids], ids
 
     def check_topk_sampled(self, query, corpus, vals, ids, sample, k, what,
-                           metric: str = "levenshtein"):
+                           metric="levenshtein"):
         """The returned (value, index) pairs are true distances, ordered by
         (distance, index), and no sampled row beats the k-th pair."""
         vals, ids = np.asarray(vals), np.asarray(ids)
@@ -885,6 +992,7 @@ class Smoke:
               "seconds": time.perf_counter() - t_start})
         self.wide_chars_t = sc._chars_dev
         self.wide_query = sc._encode_query(query)
+        self.wide_corpus, self.wide_query_str = corpus, query
 
     # ------------------------------------------------------------ phase 6
     def phase_library(self):
@@ -1135,18 +1243,28 @@ class Smoke:
         return corpus, docs, q4k, planted
 
     def window_truth(self, q: str, corpus, lens, bound: int,
-                     metric: str = "levenshtein", lev=None):
+                     metric="levenshtein", lev=None):
         """Oracle distances of ``q`` to every row that can lie within
         ``bound``: rows with ``|len - len(q)| > bound`` cannot (each of
         the four metrics is at least the length difference), nor, under
         OSA, rows whose Levenshtein distance ``lev`` (where given) exceeds
-        ``2 * bound`` (one OSA edit is at most two Levenshtein edits), so
-        only the others are computed; Levenshtein banded at ``bound``
-        (exact when within it, ``bound + 1`` above), the other metrics
-        exact.  Returns (row ids, distances)."""
-        near = np.abs(lens - len(q)) <= bound
-        if lev is not None:
-            near &= lev <= 2 * bound
+        ``2 * bound`` (one OSA edit is at most two Levenshtein edits); a
+        weight tuple ``(ins, del, sub)`` costs at least ``ins`` per char
+        the row is longer and ``del`` per char it is shorter, and at least
+        the cheapest cost times ``lev``.  Only the others are computed;
+        Levenshtein banded at ``bound`` (exact when within it,
+        ``bound + 1`` above), the other metrics exact.  Returns (row ids,
+        distances)."""
+        if isinstance(metric, tuple):
+            ins, dele, _ = metric
+            diff = lens - len(q)
+            near = np.where(diff >= 0, ins * diff, -dele * diff) <= bound
+            if lev is not None:
+                near &= min(metric) * lev <= bound
+        else:
+            near = np.abs(lens - len(q)) <= bound
+            if lev is not None:
+                near &= lev <= 2 * bound
         rows = np.flatnonzero(near)
         if metric != "levenshtein":
             return rows, self.oracle_rows(q, [corpus[i] for i in rows],
@@ -1158,7 +1276,7 @@ class Smoke:
         return rows, d
 
     def check_topk_window(self, q, corpus, lens, vals, ids, k, what,
-                          metric: str = "levenshtein", lev=None):
+                          metric="levenshtein", lev=None):
         """The whole-corpus top-k, by (distance, index): only rows within
         the k-th returned distance can belong to it."""
         vals, ids = np.asarray(vals), np.asarray(ids)
@@ -1175,7 +1293,7 @@ class Smoke:
                                  f"{rows[keep][order].tolist()}")
 
     def check_cutoff_window(self, q, corpus, lens, out, cut, what,
-                            want_hits=True, metric: str = "levenshtein",
+                            want_hits=True, metric="levenshtein",
                             lev=None):
         """A ``(values, valid)`` answer under ``cut`` against the oracle
         over the whole corpus."""
@@ -1473,9 +1591,155 @@ class Smoke:
               "long_topk_s": long_s,
               "launches": dict(self.kc.LAUNCHES),
               "seconds": time.perf_counter() - t_start})
-        del self.long_corpus, self.odd_corpus, self.serve_lev
 
     # ------------------------------------------------------------ phase 10
+    def phase_wlev(self):
+        """Weighted Levenshtein on its main path: ``ScanService(weights=
+        WLEV_SERVE)`` over the serve corpus behind ``make_server`` --
+        ``/topk`` for the three anchors (whole corpus) and a random query
+        (sampled rows), ``/distances`` plain (every row within the
+        Levenshtein bounds ``2*lev <= d <= 3*lev``, sampled and planted
+        rows exact) and under cutoff 12 (whole corpus), ``/batch`` of 20
+        queries (sampled rows); ``CorpusScanner``s under WLEV_SCAN over the
+        long corpus for the 64- and 300-char queries (top-k, whole corpus),
+        over the bucket-6000 texts for the ~4,000-char query (the scratch
+        form; top-k and cutoff 40, whole corpus) and over the Cyrillic
+        corpus (the remap route; sampled rows); ``levenshtein.distance_many``
+        with a cutoff and ``BatchComparator.normalized_similarities`` over
+        N_LIB strings (every row)."""
+        from rapidfuzz_tpu_torch.distance import levenshtein
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 8)
+        t_start = time.perf_counter()
+        corpus, w = self.serve_corpus, WLEV_SERVE
+        lens = np.array([len(s) for s in corpus])
+        t0 = time.perf_counter()
+        service = ScanService(corpus, bucket=LB, device=self.dev, weights=w)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad:
+            raise AssertionError(f"wlev warmup routes failed: {bad}")
+        queries, levs = self.serve_queries, self.serve_lev
+        sample = np.unique(np.r_[rng.choice(N_SERVE, N_SAMPLE,
+                                            replace=False),
+                                 self.serve_planted])
+        call, stop, timings = self.serve_http(service)
+        try:
+            for qi, (q, lev) in enumerate(zip(queries, levs)):
+                out = call("/topk", {"query": q, "k": 10})
+                if qi < len(self.serve_anchors):
+                    self.check_topk_window(q, corpus, lens, out["values"],
+                                           out["indices"], 10,
+                                           f"wlev /topk anchor {qi}", w, lev)
+                else:
+                    self.check_topk_sampled(q, corpus, out["values"],
+                                            out["indices"], sample, 10,
+                                            "wlev /topk random", w)
+            q0, lev0 = queries[0], levs[0]
+            d = np.asarray(call("/distances", {"query": q0})["values"])
+            if not ((d >= 2 * lev0).all() and (d <= 3 * lev0).all()):
+                raise AssertionError("wlev /distances outside the "
+                                     "Levenshtein bounds")
+            if not np.array_equal(d[sample], self.oracle_rows(
+                    q0, [corpus[i] for i in sample], w)):
+                raise AssertionError("wlev /distances != oracle on sampled "
+                                     "rows")
+            out = call("/distances", {"query": q0, "score_cutoff": 12})
+            self.check_cutoff_window(q0, corpus, lens, out, 12,
+                                     "wlev /distances cutoff 12", metric=w,
+                                     lev=lev0)
+            bq = list(queries)
+            while len(bq) < 20:
+                n = int(rng.integers(33, LB + 1))
+                bq.append(rng.integers(97, 123, n, dtype=np.uint8)
+                          .tobytes().decode("ascii"))
+            out = call("/batch", {"queries": bq, "k": 10})
+            for qi, q in enumerate(bq):
+                self.check_topk_sampled(q, corpus, out["values"][qi],
+                                        out["indices"][qi], sample, 10,
+                                        f"wlev /batch query {qi}", w)
+        finally:
+            stop()
+        del service
+        # the long texts: K7 over buckets > 1024 in register form (64
+        # chars) and scratch form (300), then the ~4,000-char query over
+        # the bucket-6000 texts (scratch form)
+        w = WLEV_SCAN
+        qs = self.long_queries
+        t0 = time.perf_counter()
+        long_sc = CorpusScanner(self.long_corpus, bucket=LONG_LB,
+                                weights=w, device=self.dev)
+        t_long = time.perf_counter() - t0
+        long_s = {}
+        for key in ("q64", "q300"):
+            t0 = time.perf_counter()
+            vals, ids = long_sc.topk(qs[key], 10)
+            long_s[key] = time.perf_counter() - t0
+            self.check_topk_window(qs[key], self.long_corpus, self.long_lens,
+                                   vals, ids, 10, f"wlev long topk {key}", w)
+        del long_sc
+        odd = CorpusScanner(self.odd_corpus, bucket=ODD_LB, weights=w,
+                            device=self.dev)
+        q4k = qs["q4k"]
+        t0 = time.perf_counter()
+        vals, ids = odd.topk(q4k, 10)
+        long_s["q4k"] = time.perf_counter() - t0
+        self.check_topk_window(q4k, self.odd_corpus, self.odd_lens, vals, ids,
+                               10, "wlev bucket 6000 topk q4k", w)
+        res = odd.distances(q4k, score_cutoff=40)
+        self.check_cutoff_window(q4k, self.odd_corpus, self.odd_lens,
+                                 {"values": res.values, "valid": res.valid},
+                                 40, "wlev bucket 6000 cutoff 40", metric=w)
+        del odd
+        # the Cyrillic corpus: K2's remap, then K7 in local mode
+        wide = CorpusScanner(self.wide_corpus, bucket=LB, weights=w,
+                             device=self.dev)
+        qw = self.wide_query_str
+        wsample = rng.choice(N_WIDE, N_SAMPLE, replace=False)
+        if not np.array_equal(wide.distances(qw)[wsample], self.oracle_rows(
+                qw, [self.wide_corpus[i] for i in wsample], w)):
+            raise AssertionError("wlev wide distances != oracle on sampled "
+                                 "rows")
+        vals, ids = wide.topk(qw, 10)
+        self.check_topk_sampled(qw, self.wide_corpus, vals, ids, wsample,
+                                10, "wlev wide topk", w)
+        del wide
+        # the library: one query against N_LIB strings (the scanner)
+        sub = corpus[:N_LIB]
+        truth = self.oracle_rows(q0, sub, w)
+        cut = int(np.sort(truth)[16])
+        res = levenshtein.distance_many([q0], sub, weights=w,
+                                        score_cutoff=cut)
+        ok = truth <= cut
+        if not (np.array_equal(res.valid, ok)
+                and np.array_equal(res.values[ok], truth[ok])):
+            raise AssertionError(f"wlev distance_many cutoff {cut} != "
+                                 "oracle")
+        sim = levenshtein.BatchComparator(
+            q0, levenshtein.WeightTable(*w)).normalized_similarities(sub)
+        mx = levenshtein.maximum(np.full(len(sub), len(q0)),
+                                 np.array([len(s) for s in sub]), w)
+        if not np.array_equal(sim.values, 1.0 - np.where(
+                mx == 0, 0.0, truth / np.maximum(mx, 1))):
+            raise AssertionError("wlev normalized_similarities != oracle")
+        self.sync()
+        emit({"phase": "wlev", "corpus": N_SERVE, "bucket": LB,
+              "serve_weights": WLEV_SERVE, "scan_weights": WLEV_SCAN,
+              "long_corpus": len(self.long_corpus),
+              "odd_corpus": len(self.odd_corpus), "wide_corpus": N_WIDE,
+              "scanner_build_s": t_build, "long_build_s": t_long,
+              "warmup_s": warm,
+              "request_s": {k: v for k, v in timings.items()},
+              "long_topk_s": long_s,
+              "launches": dict(self.kc.LAUNCHES),
+              "seconds": time.perf_counter() - t_start})
+        del self.long_corpus, self.odd_corpus, self.serve_lev
+        del self.wide_corpus
+
+    # ------------------------------------------------------------ phase 11
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -1500,11 +1764,13 @@ class Smoke:
         rows, bounds = {}, {}
         int_ops_s = INT32_LANES * clock_mhz * 1e6
 
-        def timed(name, kernel, plain, reps, work, warm=True):
+        def timed(name, kernel, plain, reps, work, warm=True, check=None):
+            """``check``: the kernel on the plain version's inputs, where
+            those are a slice of the kernel's (PLAIN_SLICE)."""
             ms = cuda_ms(torch, kernel, reps)
             ref = []
             pms = cuda_ms(torch, lambda: ref.append(plain()), 1, warm=warm)
-            self.compare(name, kernel(), ref[-1], "timing inputs")
+            self.compare(name, (check or kernel)(), ref[-1], "timing inputs")
             rows[name] = (ms, pms)
             nbytes, ops = work
             t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -1632,9 +1898,40 @@ class Smoke:
               lambda: ok.osa_scan_plain(l64[0], l64[1][None], long_sc.cand,
                                         long_sc.lb)[0], 3,
               scan_work("osa_scan_long", long_sc.lb, 2), warm=False)
+        # K7 as K1: its register form with the len-64 query at the serve
+        # corpus (under WLEV_SERVE, as the wlev phase serves it) and over
+        # the long corpus (under WLEV_SCAN); the bound counts the query's
+        # positions, OPS per position and text step
+        wk = self.wk
+
+        def wlev(qq, c, lbv, w, staged):
+            """K7 with the scanner's memory plan (its default budget)."""
+            return wk.wlev_1v_many(qq, c, lbv, ins=w[0], dele=w[1],
+                                   sub_cost=w[2], staged=staged)
+
+        timed("wlev_scan",
+              lambda: wlev(q, cand, lb, WLEV_SERVE, (las, tabs)),
+              lambda: wk.wlev_scan_plain(q.size, tabs, cand, lb,
+                                         *WLEV_SERVE), 5,
+              scan_work("wlev_scan", lb, q.size,
+                        table_words=lk.words(q.size)))
+        # its plain version takes over 10 s over the whole long corpus,
+        # so it runs on every PLAIN_SLICE-th candidate (lengths as spread)
+        sl_cand = long_sc.cand[:, ::PLAIN_SLICE].contiguous()
+        sl_lb = long_sc.lb[::PLAIN_SLICE].contiguous()
+        timed("wlev_scan_long",
+              lambda: wlev(q64, long_sc.cand, long_sc.lb, WLEV_SCAN, l64),
+              lambda: wk.wlev_scan_plain(q64.size, l64[1], sl_cand, sl_lb,
+                                         *WLEV_SCAN), 3,
+              scan_work("wlev_scan_long", long_sc.lb, q64.size,
+                        table_words=lk.words(q64.size)), warm=False,
+              check=lambda: wlev(q64, sl_cand, sl_lb, WLEV_SCAN, l64))
+        del sl_cand, sl_lb
         # K1, K4 and K6 over the long corpus at the other query widths of
         # the long phase: 300 chars (K1's and K6's scratch forms, K4's
-        # registers) and ~4,000 (every scratch form)
+        # registers) and ~4,000 (every scratch form); K7's scratch form at
+        # 300 chars (its ~4,000-char scan over these texts takes ~8 s and
+        # is timed by probes/wlev_probe.py)
         extra = {}
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
@@ -1647,6 +1944,10 @@ class Smoke:
             extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
+        st = lk.stage_query(enc["q300"], "local", self.dev)
+        extra["wlev_scan_long_q300_ms"] = cuda_ms(
+            torch, lambda: wlev(enc["q300"], long_sc.cand, long_sc.lb,
+                                WLEV_SCAN, st), 2)
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
         self.timing, self.bounds = rows, bounds
@@ -1656,6 +1957,8 @@ class Smoke:
               "long_bucket": LONG_LB, "odd_candidates":
                   int(odd_sc.lb.numel()), "odd_bucket": ODD_LB,
               "long_query_lens": {k: int(v.size) for k, v in enc.items()},
+              "plain_candidates": {"wlev_scan_long":
+                                   int(long_sc.lb.numel()) // PLAIN_SLICE},
               "ms": {k: v[0] for k, v in rows.items()},
               "plain_ms": {k: v[1] for k, v in rows.items()},
               "bound_ms": {k: v[0] for k, v in bounds.items()},
@@ -1666,11 +1969,12 @@ class Smoke:
               **extra})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 11
+    # ------------------------------------------------------------ phase 12
     def phase_rate(self, card: str):
-        """Each short-text kernel (K1 in both forms, K3, K6, K2) at N_RATE
-        len-64 candidates, its plain version at N_PLAIN_RATE; sampled rows
-        held against the oracle."""
+        """Each short-text kernel (K1 in both forms, K3, K6, K7, K2) at N_RATE
+        len-64 candidates, its plain version (but K7's, timed in the
+        timing phase) at N_PLAIN_RATE; sampled rows held against the
+        oracle."""
         torch, lk, bk = self.torch, self.lk, self.bk
         t_start = time.perf_counter()
         g = self.gen(999)
@@ -1729,6 +2033,14 @@ class Smoke:
                               self.oracle_rows(qstr[0], strs, "osa")):
             raise AssertionError("rate: OSA kernel != oracle")
         del do
+        wt = WLEV_SERVE
+        dw = rate("wlev_scan", lambda: self.wk.wlev_1v_many(
+            q, cand, lb, ins=wt[0], dele=wt[1], sub_cost=wt[2],
+            staged=(las, tabs)), N_RATE, 3)
+        if not np.array_equal(dw[sdev].cpu().numpy(),
+                              self.oracle_rows(qstr[0], strs, wt)):
+            raise AssertionError("rate: weighted kernel != oracle")
+        del dw
         # plain versions on the first N_PLAIN_RATE candidates, held to
         # the kernels bit for bit
         c4 = cand[:, :N_PLAIN_RATE].contiguous()
@@ -1795,7 +2107,8 @@ def main(argv=None) -> int:
           "ptxas": ptxas_summary(kc.ptxas_report)})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
-    # short texts, the LCS family's, the long texts', then OSA's
+    # short texts, the LCS family's, the long texts', OSA's, then the
+    # weighted one's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -1822,8 +2135,14 @@ def main(argv=None) -> int:
     for name in OSA_PATH:
         if osa_launches[name] == 0:
             raise AssertionError(f"OSA path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_wlev()
+    wlev_launches = dict(kc.LAUNCHES)
+    for name in WLEV_PATH:
+        if wlev_launches[name] == 0:
+            raise AssertionError(f"weighted path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
-                + osa_launches[k] for k in launches}
+                + osa_launches[k] + wlev_launches[k] for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -1839,8 +2158,8 @@ def main(argv=None) -> int:
          "plain_ms": smoke.timing[name][1],
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
-         # no single PyTorch call computes an edit distance or an LCS
-         # length
+         # no single PyTorch call computes an edit distance (weighted or
+         # not) or an LCS length
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,17 +13,17 @@ batch APIs ``*_many`` and a ``BatchComparator``.
   the kernels' plain versions): one query against at least
   :data:`~._int_metric.SCAN_MIN` strings through the port's
   ``CorpusScanner`` and its CUDA kernels (weights that reduce to indel
-  through its LCS kernels), other batches through the aligned-pair ops
-  (``ops/levenshtein.py``, ``ops/lcs.py``).
+  through its LCS kernels, general weights through the weighted
+  Wagner-Fischer kernel), other batches, and general weights whose int32
+  cells could overflow, through the aligned-pair ops
+  (``ops/levenshtein.py``, ``ops/lcs.py``), which run in int64.
 * ``maximum`` follows ``levenshtein.rs:263-277``; weight special cases
   (``levenshtein.rs:1244-1279``): ins == del == 0 -> 0, uniform * factor,
   sub >= ins + del -> indel * factor.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: ``editops``/``opcodes`` (item 13), the device scalar
-backend's route for one long pair (item 17), and on a one-vs-many batch
-of ``SCAN_MIN`` strings or more general weights (item 10: the wlev
-kernel); the aligned-pair ops do not stand in for that kernel.
+queue 1 item: ``editops``/``opcodes`` (item 13) and the device scalar
+backend's route for one long pair (item 17).
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ from .. import oracle as _oracle
 from ..ops import dispatch as _dispatch
 from ..ops import lcs as _lcs_ops
 from ..ops import levenshtein as _ops
+from ..ops.cuda import wlev_kernel as _wk
 from ..utils import codec as _codec
 from . import _int_metric
 
@@ -279,19 +280,29 @@ def _raw_distance_batch(c1, l1, c2, l2, weights: WeightTable,
     return d.astype(np.int64)
 
 
+def _scan_fits(la: int, l2: np.ndarray, weights: WeightTable) -> bool:
+    """Whether a query of ``la`` chars against strings of lengths ``l2``
+    under ``weights`` fits the weighted kernel's int32 cells at the bucket
+    the scanner pads them to."""
+    LB = _codec.bucket_len(max(int(l2.max(initial=0)), 1))
+    return _wk.fits_int32(la, -(-LB // 4) * 4, *weights.costs())
+
+
 def _batch_raw(s1s, s2s, weights: WeightTable, device=None):
     weights = as_weight_table(weights)
     # one query against a corpus: the scanner and its kernels (weights
-    # with sub >= ins + del reduce to indel there).  The scanner raises for
-    # general weights, whose kernel is not ported (ROADMAP.md queue 1,
-    # item 10); the aligned-pair ops do not stand in for it
+    # with sub >= ins + del reduce to indel there, general weights run the
+    # weighted kernel), unless the table could overflow that kernel's
+    # int32 cells: the int64 aligned pairs then, where the JAX library
+    # takes its host oracle (its levenshtein.py:377-392)
     if len(s1s) == 1 and len(s2s) >= _int_metric.SCAN_MIN:
-        d = _int_metric.scan_one_vs_many("levenshtein", s1s[0], s2s,
-                                         weights=weights.costs(),
-                                         device=device)
         l2 = np.array([_codec.encode_one(s).size for s in s2s], np.int64)
         l1 = np.full_like(l2, _codec.encode_one(s1s[0]).size)
-        return d, maximum(l1, l2, weights)
+        if _scan_fits(int(l1[0]), l2, weights):
+            d = _int_metric.scan_one_vs_many("levenshtein", s1s[0], s2s,
+                                             weights=weights.costs(),
+                                             device=device)
+            return d, maximum(l1, l2, weights)
     c1, l1, c2, l2 = _codec.encode_pair_batch(s1s, s2s)
     dist = _raw_distance_batch(c1, l1, c2, l2, weights, device)
     B = max(len(l1), len(l2))

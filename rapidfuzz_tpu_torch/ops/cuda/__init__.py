@@ -43,14 +43,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ``lev_band_long`` (``band_kernel._stream_kernel``); likewise K4 (the
 #: LCS scan) at buckets > 1024 as ``lcs_scan_long``
 #: (``stream_kernel._lcs_kernel``), K5 (the LCS band) on the streamed
-#: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``) and K6
+#: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``), K6
 #: (the OSA scan) at buckets > 1024 as ``osa_scan_long``
-#: (``stream_kernel._osa_kernel``).
+#: (``stream_kernel._osa_kernel``) and K7 (weighted Levenshtein) at
+#: buckets > 1024 as ``wlev_scan_long`` (``stream_kernel._wlev_kernel``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
             "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
             "lcs_band": 0, "lcs_band_long": 0, "osa_scan": 0,
-            "osa_scan_nq": 0, "osa_scan_long": 0}
+            "osa_scan_nq": 0, "osa_scan_long": 0, "wlev_scan": 0,
+            "wlev_scan_long": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -76,6 +78,9 @@ _SIGNATURES = {
     "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
     # pm, las, cand, lb, out, scratch, B, lb4, W, nq, stream
     "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # pm, la, ins, del, sub, cand, lb, out, scratch, B, b0, nb, lb4, stream
+    "rf_wlev_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
+                     _I, _P],
 }
 
 

@@ -99,7 +99,7 @@ def lev_band_plain(la: int, cut: int, bw: int, tabs: torch.Tensor,
         ch = (c64[j >> 2] >> (8 * (j & 3))) & 0xFF
 
         def pmw(w):
-            return tab[w][ch] if 0 <= w < WS else zero
+            return tab[w].index_select(0, ch) if 0 <= w < WS else zero
 
         x = []
         for k in range(bw):

@@ -63,7 +63,7 @@ def lcs_band_plain(bw: int, tabs: torch.Tensor, cand: torch.Tensor,
         if lo > WS + bw:                 # the window is past the table
             pw = [torch.zeros_like(acc)] * (bw + 1)
         else:
-            col = tab[lo: lo + bw + 1][:, ch]            # [bw + 1, B]
+            col = tab[lo: lo + bw + 1].index_select(1, ch)  # [bw + 1, B]
             pw = list(col)
         ns = []
         carry = 0

@@ -75,7 +75,7 @@ def lcs_scan_plain(tabs: torch.Tensor, cand: torch.Tensor,
     s = [torch.full((NQ, lb.numel()), M32, dtype=torch.int64,
                     device=lb.device) for _ in range(W)]
     for ch in text_steps(cand, lb):
-        pm = tab[:, :, ch]                               # [NQ, W, B]
+        pm = tab.index_select(2, ch)                     # [NQ, W, B]
         carry = 0
         for w in range(W):
             u = s[w] & pm[:, w]

@@ -30,7 +30,9 @@ PyTorch version (``*_plain``) when handed CPU tensors; it never falls
 back from one to the other.  The plain versions compute in int64 masked
 to 32 bits after every add and left shift, and complement by XOR with
 ``0xFFFFFFFF``, so shifts are logical and sums wrap exactly as the
-kernels' u32 arithmetic does.
+kernels' u32 arithmetic does.  They read PM table rows with
+``index_select``: PyTorch's advanced indexing runs on the CPU's thread
+pool at any size, and stalls when other processes hold the cores.
 """
 
 from __future__ import annotations
@@ -224,7 +226,7 @@ def lev_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
         hp_c, hn_c = 1, 0
         delta = None
         for w in range(W):
-            x = tab[:, w, ch] | hn_c
+            x = tab[:, w].index_select(1, ch) | hn_c
             d0 = ((((x & vp[w]) + vp[w]) & M32) ^ vp[w]) | x | vn[w]
             hp = vn[w] | (M32 ^ (d0 | vp[w]))
             hn = d0 & vp[w]

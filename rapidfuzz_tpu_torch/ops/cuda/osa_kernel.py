@@ -62,7 +62,7 @@ def osa_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
         hp_c, hn_c, t_lo = 1, 0, 0
         delta = None
         for w in range(W):
-            pmw = tab[:, w, ch]                          # [NQ, B]
+            pmw = tab[:, w].index_select(1, ch)          # [NQ, B]
             t = (M32 ^ d0p[w]) & pmw
             tr = (((t << 1) & M32) | (t_lo >> 31)) & pmp[w]
             pmp[w] = pmw

@@ -1,17 +1,19 @@
 """One-vs-many and many-vs-many corpus scans on one device.
 
-Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for uniform Levenshtein,
-the LCS family (indel, lcs_seq) and OSA: the corpus is encoded once,
-length-sorted, packed and kept on the device, and every query scan reuses
-it — the reference's ``BatchComparator`` pattern
+Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for Levenshtein (uniform
+and weighted), the LCS family (indel, lcs_seq) and OSA: the corpus is
+encoded once, length-sorted, packed and kept on the device, and every
+query scan reuses it — the reference's ``BatchComparator`` pattern
 (``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
 scanner's Pallas rules (they were tuned on a TPU and are kept for
 parity), with one exception: a bucket over 1024 chars that is not whole
 512-char chunks leaves the JAX scanner's Pallas kernels for its XLA scan,
 and there the port picks its own routes (Levenshtein: the run-time band
-or the full scan; LCS and OSA: the streamed routes).  Only the ops
-wrappers choose between a kernel (CUDA tensors) and its plain version
-(CPU tensors), so the host logic is the same on both.
+or the full scan; LCS, OSA and weighted Levenshtein: the streamed
+routes); a weighted scan takes its kernel at every query length, where
+the JAX scanner leaves queries over 256 chars on streamed buckets to
+XLA.  Only the ops wrappers choose between a kernel (CUDA tensors) and
+its plain version (CPU tensors), so the host logic is the same on both.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..ops.cuda import lcs_band_kernel as _cbk
 from ..ops.cuda import lcs_kernel as _ck
 from ..ops.cuda import lev_kernel as _lk
 from ..ops.cuda import osa_kernel as _ok
+from ..ops.cuda import wlev_kernel as _wk
 from ..utils import codec as _codec
 
 #: candidates per CUDA block: the corpus pads to a whole block
@@ -45,8 +48,8 @@ LCS_BAND_MIN_W = 8
 
 
 class CorpusScanner:
-    """One-vs-many scan over a device-resident corpus: uniform
-    Levenshtein, indel, lcs_seq or OSA distances.
+    """One-vs-many scan over a device-resident corpus: Levenshtein
+    (uniform or weighted), indel, lcs_seq or OSA distances.
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
@@ -56,7 +59,11 @@ class CorpusScanner:
     multiple of uniform scales the distances, zero insert/delete costs
     give all-zero distances, and ``sub >= ins + del`` with ``ins == del``
     is ``ins`` times indel, which the scanner then serves as metric
-    ``indel`` (other metrics ignore ``weights``, as there).  Every bucket
+    ``indel`` (other metrics ignore ``weights``, as there); any other
+    table runs the weighted Wagner-Fischer kernel (K7) with the query as
+    the pattern (deletion charged on its chars), a full scan at every
+    bucket and query length: a cutoff masks it and a hint is ignored, as
+    in the JAX scanner (``scan.py:678-738``).  Every bucket
     length is served; buckets over 1024 chars that are whole 512-char
     chunks take the JAX scanner's long routes (the streamed bands and the
     full scans), other long buckets, which the JAX scanner leaves to XLA,
@@ -73,7 +80,12 @@ class CorpusScanner:
     for a hint scan its stragglers, compacted in chunks of at most an
     eighth of the corpus, so no scan stages a second corpus-sized copy;
     the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch,
-    the OSA kernel queries over 256 chars in a ``[3W, B]`` scratch.
+    the OSA kernel queries over 256 chars in a ``[3W, B]`` scratch, and a
+    weighted scan queries over 128 chars in a ``[la, chunk]`` int32 row
+    scratch (``4*la`` bytes per candidate), launched over chunks of
+    candidates so that it stays within ``wlev_kernel.SCRATCH_BYTES``
+    (1 GiB): a 300-char query over 1M strings is 1.2 GB of rows, a
+    4,001-char query over 131,072 texts 2.1 GB.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
@@ -91,6 +103,8 @@ class CorpusScanner:
         # (levenshtein.rs:1244-1279; scan.py:146-156)
         self._wscale = 1
         self._zero = False
+        #: a general (ins, del, sub) table: the weighted scan
+        self._weights = None
         if weights is not None and metric == "levenshtein":
             # a WeightTable or a tuple, as the JAX scanner takes
             # (scan.py:142-144); imported here, as the JAX scanner does,
@@ -106,9 +120,7 @@ class CorpusScanner:
                     self.metric = "indel"
                     self._wscale = ins
                 else:
-                    raise NotImplementedError(
-                        "general weighted Levenshtein is not ported yet "
-                        "(ROADMAP.md queue 1, item 10)")
+                    self._weights = (ins, dele, sub)
         # corpora whose elements exceed int32 (or contain int32.max) are
         # remapped through a dense vocabulary that queries share
         # (pattern_match_vector.rs:104-154 overflow-hashmap equivalent)
@@ -224,6 +236,13 @@ class CorpusScanner:
             return _ok.osa_1v_many(qk, cand, self.lb, mode=mode).cpu().numpy()
         if self.metric != "levenshtein":
             return self._lcs_distances(q, qk, mode, cand, score_cutoff)
+        if self._weights is not None:
+            # the full weighted scan at every bucket and query length,
+            # before the hint and band routes (scan.py:718-738): a cutoff
+            # masks it in distances(), a hint is ignored
+            ins, dele, sub = self._weights
+            return _wk.wlev_1v_many(qk, cand, self.lb, ins=ins, dele=dele,
+                                    sub_cost=sub, mode=mode).cpu().numpy()
         cut = (None if score_cutoff is None or self._wscale != 1
                else score_cutoff)
         if cut is not None and self._stream:
@@ -357,6 +376,7 @@ class CorpusScanner:
         this query, or None (``scan.py:959-986``: the pinned band over
         buckets of at most ``FAST_MAX_LB`` only)."""
         if (self.metric != "levenshtein" or self._wscale != 1
+                or self._weights is not None
                 or self._LB > _bk.FAST_MAX_LB):
             return None
         qsize = int(_codec.encode_one(query).size)
@@ -409,8 +429,10 @@ class CorpusScanner:
         """scan_many batches queries into one multi-query launch when the
         packed corpus is query-independent (not on the wide-alphabet
         route, which remaps the corpus per query) and, as in the JAX
-        scanner, the bucket is at most 1024 chars."""
-        return not self._wide and not self._zero and not self._long
+        scanner, the bucket is at most 1024 chars and the scan is not
+        weighted (K7 has no multi-query form, ``scan.py:1260``)."""
+        return (not self._wide and not self._zero and not self._long
+                and self._weights is None)
 
     def _distances_many(self, queries):
         """``[len(queries), n]`` distances via grouped multi-query launches.

@@ -32,6 +32,7 @@ def test_port_imports_without_jax():
         "from rapidfuzz_tpu_torch import fuzz, oracle\n"
         "import rapidfuzz_tpu_torch.ops.cuda.lcs_band_kernel\n"
         "import rapidfuzz_tpu_torch.ops.cuda.osa_kernel\n"
+        "from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel\n"
         "import rapidfuzz_tpu_torch.ops.osa\n"
         "assert indel.distance('lewenstein', 'levenshtein') == 3\n"
         "assert lcs_seq.distance('lewenstein', 'levenshtein') == 2\n"
@@ -41,6 +42,17 @@ def test_port_imports_without_jax():
         "assert rapidfuzz_tpu_torch.parallel.CorpusScanner\n"
         "assert rapidfuzz_tpu_torch.common.mask_distance\n"
         "assert levenshtein.distance('kitten', 'sitting') == 3\n"
+        "assert wlev_kernel.fits_int32(64, 1024, 1, 2, 3)\n"
+        "assert not wlev_kernel.fits_int32(64, 1024, 2 ** 21, 2, 3)\n"
+        "import numpy as np, torch\n"
+        "from rapidfuzz_tpu_torch.ops.cuda import lev_kernel\n"
+        "from rapidfuzz_tpu_torch.utils import codec\n"
+        "ch, ln = codec.encode_batch(['sitting', ''])\n"
+        "c, l = lev_kernel.prepare_corpus(torch.from_numpy(ch),\n"
+        "                                 torch.from_numpy(ln))\n"
+        "d = wlev_kernel.wlev_1v_many(codec.encode_one('kitten'), c, l,\n"
+        "                             ins=1, dele=2, sub_cost=3)\n"
+        "assert d.tolist() == [7, 12], d\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'rapidfuzz_tpu'))\n"
         "assert not bad, bad\n"
