@@ -11,7 +11,8 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``);
+   registers and spills (``ptxas -v``) and, for K7, each kernel's SASS
+   instruction count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
    long routes (K1 and K4 over 2048- and 8192-char buckets, the run-time
@@ -83,23 +84,32 @@ Phases, each printing one JSON line before the next starts:
 11. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
-   corpora), with each kernel's bound;
+   corpora), with each kernel's bound, the output of each timed launch
+   held against the plain version; K7 also at 32-129 chars over the serve
+   corpus and at 299 and 4,001 chars over the long corpus (the second
+   launched over chunks of the 1 GiB scratch plan), its plain version on
+   a slice of the candidates where the whole shape would take it over
+   10 s;
 12. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
 8, 9 and 10 and read after each, so the counts are those of the five main
-paths alone; every kernel must have launched in them.  Any failure
-raises: the script then exits nonzero and never prints its last line,
-``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-nonzero before any phase.
+paths alone; every kernel must have launched in them.  Each phase's line
+gives its seconds and those of its oracle checks (``oracle_s``), the
+kernels phase's also per family of cases and the wlev phase's per part.
+Any failure raises: the script then exits nonzero and never prints its
+last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
+exits nonzero before any phase.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -119,6 +129,9 @@ N_TIMING = 1 << 20
 N_RATE = 1 << 26
 N_PLAIN_RATE = 1 << 22
 N_SAMPLE = 4096
+#: rows each of the wlev phase's 20 /batch queries is held on: the
+#: oracle's weighted distance is one scalar call per row
+N_BATCH_SAMPLE = 1024
 N_LIB = 1 << 16
 LONG_LB = 8192
 N_LONG = 1 << 17
@@ -135,9 +148,12 @@ N_RATIO = 1 << 16
 #: K2's stride case: a bucket past 65,535 packed rows of 4 chars
 STRIDE_LB = 300_000
 N_STRIDE = 256
-#: the timing phase runs K7's long plain version on every PLAIN_SLICE-th
-#: candidate of the long corpus (over 10 s on the whole corpus)
-PLAIN_SLICE = 8
+#: the timing phase holds K7's timed launches on every WLEV_SLICE-th of
+#: the serve corpus's candidates and every LONG_SLICE[query]-th text of
+#: the long corpus against its plain version, which takes over 10 s on
+#: the whole long corpus
+WLEV_SLICE = 64
+LONG_SLICE = {"q64": 8, "q300": 32, "q4k": 512}
 #: K7's weight tables (insertion, deletion, substitution): asymmetric or
 #: not reducible to uniform or indel, so an orientation slip shows
 WLEV_TABLES = ((1, 2, 3), (3, 2, 1), (2, 2, 3))
@@ -244,6 +260,32 @@ def ptxas_summary(report: dict) -> dict:
     return out
 
 
+def sass_histogram(kc, kernel: str):
+    """For each kernel of the built library whose name holds ``kernel``:
+    its SASS instruction count and its ten commonest opcodes
+    (``cuobjdump -sass``, beside nvcc); None where the toolkit has no
+    cuobjdump."""
+    dump = os.path.join(os.path.dirname(kc._nvcc()), "cuobjdump")
+    if not os.path.exists(dump):
+        return None
+    sass = subprocess.run([dump, "-sass", kc.library_path()],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    out = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        # the template's name and argument: wlev_scan_reg<4>
+        key = re.sub(r"^.*\d(%s\w*?)IL[ib](\d+)E.*$" % kernel, r"\1<\2>",
+                     name)
+        ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", body)
+        out[key] = {"instructions": len(ops),
+                    "top": dict(collections.Counter(ops).most_common(10))}
+    return out
+
+
 def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Mean milliseconds of ``fn`` over ``reps`` runs (after one warm-up
     run unless ``warm`` is false), timed with CUDA events."""
@@ -258,6 +300,22 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def oracle_time(fn):
+    """Adds the seconds of each outermost call of ``fn`` (a method of
+    :class:`Smoke` that asks the C++ oracle) to ``Smoke.oracle_s``."""
+    def run(self, *args, **kw):
+        if self.in_oracle:
+            return fn(self, *args, **kw)
+        self.in_oracle = True
+        t0 = time.perf_counter()
+        try:
+            return fn(self, *args, **kw)
+        finally:
+            self.in_oracle = False
+            self.oracle_s += time.perf_counter() - t0
+    return run
 
 
 class Smoke:
@@ -281,9 +339,16 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.err = {name: 0 for name in kc.LAUNCHES}
         self.cases = {name: 0 for name in kc.LAUNCHES}
+        #: seconds spent in the oracle, in all and at the last phase's end
+        self.oracle_s, self.oracle_mark, self.in_oracle = 0.0, 0.0, False
 
     def sync(self) -> None:
         self.torch.cuda.synchronize()
+
+    def emit_phase(self, obj) -> None:
+        """A phase's JSON line, with the seconds its oracle checks took."""
+        emit({**obj, "oracle_s": self.oracle_s - self.oracle_mark})
+        self.oracle_mark = self.oracle_s
 
     def gen(self, salt: int):
         g = self.torch.Generator(device=self.dev)
@@ -396,16 +461,25 @@ class Smoke:
                 if int((got <= cut).sum()) == 0:
                     raise AssertionError(f"band cutoff={cut}: no candidate "
                                          "accepted; inputs too far apart")
-        salt = self.long_kernel_cases(rng, alph["byte"], salt)
-        salt = self.lcs_kernel_cases(rng, alph, salt)
-        salt = self.osa_kernel_cases(rng, alph, salt)
-        salt = self.wlev_kernel_cases(rng, alph, salt)
-        self.stride_case(rng)
         self.sync()
-        emit({"phase": "kernels", "candidates": N_KERNEL,
-              "long_candidates": N_KERNEL_LONG,
-              "cases": self.cases, "max_abs_err": self.err,
-              "seconds": time.perf_counter() - t_start})
+        # the seconds of each family of cases, for the phase's budget
+        family_s = {"short": time.perf_counter() - t_start}
+        for fam, run in (
+                ("long", lambda s: self.long_kernel_cases(rng, alph["byte"],
+                                                          s)),
+                ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
+                ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
+                ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
+                ("stride", lambda s: self.stride_case(rng))):
+            t0 = time.perf_counter()
+            salt = run(salt)
+            self.sync()
+            family_s[fam] = time.perf_counter() - t0
+        self.emit_phase({"phase": "kernels", "candidates": N_KERNEL,
+                         "long_candidates": N_KERNEL_LONG,
+                         "cases": self.cases, "max_abs_err": self.err,
+                         "family_s": family_s,
+                         "seconds": time.perf_counter() - t_start})
 
     def long_kernel_cases(self, rng, a, salt):
         """The long routes against their plain versions at
@@ -633,10 +707,10 @@ class Smoke:
         if wk.MAX_REG_LA != 128:
             raise AssertionError("K7's forms moved: update these cases")
 
-        def case(name, q, mode, cand, lb, w, what, **kw):
+        def case(name, q, mode, cand, lb, w, what):
             _, tabs = lk.stage_query(q, mode, self.dev)
             got = wk.wlev_1v_many(q, cand, lb, ins=w[0], dele=w[1],
-                                  sub_cost=w[2], mode=mode, **kw)
+                                  sub_cost=w[2], mode=mode)
             self.compare(name, got, wk.wlev_scan_plain(q.size, tabs, cand,
                                                        lb, *w), what)
 
@@ -658,9 +732,13 @@ class Smoke:
                         budget = 4 * la * (N_KERNEL // 4)
                         chunk = budget // (4 * la) // wk.BLOCK * wk.BLOCK
                         before = kc.LAUNCHES["wlev_scan"]
-                        case("wlev_scan", q, mode, cand, lb, w,
-                             f"la={la} {w} over chunks of {chunk}",
-                             scratch_bytes=budget)
+                        plan = wk.SCRATCH_BYTES
+                        wk.SCRATCH_BYTES = budget
+                        try:
+                            case("wlev_scan", q, mode, cand, lb, w,
+                                 f"la={la} {w} over chunks of {chunk}")
+                        finally:
+                            wk.SCRATCH_BYTES = plan
                         if kc.LAUNCHES["wlev_scan"] - before != \
                                 -(-N_KERNEL // chunk):
                             raise AssertionError("K7 scratch: wrong number "
@@ -756,6 +834,7 @@ class Smoke:
         return self.lk.prepare_corpus(chars, lens)
 
     # ------------------------------------------------------------ helpers
+    @oracle_time
     def oracle_rows(self, query: str, strings,
                     metric="levenshtein") -> np.ndarray:
         """Oracle distances of ``query`` to ``strings`` under ``metric``
@@ -786,6 +865,7 @@ class Smoke:
             return d
         return np.maximum(eq.size, lens) - (eq.size + lens - d) // 2
 
+    @oracle_time
     def oracle_full(self, queries, corpus, metric: str):
         """Whole-corpus oracle rows for each query, the queries in
         parallel (ctypes drops the GIL)."""
@@ -941,12 +1021,12 @@ class Smoke:
         finally:
             stop()
         self.sync()
-        emit({"phase": "serve", "corpus": N_SERVE, "bucket": LB,
-              "generate_s": t_gen, "scanner_build_s": t_build,
-              "warmup_s": warm,
-              "request_s": {k: v for k, v in timings.items()},
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "serve", "corpus": N_SERVE, "bucket": LB,
+                         "generate_s": t_gen, "scanner_build_s": t_build,
+                         "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
         self.serve_scanner = service.scanner
         self.serve_query = anchors[0]
         self.serve_anchors = anchors
@@ -987,9 +1067,9 @@ class Smoke:
         if self.kc.LAUNCHES["remap_pack"] == before:
             raise AssertionError("wide phase never launched remap_pack")
         self.sync()
-        emit({"phase": "wide", "corpus": N_WIDE, "bucket": LB,
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "wide", "corpus": N_WIDE, "bucket": LB,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
         self.wide_chars_t = sc._chars_dev
         self.wide_query = sc._encode_query(query)
         self.wide_corpus, self.wide_query_str = corpus, query
@@ -1031,8 +1111,8 @@ class Smoke:
             if got != (d, m - d, d / m, 1.0 - d / m):
                 raise AssertionError(f"scalar scores {s1!r} {s2!r}: {got}")
         self.sync()
-        emit({"phase": "library", "corpus": N_LIB,
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "library", "corpus": N_LIB,
+                         "seconds": time.perf_counter() - t_start})
 
     # ------------------------------------------------------------ phase 7
     def mid_corpus(self, rng):
@@ -1157,13 +1237,15 @@ class Smoke:
         for metric, cuts in (("indel", (7, 15, 31, 47)),
                              ("lcs_seq", (7, 15))):
             for q in mq:
+                # one oracle window, at the largest cutoff, serves each
+                win = self.window_truth(q, mid, mid_lens, max(cuts), metric)
                 for cut in cuts:
                     res = mids[metric].distances(q, score_cutoff=cut)
                     self.check_cutoff_window(
                         q, mid, mid_lens,
                         {"values": res.values, "valid": res.valid}, cut,
                         f"mid {metric} len {len(q)} cutoff {cut}",
-                        metric=metric)
+                        metric=metric, window=win)
         if self.kc.LAUNCHES["lcs_band"] - before != 12:
             raise AssertionError("mid cutoffs did not all take the band")
         vals, ids = mids["indel"].topk(mq[0], 10)
@@ -1192,13 +1274,13 @@ class Smoke:
         if fuzz.ratio(q, sub[0]) != ratio[0]:
             raise AssertionError("fuzz.ratio != oracle")
         self.sync()
-        emit({"phase": "lcs", "corpus": N_SERVE, "bucket": LB,
-              "mid_corpus": N_MID, "mid_bucket": MID_LB,
-              "scanner_build_s": t_build, "mid_generate_s": t_mid,
-              "warmup_s": warm,
-              "request_s": {k: v for k, v in timings.items()},
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "lcs", "corpus": N_SERVE, "bucket": LB,
+                         "mid_corpus": N_MID, "mid_bucket": MID_LB,
+                         "scanner_build_s": t_build, "mid_generate_s": t_mid,
+                         "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
         self.mid_scanner = mids["indel"]
         self.mid_query = mq[0]
 
@@ -1242,48 +1324,62 @@ class Smoke:
             corpus[int(i)] = self.edit(rng, q4k, m % 21)
         return corpus, docs, q4k, planted
 
+    @oracle_time
     def window_truth(self, q: str, corpus, lens, bound: int,
                      metric="levenshtein", lev=None):
         """Oracle distances of ``q`` to every row that can lie within
         ``bound``: rows with ``|len - len(q)| > bound`` cannot (each of
         the four metrics is at least the length difference), nor, under
-        OSA, rows whose Levenshtein distance ``lev`` (where given) exceeds
-        ``2 * bound`` (one OSA edit is at most two Levenshtein edits); a
-        weight tuple ``(ins, del, sub)`` costs at least ``ins`` per char
-        the row is longer and ``del`` per char it is shorter, and at least
-        the cheapest cost times ``lev``.  Only the others are computed;
-        Levenshtein banded at ``bound`` (exact when within it,
+        OSA, rows whose Levenshtein distance exceeds ``2 * bound`` (one
+        OSA edit is at most two Levenshtein edits); a weight tuple
+        ``(ins, del, sub)`` costs at least ``ins`` per char the row is
+        longer and ``del`` per char it is shorter, and at least the
+        cheapest cost times the Levenshtein distance.  The Levenshtein
+        distances are ``lev`` where given, else, under OSA and weights,
+        the banded bit-parallel oracle's on the rows the lengths leave
+        (far cheaper than their scalar calls).  Only the rows left are
+        computed; Levenshtein banded at ``bound`` (exact when within it,
         ``bound + 1`` above), the other metrics exact.  Returns (row ids,
         distances)."""
+        lev_bound = None
         if isinstance(metric, tuple):
             ins, dele, _ = metric
             diff = lens - len(q)
             near = np.where(diff >= 0, ins * diff, -dele * diff) <= bound
-            if lev is not None:
-                near &= min(metric) * lev <= bound
+            if min(metric) > 0:
+                lev_bound = bound // min(metric)
         else:
             near = np.abs(lens - len(q)) <= bound
-            if lev is not None:
-                near &= lev <= 2 * bound
+            if lev is not None or metric == "osa":
+                lev_bound = 2 * bound
+        if lev is not None and lev_bound is not None:
+            near &= lev <= lev_bound
         rows = np.flatnonzero(near)
+        eq = self.codec.encode_one(q)
+        if lev is None and lev_bound is not None:
+            lv = np.array([self.oracle.levenshtein_uniform_bp(
+                eq, self.codec.encode_one(corpus[i]), lev_bound)
+                for i in rows], np.int64)
+            rows = rows[lv <= lev_bound]
         if metric != "levenshtein":
             return rows, self.oracle_rows(q, [corpus[i] for i in rows],
                                           metric)
-        eq = self.codec.encode_one(q)
         d = np.array([self.oracle.levenshtein_uniform_bp(
             eq, self.codec.encode_one(corpus[i]), bound) for i in rows],
             np.int64)
         return rows, d
 
     def check_topk_window(self, q, corpus, lens, vals, ids, k, what,
-                          metric="levenshtein", lev=None):
+                          metric="levenshtein", lev=None, window=None):
         """The whole-corpus top-k, by (distance, index): only rows within
-        the k-th returned distance can belong to it."""
+        the k-th returned distance can belong to it.  ``window``: the
+        :meth:`window_truth` of ``q`` at a bound of at least that
+        distance, where the caller has it."""
         vals, ids = np.asarray(vals), np.asarray(ids)
         if len(ids) != k:
             raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
-        rows, d = self.window_truth(q, corpus, lens, int(vals[-1]), metric,
-                                    lev)
+        rows, d = window or self.window_truth(q, corpus, lens, int(vals[-1]),
+                                              metric, lev)
         keep = d <= int(vals[-1])
         order = np.lexsort((rows[keep], d[keep]))[:k]
         if not (np.array_equal(rows[keep][order], ids)
@@ -1294,12 +1390,14 @@ class Smoke:
 
     def check_cutoff_window(self, q, corpus, lens, out, cut, what,
                             want_hits=True, metric="levenshtein",
-                            lev=None):
+                            lev=None, window=None):
         """A ``(values, valid)`` answer under ``cut`` against the oracle
-        over the whole corpus."""
+        over the whole corpus (``window`` as in
+        :meth:`check_topk_window`)."""
         valid = np.asarray(out["valid"])
         values = np.asarray(out["values"])
-        rows, d = self.window_truth(q, corpus, lens, cut, metric, lev)
+        rows, d = window or self.window_truth(q, corpus, lens, cut, metric,
+                                              lev)
         ok = np.zeros(len(corpus), bool)
         ok[rows[d <= cut]] = True
         if not np.array_equal(valid, ok):
@@ -1442,14 +1540,14 @@ class Smoke:
             stop()
         del indel
         self.sync()
-        emit({"phase": "long", "corpus": N_LONG, "bucket": LONG_LB,
-              "odd_corpus": len(odd_corpus), "odd_bucket": ODD_LB,
-              "generate_s": t_gen, "scanner_build_s": t_build,
-              "warmup_s": warm,
-              "request_s": {k: v for k, v in timings.items()},
-              "indel_request_s": indel_timings,
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "long", "corpus": N_LONG, "bucket": LONG_LB,
+                         "odd_corpus": len(odd_corpus), "odd_bucket": ODD_LB,
+                         "generate_s": t_gen, "scanner_build_s": t_build,
+                         "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "indel_request_s": indel_timings,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
         self.long_scanner = service.scanner
         self.odd_scanner = odd_scanner
         self.long_queries = {"q64": q64, "q300": q300, "q4k": q4k}
@@ -1583,14 +1681,14 @@ class Smoke:
                                  "osa bucket 6000 cutoff 15", metric="osa")
         del odd
         self.sync()
-        emit({"phase": "osa", "corpus": N_SERVE, "bucket": LB,
-              "long_corpus": len(long_corpus), "odd_corpus":
-                  len(self.odd_corpus), "scanner_build_s": t_build,
-              "long_build_s": t_long, "warmup_s": warm,
-              "request_s": {k: v for k, v in timings.items()},
-              "long_topk_s": long_s,
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        self.emit_phase({"phase": "osa", "corpus": N_SERVE, "bucket": LB,
+                         "long_corpus": len(long_corpus), "odd_corpus":
+                             len(self.odd_corpus), "scanner_build_s": t_build,
+                         "long_build_s": t_long, "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "long_topk_s": long_s,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
 
     # ------------------------------------------------------------ phase 10
     def phase_wlev(self):
@@ -1600,13 +1698,14 @@ class Smoke:
         (sampled rows), ``/distances`` plain (every row within the
         Levenshtein bounds ``2*lev <= d <= 3*lev``, sampled and planted
         rows exact) and under cutoff 12 (whole corpus), ``/batch`` of 20
-        queries (sampled rows); ``CorpusScanner``s under WLEV_SCAN over the
-        long corpus for the 64- and 300-char queries (top-k, whole corpus),
-        over the bucket-6000 texts for the ~4,000-char query (the scratch
-        form; top-k and cutoff 40, whole corpus) and over the Cyrillic
-        corpus (the remap route; sampled rows); ``levenshtein.distance_many``
-        with a cutoff and ``BatchComparator.normalized_similarities`` over
-        N_LIB strings (every row)."""
+        queries (N_BATCH_SAMPLE sampled rows each); ``CorpusScanner``s under
+        WLEV_SCAN over the long corpus for the 64- and 300-char queries
+        (top-k, whole corpus), over the bucket-6000 texts for the
+        ~4,000-char query (the scratch form; top-k and cutoff 40, whole
+        corpus) and over the Cyrillic corpus (the remap route; sampled
+        rows); ``levenshtein.distance_many`` with a cutoff (whole corpus)
+        and ``BatchComparator.normalized_similarities`` (sampled rows) over
+        N_LIB strings."""
         from rapidfuzz_tpu_torch.distance import levenshtein
         from rapidfuzz_tpu_torch.parallel import CorpusScanner
         from rapidfuzz_tpu_torch.serve import ScanService
@@ -1657,13 +1756,19 @@ class Smoke:
                 bq.append(rng.integers(97, 123, n, dtype=np.uint8)
                           .tobytes().decode("ascii"))
             out = call("/batch", {"queries": bq, "k": 10})
+            bsample = np.unique(np.r_[rng.choice(N_SERVE, N_BATCH_SAMPLE,
+                                                 replace=False),
+                                      self.serve_planted])
             for qi, q in enumerate(bq):
                 self.check_topk_sampled(q, corpus, out["values"][qi],
-                                        out["indices"][qi], sample, 10,
+                                        out["indices"][qi], bsample, 10,
                                         f"wlev /batch query {qi}", w)
         finally:
             stop()
         del service
+        # the seconds of each part, for the phase's budget
+        t_part = time.perf_counter()
+        parts = {"serve": t_part - t_start}
         # the long texts: K7 over buckets > 1024 in register form (64
         # chars) and scratch form (300), then the ~4,000-char query over
         # the bucket-6000 texts (scratch form)
@@ -1681,19 +1786,28 @@ class Smoke:
             self.check_topk_window(qs[key], self.long_corpus, self.long_lens,
                                    vals, ids, 10, f"wlev long topk {key}", w)
         del long_sc
+        parts["long"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
         odd = CorpusScanner(self.odd_corpus, bucket=ODD_LB, weights=w,
                             device=self.dev)
         q4k = qs["q4k"]
         t0 = time.perf_counter()
         vals, ids = odd.topk(q4k, 10)
         long_s["q4k"] = time.perf_counter() - t0
-        self.check_topk_window(q4k, self.odd_corpus, self.odd_lens, vals, ids,
-                               10, "wlev bucket 6000 topk q4k", w)
         res = odd.distances(q4k, score_cutoff=40)
+        # one oracle window serves both checks
+        win = self.window_truth(q4k, self.odd_corpus, self.odd_lens,
+                                max(int(vals[-1]), 40), w)
+        self.check_topk_window(q4k, self.odd_corpus, self.odd_lens, vals, ids,
+                               10, "wlev bucket 6000 topk q4k", w,
+                               window=win)
         self.check_cutoff_window(q4k, self.odd_corpus, self.odd_lens,
                                  {"values": res.values, "valid": res.valid},
-                                 40, "wlev bucket 6000 cutoff 40", metric=w)
+                                 40, "wlev bucket 6000 cutoff 40", metric=w,
+                                 window=win)
         del odd
+        parts["odd"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
         # the Cyrillic corpus: K2's remap, then K7 in local mode
         wide = CorpusScanner(self.wide_corpus, bucket=LB, weights=w,
                              device=self.dev)
@@ -1707,35 +1821,47 @@ class Smoke:
         self.check_topk_sampled(qw, self.wide_corpus, vals, ids, wsample,
                                 10, "wlev wide topk", w)
         del wide
+        parts["wide"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
         # the library: one query against N_LIB strings (the scanner)
-        sub = corpus[:N_LIB]
-        truth = self.oracle_rows(q0, sub, w)
-        cut = int(np.sort(truth)[16])
+        # with the planted copies of the anchors among them (whole corpus
+        # under the cutoff: a distance lies within [min(w) * lev,
+        # max(w) * lev], so at least 17 rows meet it; sampled rows for
+        # the scores)
+        planted = self.serve_planted
+        ids = np.r_[np.setdiff1d(np.arange(N_LIB), planted)[
+            : N_LIB - planted.size], planted]
+        sub = [corpus[i] for i in ids]
+        lev_sub, lens_sub = lev0[ids], lens[ids]
+        cut = int(np.sort(max(w) * lev_sub)[16])
         res = levenshtein.distance_many([q0], sub, weights=w,
                                         score_cutoff=cut)
-        ok = truth <= cut
-        if not (np.array_equal(res.valid, ok)
-                and np.array_equal(res.values[ok], truth[ok])):
-            raise AssertionError(f"wlev distance_many cutoff {cut} != "
-                                 "oracle")
+        self.check_cutoff_window(q0, sub, lens_sub,
+                                 {"values": res.values, "valid": res.valid},
+                                 cut, f"wlev distance_many cutoff {cut}",
+                                 metric=w, lev=lev_sub)
         sim = levenshtein.BatchComparator(
             q0, levenshtein.WeightTable(*w)).normalized_similarities(sub)
-        mx = levenshtein.maximum(np.full(len(sub), len(q0)),
-                                 np.array([len(s) for s in sub]), w)
-        if not np.array_equal(sim.values, 1.0 - np.where(
+        lsample = rng.choice(N_LIB, N_SAMPLE, replace=False)
+        truth = self.oracle_rows(q0, [sub[i] for i in lsample], w)
+        mx = levenshtein.maximum(np.full(N_SAMPLE, len(q0)),
+                                 lens_sub[lsample], w)
+        if not np.array_equal(sim.values[lsample], 1.0 - np.where(
                 mx == 0, 0.0, truth / np.maximum(mx, 1))):
-            raise AssertionError("wlev normalized_similarities != oracle")
+            raise AssertionError("wlev normalized_similarities != oracle "
+                                 "on sampled rows")
         self.sync()
-        emit({"phase": "wlev", "corpus": N_SERVE, "bucket": LB,
-              "serve_weights": WLEV_SERVE, "scan_weights": WLEV_SCAN,
-              "long_corpus": len(self.long_corpus),
-              "odd_corpus": len(self.odd_corpus), "wide_corpus": N_WIDE,
-              "scanner_build_s": t_build, "long_build_s": t_long,
-              "warmup_s": warm,
-              "request_s": {k: v for k, v in timings.items()},
-              "long_topk_s": long_s,
-              "launches": dict(self.kc.LAUNCHES),
-              "seconds": time.perf_counter() - t_start})
+        parts["library"] = time.perf_counter() - t_part
+        self.emit_phase({
+            "phase": "wlev", "corpus": N_SERVE, "bucket": LB,
+            "serve_weights": WLEV_SERVE, "scan_weights": WLEV_SCAN,
+            "long_corpus": len(self.long_corpus),
+            "odd_corpus": len(self.odd_corpus), "wide_corpus": N_WIDE,
+            "scanner_build_s": t_build, "long_build_s": t_long,
+            "warmup_s": warm, "request_s": {k: v for k, v in timings.items()},
+            "long_topk_s": long_s, "parts_s": parts,
+            "launches": dict(self.kc.LAUNCHES),
+            "seconds": time.perf_counter() - t_start})
         del self.long_corpus, self.odd_corpus, self.serve_lev
         del self.wide_corpus
 
@@ -1750,6 +1876,7 @@ class Smoke:
         versions of the long routes walk 6,000-8,192 steps in Python, so
         they run once, with no warm-up run."""
         torch, lk, bk = self.torch, self.lk, self.bk
+        t_start = time.perf_counter()
         sc = self.serve_scanner
         n = N_TIMING
         cand = sc.cand[:, :n].contiguous()
@@ -1761,22 +1888,36 @@ class Smoke:
                     for _ in range(15)]
         lasq, tabsq = lk.stage_queries(qs, "local", self.dev)
         ws = bk.table_words(q.size, LB)
-        rows, bounds = {}, {}
+        rows, bounds, plain_n = {}, {}, {}
         int_ops_s = INT32_LANES * clock_mhz * 1e6
 
-        def timed(name, kernel, plain, reps, work, warm=True, check=None):
-            """``check``: the kernel on the plain version's inputs, where
-            those are a slice of the kernel's (PLAIN_SLICE)."""
-            ms = cuda_ms(torch, kernel, reps)
+        def timed(name, kernel, plain, reps, work, warm=True, every=1,
+                  row=None, kwarm=True):
+            """Times ``kernel`` (after a warm-up run unless ``kwarm`` is
+            false) and ``plain`` (likewise ``warm``) and holds the output
+            of the kernel's last timed run, on every ``every``-th
+            candidate, against ``plain``, which the caller gives those
+            candidates alone where the whole shape would take it over
+            10 s.  Kept under ``row`` (default: ``name``)."""
+            row = row or name
+            last = [None]
+
+            def run():
+                last[0] = kernel()
+
+            ms = cuda_ms(torch, run, reps, warm=kwarm)
             ref = []
             pms = cuda_ms(torch, lambda: ref.append(plain()), 1, warm=warm)
-            self.compare(name, (check or kernel)(), ref[-1], "timing inputs")
-            rows[name] = (ms, pms)
+            self.compare(name, last[0][..., ::every], ref[-1],
+                         f"{row} timing inputs")
+            rows[row] = (ms, pms)
+            if every > 1:
+                plain_n[row] = int(ref[-1].shape[-1])
             nbytes, ops = work
             t_bytes = nbytes / HBM_BYTES_S * 1e3
             t_ops = ops / int_ops_s * 1e3
-            bounds[name] = (max(t_bytes, t_ops),
-                            "bytes" if t_bytes >= t_ops else "operations")
+            bounds[row] = (max(t_bytes, t_ops),
+                           "bytes" if t_bytes >= t_ops else "operations")
 
         def scan_work(name, lbv, words, nq=1, table_words=None):
             """Bytes and u32 operations of a K1/K3 launch: each candidate's
@@ -1915,24 +2056,55 @@ class Smoke:
                                          *WLEV_SERVE), 5,
               scan_work("wlev_scan", lb, q.size,
                         table_words=lk.words(q.size)))
-        # its plain version takes over 10 s over the whole long corpus,
-        # so it runs on every PLAIN_SLICE-th candidate (lengths as spread)
-        sl_cand = long_sc.cand[:, ::PLAIN_SLICE].contiguous()
-        sl_lb = long_sc.lb[::PLAIN_SLICE].contiguous()
-        timed("wlev_scan_long",
-              lambda: wlev(q64, long_sc.cand, long_sc.lb, WLEV_SCAN, l64),
-              lambda: wk.wlev_scan_plain(q64.size, l64[1], sl_cand, sl_lb,
-                                         *WLEV_SCAN), 3,
-              scan_work("wlev_scan_long", long_sc.lb, q64.size,
-                        table_words=lk.words(q64.size)), warm=False,
-              check=lambda: wlev(q64, sl_cand, sl_lb, WLEV_SCAN, l64))
-        del sl_cand, sl_lb
+        # the register form at one, three and four words and the first
+        # scratch width, at the same candidates, each held on every
+        # WLEV_SLICE-th of them
+        sl_cand = cand[:, ::WLEV_SLICE].contiguous()
+        sl_lb = lb[::WLEV_SLICE].contiguous()
+        for la in (32, 96, 128, 129):
+            qw = rng.integers(97, 123, la)
+            sw = lk.stage_query(qw, "local", self.dev)
+            timed("wlev_scan", lambda: wlev(qw, cand, lb, WLEV_SERVE, sw),
+                  lambda: wk.wlev_scan_plain(la, sw[1], sl_cand, sl_lb,
+                                             *WLEV_SERVE), 5,
+                  scan_work("wlev_scan", lb, la, table_words=lk.words(la)),
+                  every=WLEV_SLICE, row=f"wlev_scan_la{la}")
+        extra = {}
+        # over the long corpus: the len-64 query (the kernels line's row),
+        # then the scratch form at 299 chars and at 4,001 (2.1 GB of rows:
+        # launched over chunks under the scanner's 1 GiB plan, once, with
+        # no warm-up), each timed output held against the plain version on
+        # every LONG_SLICE[key]-th text (lengths as spread; the whole
+        # corpus takes the plain version over 10 s)
+        for key, reps in (("q64", 3), ("q300", 2), ("q4k", 1)):
+            qk = enc[key]
+            st = lk.stage_query(qk, "local", self.dev)
+            every = LONG_SLICE[key]
+            sl_cand = long_sc.cand[:, ::every].contiguous()
+            sl_lb = long_sc.lb[::every].contiguous()
+            before = self.kc.LAUNCHES["wlev_scan_long"]
+            timed("wlev_scan_long",
+                  lambda: wlev(qk, long_sc.cand, long_sc.lb, WLEV_SCAN, st),
+                  lambda: wk.wlev_scan_plain(qk.size, st[1], sl_cand, sl_lb,
+                                             *WLEV_SCAN), reps,
+                  scan_work("wlev_scan_long", long_sc.lb, qk.size,
+                            table_words=lk.words(qk.size)), warm=False,
+                  every=every, kwarm=reps > 1,
+                  row=None if key == "q64" else f"wlev_scan_long_{key}")
+            runs = reps + (reps > 1)
+            scans = (self.kc.LAUNCHES["wlev_scan_long"] - before) // runs
+            B = long_sc.lb.numel()
+            chunk = B if qk.size <= wk.MAX_REG_LA else min(B, max(
+                wk.BLOCK, wk.SCRATCH_BYTES // (4 * qk.size) // wk.BLOCK
+                * wk.BLOCK))
+            if scans != -(-B // chunk) or (key == "q4k" and scans < 2):
+                raise AssertionError(f"wlev_scan_long {key}: {scans} "
+                                     "launches per scan")
+            extra[f"wlev_scan_long_{key}_launches"] = scans
+            del sl_cand, sl_lb
         # K1, K4 and K6 over the long corpus at the other query widths of
         # the long phase: 300 chars (K1's and K6's scratch forms, K4's
-        # registers) and ~4,000 (every scratch form); K7's scratch form at
-        # 300 chars (its ~4,000-char scan over these texts takes ~8 s and
-        # is timed by probes/wlev_probe.py)
-        extra = {}
+        # registers) and ~4,000 (every scratch form)
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
             extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
@@ -1944,29 +2116,24 @@ class Smoke:
             extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
-        st = lk.stage_query(enc["q300"], "local", self.dev)
-        extra["wlev_scan_long_q300_ms"] = cuda_ms(
-            torch, lambda: wlev(enc["q300"], long_sc.cand, long_sc.lb,
-                                WLEV_SCAN, st), 2)
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
         self.timing, self.bounds = rows, bounds
-        emit({"phase": "timing", "candidates": n, "bucket": LB,
-              "query_len": int(q.size), "sm_clock_mhz": clock_mhz,
-              "long_candidates": int(long_sc.lb.numel()),
-              "long_bucket": LONG_LB, "odd_candidates":
-                  int(odd_sc.lb.numel()), "odd_bucket": ODD_LB,
-              "long_query_lens": {k: int(v.size) for k, v in enc.items()},
-              "plain_candidates": {"wlev_scan_long":
-                                   int(long_sc.lb.numel()) // PLAIN_SLICE},
-              "ms": {k: v[0] for k, v in rows.items()},
-              "plain_ms": {k: v[1] for k, v in rows.items()},
-              "bound_ms": {k: v[0] for k, v in bounds.items()},
-              "bound_by": {k: v[1] for k, v in bounds.items()},
-              "lev_scan_long_pairs_per_s":
-                  long_sc.lb.numel() / ms_long * 1e3,
-              "lev_scan_long_char_steps_per_s": steps / ms_long * 1e3,
-              **extra})
+        self.emit_phase({
+            "phase": "timing", "candidates": n, "bucket": LB,
+            "query_len": int(q.size), "sm_clock_mhz": clock_mhz,
+            "long_candidates": int(long_sc.lb.numel()),
+            "long_bucket": LONG_LB, "odd_candidates": int(odd_sc.lb.numel()),
+            "odd_bucket": ODD_LB,
+            "long_query_lens": {k: int(v.size) for k, v in enc.items()},
+            "plain_candidates": plain_n,
+            "ms": {k: v[0] for k, v in rows.items()},
+            "plain_ms": {k: v[1] for k, v in rows.items()},
+            "bound_ms": {k: v[0] for k, v in bounds.items()},
+            "bound_by": {k: v[1] for k, v in bounds.items()},
+            "lev_scan_long_pairs_per_s": long_sc.lb.numel() / ms_long * 1e3,
+            "lev_scan_long_char_steps_per_s": steps / ms_long * 1e3,
+            **extra, "seconds": time.perf_counter() - t_start})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
     # ------------------------------------------------------------ phase 12
@@ -2079,7 +2246,7 @@ class Smoke:
                      lk.remap_pack_plain(ct4, vocab), "rate slice")
         self.sync()
         out["seconds"] = time.perf_counter() - t_start
-        emit({"phase": "rate", **out})
+        self.emit_phase({"phase": "rate", **out})
 
 
 def main(argv=None) -> int:
@@ -2104,7 +2271,8 @@ def main(argv=None) -> int:
     kc.load()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
-          "ptxas": ptxas_summary(kc.ptxas_report)})
+          "ptxas": ptxas_summary(kc.ptxas_report),
+          "sass_wlev_scan": sass_histogram(kc, "wlev_scan")})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
     # short texts, the LCS family's, the long texts', OSA's, then the

@@ -24,7 +24,8 @@ whose cells could overflow raises ``ValueError`` (:func:`fits_int32`).
 
 Queries of more than :data:`MAX_REG_LA` chars keep each candidate's row in
 a ``[la, chunk]`` int32 scratch: the wrapper launches over chunks of
-candidates whose scratch stays within ``scratch_bytes``, one launch each.
+candidates whose scratch stays within :data:`SCRATCH_BYTES`, read at each
+call, one launch each.
 
 The wrapper runs the kernel when handed CUDA tensors and the plain PyTorch
 version (:func:`wlev_scan_plain`) when handed CPU tensors; it never falls
@@ -104,8 +105,8 @@ def wlev_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
     return torch.cat(out).to(torch.int32)
 
 
-def _wlev_scan(la, tabs, cand, lb, ins, dele, sub, name: str,
-               scratch_bytes: int) -> torch.Tensor:
+def _wlev_scan(la, tabs, cand, lb, ins, dele, sub,
+               name: str) -> torch.Tensor:
     """K7 over one query -> ``[B]`` int32 (kernel on CUDA tensors, plain
     version on CPU tensors)."""
     dev = cand.device
@@ -129,8 +130,8 @@ def _wlev_scan(la, tabs, cand, lb, ins, dele, sub, name: str,
     chunk, scratch = B, None
     if la > MAX_REG_LA and B:
         # the row scratch, [la, chunk] int32 coalesced by candidate,
-        # bounded by scratch_bytes: one launch per chunk of candidates
-        chunk = min(B, max(BLOCK, scratch_bytes // (4 * la) // BLOCK
+        # bounded by SCRATCH_BYTES: one launch per chunk of candidates
+        chunk = min(B, max(BLOCK, SCRATCH_BYTES // (4 * la) // BLOCK
                            * BLOCK))
         scratch = torch.empty(la * chunk, dtype=torch.int32, device=dev)
     for b0 in range(0, B, chunk):
@@ -143,8 +144,7 @@ def _wlev_scan(la, tabs, cand, lb, ins, dele, sub, name: str,
 
 def wlev_1v_many(query: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, *,
                  ins: int, dele: int, sub_cost: int, mode: str = "byte",
-                 staged=None, scratch_bytes: int = SCRATCH_BYTES
-                 ) -> torch.Tensor:
+                 staged=None) -> torch.Tensor:
     """One-vs-many weighted Levenshtein distances -> ``[B]`` int32, at any
     bucket and query length (``wlev_kernel.wlev_1v_many`` and
     ``stream_kernel.wlev_stream_1v_many``).
@@ -159,4 +159,4 @@ def wlev_1v_many(query: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, *,
         q, mode, cand.device)
     name = "wlev_scan_long" if cand.shape[0] * 4 > LONG_LB else "wlev_scan"
     return _wlev_scan(int(q.size), tabs, cand, lb, int(ins), int(dele),
-                      int(sub_cost), name, scratch_bytes)
+                      int(sub_cost), name)

@@ -266,7 +266,8 @@ def cuda_device():
     ("wlev_scan", 27, 260), ("wlev_scan", 60, 260), ("wlev_scan", 100, 260),
     ("wlev_scan", 0, 260), ("wlev_scan", 140, 260),
     ("wlev_scan_long", 50, 1536)])
-def test_wlev_kernel_matches_plain_on_card(cuda_device, kernel, la, lb_max):
+def test_wlev_kernel_matches_plain_on_card(cuda_device, monkeypatch, kernel,
+                                           la, lb_max):
     """Each K7 form (registers at one, two and four words, the empty
     query, the scratch form launched over several chunks, a long bucket)
     equals its plain PyTorch version on the card under (1, 2, 3) and moves
@@ -282,8 +283,8 @@ def test_wlev_kernel_matches_plain_on_card(cuda_device, kernel, la, lb_max):
                                  torch.from_numpy(lens).to(cuda_device))
     _, tabs = lk.stage_query(q, "byte", cuda_device)
     before = kc.LAUNCHES[kernel]
-    got = wk.wlev_1v_many(q, cand, lb, ins=1, dele=2, sub_cost=3,
-                          scratch_bytes=4 * max(la, 1) * 1024)
+    monkeypatch.setattr(wk, "SCRATCH_BYTES", 4 * max(la, 1) * 1024)
+    got = wk.wlev_1v_many(q, cand, lb, ins=1, dele=2, sub_cost=3)
     ref = wk.wlev_scan_plain(la, tabs, cand, lb, 1, 2, 3)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)

@@ -137,7 +137,7 @@ def test_wlev_wrapper_refuses_bad_inputs():
                         sub_cost=3)
     with pytest.raises(ValueError, match="shape"):
         wk._wlev_scan(70, lk.stage_query(q, "byte")[1], cand, lb, 1, 2, 3,
-                      "wlev_scan", wk.SCRATCH_BYTES)
+                      "wlev_scan")
     with pytest.raises(TypeError):
         wk.wlev_1v_many(q, cand.to(torch.int64), lb, ins=1, dele=2,
                         sub_cost=3)
