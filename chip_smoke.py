@@ -28,7 +28,12 @@ Phases, each printing one JSON line before the next starts:
    words, its scratch form at the first scratch width (also launched over
    several chunks of a small scratch budget) and for the empty query, at
    262,144 candidates in byte and local mode, and over 2048- and 8192-char
-   buckets; and one K2 case whose bucket (300,000 chars) makes its blocks
+   buckets; K8 (the Jaro components) in its register form at one and two
+   words and its scratch form at the first scratch width (also launched
+   over several chunks of a small scratch budget), at 262,144 candidates
+   in byte and local mode, 16 queries per launch, and over 2048-, 8192-
+   and 16,400-char buckets, over near copies with adjacent swaps planted;
+   and one K2 case whose bucket (300,000 chars) makes its blocks
    stride past 65,535 grid rows, its scan held against the oracle on a
    sampled row;
 4. serve   — ``ScanService`` over a 1,048,576-string word-like corpus
@@ -81,7 +86,18 @@ Phases, each printing one JSON line before the next starts:
    held against the oracle (whole-corpus windows: a weighted distance is
    at least the length difference times the insertion or deletion cost
    and at least the Levenshtein distance times the cheapest cost);
-11. timing — each kernel and its plain version at its main-path shape
+11. jaro   — the Jaro family: ``ScanService(metric="jaro_winkler")`` over
+   the serve corpus behind ``make_server`` (``/topk``, ``/distances``
+   plain and under a cutoff, ``/batch`` of 20 queries), a
+   ``CorpusScanner(metric="jaro")`` over the long corpus for the 64-,
+   300- and ~4,000-char queries, and
+   ``jaro_winkler.BatchComparator(q).similarities`` over 65,536 strings,
+   every answer held against the oracle's f64 ``1.0 - similarity`` bit
+   for bit (whole-corpus windows: a row's similarity is at most that of
+   as many common chars as the two strings share, with no
+   transposition, boosted by its actual prefix; sampled rows where
+   nearly every row lies within that bound);
+12. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound, the output of each timed launch
@@ -89,14 +105,14 @@ Phases, each printing one JSON line before the next starts:
    corpus and at 299 and 4,001 chars over the long corpus (the second
    launched over chunks of the 1 GiB scratch plan), its plain version on
    a slice of the candidates where the whole shape would take it over
-   10 s;
-12. rate   — one len-64 query, then 16 per launch, against 67,108,864
+   10 s; K8 also at 300 and 4,001 chars over the long corpus;
+13. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
-8, 9 and 10 and read after each, so the counts are those of the five main
-paths alone; every kernel must have launched in them.  Each phase's line
+8, 9, 10 and 11 and read after each, so the counts are those of the six
+main paths alone; every kernel must have launched in them.  Each phase's line
 gives its seconds and those of its oracle checks (``oracle_s``), the
 kernels phase's also per family of cases and the wlev phase's per part.
 Any failure raises: the script then exits nonzero and never prints its
@@ -154,6 +170,13 @@ N_STRIDE = 256
 #: the whole long corpus
 WLEV_SLICE = 64
 LONG_SLICE = {"q64": 8, "q300": 32, "q4k": 512}
+#: the kernel cases' bucket past the TPU's 16,384-char Jaro cap, and its
+#: candidates
+HUGE_LB = 16400
+N_HUGE = 256
+#: the Jaro service's prefix weight (the default) and the library's
+JARO_PW = 0.1
+JARO_LIB_PW = 0.2
 #: K7's weight tables (insertion, deletion, substitution): asymmetric or
 #: not reducible to uniform or indel, so an orientation slip shows
 WLEV_TABLES = ((1, 2, 3), (3, 2, 1), (2, 2, 3))
@@ -190,6 +213,17 @@ OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
        "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
        "wlev_scan": 3, "wlev_scan_long": 3}
+#: K8's register form, per text step of each pass: (INT32-lane operations
+#: per query word, per step), counted from the SASS of the two loops of
+#: jaro_scan_reg<1> and <2> (cuobjdump -sass of the built library: 14 and
+#: 23 in pass 1, 13 and 22 in pass 2), leaving out the IMADs (FMA lanes),
+#: the load of the next packed word (once per 4 steps) and the pop of a
+#: flagged step, so the bound is a lower one; pass 2 replays pass 1's
+#: flagging beside the pop.  The steps are those this run's data needs:
+#: pass 1 from the end of the common prefix until every pattern position
+#: is claimed or len2, pass 2 until the last flagged char
+#: (jaro_scan_plain(..., steps=True))
+JARO_OPS = {"pass1": (9, 5), "pass2": (9, 4)}
 LCS_BAND_STEP_OPS = 1
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
@@ -209,6 +243,9 @@ REPLACES = {
     "osa_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:425",
     "wlev_scan": "rapidfuzz_tpu/ops/pallas/wlev_kernel.py:103",
     "wlev_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:862",
+    "jaro_scan": "rapidfuzz_tpu/ops/pallas/jaro_kernel.py:204",
+    "jaro_scan_nq": "rapidfuzz_tpu/ops/pallas/jaro_kernel.py:268",
+    "jaro_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:683",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -228,6 +265,9 @@ SOURCES = {
     "osa_scan_long": "rapidfuzz_tpu_torch/csrc/osa_scan.cu",
     "wlev_scan": "rapidfuzz_tpu_torch/csrc/wlev_scan.cu",
     "wlev_scan_long": "rapidfuzz_tpu_torch/csrc/wlev_scan.cu",
+    "jaro_scan": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
+    "jaro_scan_nq": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
+    "jaro_scan_long": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
@@ -235,6 +275,7 @@ LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long",
              "lcs_scan_long", "lcs_band_long")
 OSA_PATH = ("osa_scan", "osa_scan_nq", "osa_scan_long")
 WLEV_PATH = ("wlev_scan", "wlev_scan_long")
+JARO_PATH = ("jaro_scan", "jaro_scan_nq", "jaro_scan_long")
 
 
 def emit(obj) -> None:
@@ -325,6 +366,7 @@ class Smoke:
         from rapidfuzz_tpu_torch import oracle
         from rapidfuzz_tpu_torch.ops import cuda as kc
         from rapidfuzz_tpu_torch.ops.cuda import band_kernel as bk
+        from rapidfuzz_tpu_torch.ops.cuda import jaro_kernel as jk
         from rapidfuzz_tpu_torch.ops.cuda import lcs_band_kernel as cbk
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
@@ -333,7 +375,7 @@ class Smoke:
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
-        self.ck, self.cbk, self.ok, self.wk = ck, cbk, ok, wk
+        self.ck, self.cbk, self.ok, self.wk, self.jk = ck, cbk, ok, wk, jk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -470,6 +512,7 @@ class Smoke:
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
                 ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
+                ("jaro", lambda s: self.jaro_kernel_cases(rng, alph, s)),
                 ("stride", lambda s: self.stride_case(rng))):
             t0 = time.perf_counter()
             salt = run(salt)
@@ -755,6 +798,82 @@ class Smoke:
                  f"LB={LBl} la={q.size} {w}")
         return salt
 
+    def jaro_kernel_cases(self, rng, alph, salt):
+        """K8 against its plain version, (common, transpositions) bit for
+        bit, over near copies of the query with adjacent swaps planted
+        (across query bits 31/32 and packed 4-char rows): ``jaro_scan``
+        in register form at W = 1 and 2 and in scratch form at the first
+        scratch width, over N_KERNEL candidates in byte and local mode,
+        the scratch form once more over chunks of a scratch budget a
+        quarter of the candidates' (several launches, each at its own
+        candidate offset); ``jaro_scan_nq`` for a one-word group holding
+        an empty query and a two-word group; ``jaro_scan_long`` at W = 2
+        and at the first scratch width over 2048-char buckets, at W = 2
+        over 8192, at N_KERNEL_LONG candidates, and at both over
+        HUGE_LB-char buckets (past the TPU's cap) at N_HUGE.  Every case
+        must count some transposition."""
+        torch, lk, jk, kc = self.torch, self.lk, self.jk, self.kc
+
+        def case(name, q, mode, cand, lb, what):
+            las, tabs = lk.stage_query(q, mode, self.dev)
+            got = torch.stack(jk.jaro_1v_many(q, cand, lb, mode=mode))
+            self.compare(name, got[:, None],
+                         jk.jaro_scan_plain(las, tabs[None], cand, lb), what)
+            if not bool((got[1] > 0).any()):
+                raise AssertionError(f"{name} {what}: no transposition")
+
+        W_s = jk.MAX_REG_W + 1
+        for W in (1, 2, W_s):
+            lbm = LB if W <= 2 else 320
+            for mode in ("byte", "local"):
+                salt += 1
+                a = alph[mode]
+                q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+                cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL, lbm,
+                                        swaps=True)
+                case("jaro_scan", q, mode, cand, lb, f"W={W} {mode}")
+                if W == W_s and mode == "local":
+                    per = 4 * (W + lbm // 32)
+                    budget = per * (N_KERNEL // 4)
+                    chunk = budget // per // jk.BLOCK * jk.BLOCK
+                    before = kc.LAUNCHES["jaro_scan"]
+                    plan = jk.SCRATCH_BYTES
+                    jk.SCRATCH_BYTES = budget
+                    try:
+                        case("jaro_scan", q, mode, cand, lb,
+                             f"W={W} over chunks of {chunk}")
+                    finally:
+                        jk.SCRATCH_BYTES = plan
+                    if kc.LAUNCHES["jaro_scan"] - before != \
+                            -(-N_KERNEL // chunk):
+                        raise AssertionError("K8 scratch: wrong number of "
+                                             "chunk launches")
+        for W in (1, 2):
+            salt += 1
+            a = alph["byte"]
+            q0 = rng.choice(a, 32 * W)
+            qs = [q0] + [rng.choice(a, 32 * (W - 1) + 1
+                                    + int(rng.integers(0, 32)))
+                         for _ in range(15)]
+            if W == 1:
+                qs[3] = np.empty(0, np.int64)
+            cand, lb = self.mutants(self.gen(salt), q0, a, N_KERNEL, LB,
+                                    swaps=True)
+            las, tabs = lk.stage_queries(qs, "byte", self.dev)
+            self.compare("jaro_scan_nq", torch.stack(jk.jaro_nq_many(
+                qs, cand, lb)), jk.jaro_scan_plain(las, tabs, cand, lb),
+                         f"16 queries W={W}")
+        for LBl, W, B in ((2048, 2, N_KERNEL_LONG), (2048, W_s, N_KERNEL_LONG),
+                          (LONG_LB, 2, N_KERNEL_LONG), (HUGE_LB, 2, N_HUGE),
+                          (HUGE_LB, W_s, N_HUGE)):
+            salt += 1
+            a = alph["byte"]
+            q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl, swaps=True)
+            lb[:8] = LBl                      # the bucket's last rows
+            case("jaro_scan_long", q, "byte", cand, lb, f"LB={LBl} W={W}")
+        return salt
+
     def stride_case(self, rng):
         """K2 over a bucket of STRIDE_LB chars (75,000 packed rows: its
         blocks stride past the 65,535 rows grid.y can hold) of N_STRIDE
@@ -841,7 +960,11 @@ class Smoke:
         (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``; OSA one
         scalar call per string; a weight tuple ``(ins, del, sub)`` is
         weighted Levenshtein with the query as the pattern, one scalar
-        call per string)."""
+        call per string; "jaro" and "jaro_winkler" (at JARO_PW) are f64
+        distances ``1.0 - similarity``, from :meth:`jaro_rows`)."""
+        if metric in ("jaro", "jaro_winkler"):
+            return self.jaro_rows(query, strings,
+                                  None if metric == "jaro" else JARO_PW)
         enc = [self.codec.encode_one(s) for s in strings]
         if metric == "osa" or isinstance(metric, tuple):
             eq = self.codec.encode_one(query)
@@ -1551,6 +1674,7 @@ class Smoke:
         self.long_scanner = service.scanner
         self.odd_scanner = odd_scanner
         self.long_queries = {"q64": q64, "q300": q300, "q4k": q4k}
+        self.long_planted = planted
         self.long_corpus, self.long_lens = corpus, lens
         self.odd_corpus, self.odd_lens = odd_corpus, odd_lens
 
@@ -1862,10 +1986,239 @@ class Smoke:
             "long_topk_s": long_s, "parts_s": parts,
             "launches": dict(self.kc.LAUNCHES),
             "seconds": time.perf_counter() - t_start})
-        del self.long_corpus, self.odd_corpus, self.serve_lev
-        del self.wide_corpus
+        del self.odd_corpus, self.serve_lev, self.wide_corpus
 
     # ------------------------------------------------------------ phase 11
+    @oracle_time
+    def jaro_rows(self, query, strings, pw=None) -> np.ndarray:
+        """The oracle's f64 distances ``1.0 - sim`` of ``query`` to
+        ``strings``: Jaro, or Jaro-Winkler at prefix weight ``pw``, one
+        scalar call per string, eight slices in parallel (ctypes drops
+        the GIL)."""
+        eq = self.codec.encode_one(query)
+        enc = [self.codec.encode_one(s) for s in strings]
+        if pw is None:
+            one = self.oracle.jaro
+        else:
+            def one(a, b):
+                return self.oracle.jaro_winkler(a, b, pw)
+        parts = np.array_split(np.arange(len(enc)), 8)
+        with ThreadPoolExecutor(8) as ex:
+            done = list(ex.map(lambda ix: [one(eq, enc[i]) for i in ix],
+                               parts))
+        return 1.0 - np.array([v for part in done for v in part],
+                              np.float64)
+
+    def jaro_window(self, q, corpus, lens, s_min, pw=None, common=None,
+                    prefix=None):
+        """Rows whose similarity to ``q`` can reach ``s_min``, and the
+        oracle's distances on them.  With at most ``m`` common chars a
+        row's Jaro similarity is at most ``(m/la + m/lb + 1)/3`` (no
+        transposition), ``m`` at most ``common`` (default ``min(la,
+        lb)``); the Winkler boost at the row's ``prefix`` (default 4) is
+        increasing in the similarity.  Returns (row ids, distances)."""
+        m = (np.minimum(len(q), lens) if common is None
+             else common).astype(np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ub = np.where(m > 0, (m / len(q) + m / lens + 1.0) / 3.0, 0.0)
+        if pw is not None:
+            p = 4 if prefix is None else prefix
+            ub = np.where(ub > 0.7, ub + p * pw * (1.0 - ub), ub)
+        rows = np.flatnonzero(ub >= s_min - 1e-9)
+        return rows, self.jaro_rows(q, [corpus[i] for i in rows], pw)
+
+    def check_jaro_topk(self, q, corpus, lens, vals, ids, k, what, pw=None,
+                        **bound):
+        """The whole-corpus top-k by (distance, index): only rows whose
+        bound reaches the k-th returned similarity can belong to it."""
+        vals, ids = np.asarray(vals, np.float64), np.asarray(ids)
+        if len(ids) != k:
+            raise AssertionError(f"{what}: {len(ids)} results, expected {k}")
+        rows, d = self.jaro_window(q, corpus, lens, 1.0 - vals[-1], pw,
+                                   **bound)
+        order = np.lexsort((rows, d))[:k]
+        if not (np.array_equal(rows[order], ids)
+                and np.array_equal(d[order], vals)):
+            raise AssertionError(f"{what}: {vals.tolist()} {ids.tolist()} "
+                                 f"!= oracle {d[order].tolist()} "
+                                 f"{rows[order].tolist()}")
+
+    def phase_jaro(self):
+        """The Jaro family on its main path: ``ScanService(metric=
+        "jaro_winkler")`` over the serve corpus behind ``make_server`` --
+        ``/topk`` for the three anchors (whole corpus: the window of
+        :meth:`jaro_window`, each row's common chars bounded by the
+        multiset of chars it shares with the query, its prefix exact, both
+        counted on the card) and a random query (sampled rows),
+        ``/distances`` plain (sampled and planted rows) and under cutoff
+        0.1 (whole corpus), ``/batch`` of 20 queries (N_BATCH_SAMPLE
+        sampled rows and the planted ones, one two-word group: K8's
+        16-query launches); a ``CorpusScanner(metric="jaro")`` over the
+        long corpus: top-k for the 64-, 300- and ~4,000-char queries on
+        sampled rows and the near copies of the last (nearly every text
+        lies within the bounds of the first two, and the oracle's scalar
+        Jaro of two ~4,000-char texts takes milliseconds); and
+        ``jaro_winkler.BatchComparator(q, JARO_LIB_PW).similarities`` over
+        N_LIB strings (sampled rows and the 64 most similar) and the
+        scalar scores."""
+        from rapidfuzz_tpu_torch.distance import jaro, jaro_winkler
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        torch = self.torch
+        rng = np.random.default_rng(self.seed + 8)
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus
+        lens = np.array([len(s) for s in corpus])
+        t0 = time.perf_counter()
+        service = ScanService(corpus, metric="jaro_winkler", bucket=LB,
+                              device=self.dev)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad or "distances_hint" in warm:
+            raise AssertionError(f"jaro warmup routes: {warm}")
+        # the corpus as [N_SERVE, LB] bytes on the card (pads 0, which no
+        # query holds), for the windows' per-row bounds
+        chars = np.zeros((N_SERVE, LB), np.uint8)
+        chars[np.arange(LB)[None, :] < lens[:, None]] = np.frombuffer(
+            "".join(corpus).encode("latin-1"), np.uint8)
+        chars = torch.from_numpy(chars).to(self.dev)
+        lens_t = torch.from_numpy(lens).to(self.dev)
+
+        def bound(q):
+            """Each row's common-char bound (the multiset of chars it
+            shares with ``q``) and its Winkler prefix with ``q``."""
+            qa = np.frombuffer(q.encode("latin-1"), np.uint8)
+            m = torch.zeros(N_SERVE, dtype=torch.int64, device=self.dev)
+            for c, n in zip(*np.unique(qa, return_counts=True)):
+                m += (chars == int(c)).sum(1).clamp(max=int(n))
+            k = min(4, len(q))
+            eq = (chars[:, :k] == torch.from_numpy(qa[:k].copy()).to(
+                self.dev)) & (torch.arange(k, device=self.dev)
+                              < lens_t[:, None])
+            p = eq.to(torch.int64).cumprod(1).sum(1)
+            return {"common": m.cpu().numpy(), "prefix": p.cpu().numpy()}
+
+        anchors = self.serve_anchors
+        queries = list(anchors) + [rng.integers(97, 123, LB, dtype=np.uint8)
+                                   .tobytes().decode("ascii")]
+        sample = np.unique(np.r_[rng.choice(N_SERVE, N_SAMPLE,
+                                            replace=False),
+                                 self.serve_planted])
+        call, stop, timings = self.serve_http(service)
+        try:
+            for qi, q in enumerate(queries):
+                out = call("/topk", {"query": q, "k": 10})
+                if qi < len(anchors):
+                    self.check_jaro_topk(q, corpus, lens, out["values"],
+                                         out["indices"], 10,
+                                         f"jaro /topk anchor {qi}", JARO_PW,
+                                         **bound(q))
+                else:
+                    self.check_topk_sampled(q, corpus, out["values"],
+                                            out["indices"], sample, 10,
+                                            "jaro /topk random",
+                                            "jaro_winkler")
+                if out["strings"] != [corpus[i] for i in out["indices"]]:
+                    raise AssertionError("jaro /topk strings mismatch")
+            q0 = queries[0]
+            d = np.asarray(call("/distances", {"query": q0})["values"])
+            if not np.array_equal(d[sample], self.oracle_rows(
+                    q0, [corpus[i] for i in sample], "jaro_winkler")):
+                raise AssertionError("jaro /distances != oracle on sampled "
+                                     "rows")
+            cut = 0.1
+            out = call("/distances", {"query": q0, "score_cutoff": cut})
+            rows, dw = self.jaro_window(q0, corpus, lens, 1.0 - cut, JARO_PW,
+                                        **bound(q0))
+            ok = np.zeros(N_SERVE, bool)
+            ok[rows[dw <= cut]] = True
+            truth = np.zeros(N_SERVE)
+            truth[rows] = dw
+            values = np.asarray(out["values"])
+            if not (np.array_equal(np.asarray(out["valid"]), ok) and ok.any()
+                    and np.array_equal(values[ok], truth[ok])
+                    and np.array_equal(values, d)):
+                raise AssertionError(f"jaro /distances score_cutoff={cut} "
+                                     "!= oracle")
+            bq = list(queries)
+            while len(bq) < 20:
+                n = int(rng.integers(33, LB + 1))
+                bq.append(rng.integers(97, 123, n, dtype=np.uint8)
+                          .tobytes().decode("ascii"))
+            out = call("/batch", {"queries": bq, "k": 10})
+            bsample = np.unique(np.r_[rng.choice(N_SERVE, N_BATCH_SAMPLE,
+                                                 replace=False),
+                                      self.serve_planted])
+            for qi, q in enumerate(bq):
+                self.check_topk_sampled(q, corpus, out["values"][qi],
+                                        out["indices"][qi], bsample, 10,
+                                        f"jaro /batch query {qi}",
+                                        "jaro_winkler")
+        finally:
+            stop()
+        del service, chars
+        parts = {"serve": time.perf_counter() - t_start,
+                 "serve_oracle": self.oracle_s - self.oracle_mark}
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the long texts: K8 over buckets > 1024 in register form (64
+        # chars) and scratch form (300 and ~4,000 chars)
+        qs = self.long_queries
+        long_corpus, long_lens = self.long_corpus, self.long_lens
+        t0 = time.perf_counter()
+        long_sc = CorpusScanner(long_corpus, metric="jaro", bucket=LONG_LB,
+                                device=self.dev)
+        t_long = time.perf_counter() - t0
+        lsample = np.unique(np.r_[rng.choice(len(long_corpus), LONG_SAMPLE,
+                                             replace=False),
+                                  self.long_planted])
+        long_s = {}
+        for key in ("q64", "q300", "q4k"):
+            t0 = time.perf_counter()
+            vals, ids = long_sc.topk(qs[key], 10)
+            long_s[key] = time.perf_counter() - t0
+            self.check_topk_sampled(qs[key], long_corpus, vals, ids, lsample,
+                                    10, f"jaro long topk {key}", "jaro")
+        del long_sc
+        parts["long"] = time.perf_counter() - t_part
+        parts["long_oracle"] = self.oracle_s - o_part
+        t_part = time.perf_counter()
+        # the library: one query against N_LIB strings (the scanner,
+        # whose 1.0 - d is the similarity, as in the JAX package), and the
+        # scalar scores
+        sub = corpus[:N_LIB]
+        res = jaro_winkler.BatchComparator(q0, JARO_LIB_PW).similarities(sub)
+        rows = np.unique(np.r_[rng.choice(N_LIB, N_SAMPLE, replace=False),
+                               np.argsort(res.values)[-64:]])
+        if not (np.array_equal(res.values[rows], 1.0 - self.jaro_rows(
+                q0, [sub[i] for i in rows], JARO_LIB_PW))
+                and res.valid.all()):
+            raise AssertionError("jaro_winkler BatchComparator.similarities "
+                                 "!= oracle on sampled rows")
+        enc = self.codec.encode_one
+        for s1, s2 in (("martha", "marhta"), ("dwayne", "duane"),
+                       (q0, sub[int(np.argmax(res.values))])):
+            sim = self.oracle.jaro(enc(s1), enc(s2))
+            got = (jaro.similarity(s1, s2), jaro.distance(s1, s2),
+                   jaro_winkler.similarity(s1, s2, prefix_weight=0.2))
+            if got != (sim, 1.0 - sim, self.oracle.jaro_winkler(
+                    enc(s1), enc(s2), 0.2)):
+                raise AssertionError(f"jaro scalar scores {s1!r} {s2!r}: "
+                                     f"{got}")
+        self.sync()
+        parts["library"] = time.perf_counter() - t_part
+        self.emit_phase({"phase": "jaro", "corpus": N_SERVE, "bucket": LB,
+                         "long_corpus": len(long_corpus),
+                         "scanner_build_s": t_build, "long_build_s": t_long,
+                         "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "long_topk_s": long_s, "parts_s": parts,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
+        del self.long_corpus
+
+    # ------------------------------------------------------------ phase 12
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -2102,11 +2455,59 @@ class Smoke:
                                      "launches per scan")
             extra[f"wlev_scan_long_{key}_launches"] = scans
             del sl_cand, sl_lb
-        # K1, K4 and K6 over the long corpus at the other query widths of
-        # the long phase: 300 chars (K1's and K6's scratch forms, K4's
-        # registers) and ~4,000 (every scratch form)
+        # K8 as K1: its register form at the serve corpus (the len-64
+        # query, and 16 queries per launch) and with the len-64 query over
+        # the long corpus, its plain version there on every
+        # LONG_SLICE["q64"]-th text; the bound counts the text steps this
+        # data needs (the plain version's step rows over the whole shape)
+        jk = self.jk
+
+        def jaro_work(lbv, words, nq, st):
+            """Bytes and operations of a K8 launch: the packed chars each
+            candidate's passes reach (read once), its length, two int32
+            outputs per query, the PM tables once; JARO_OPS per query
+            word and step of each pass."""
+            reach = st[4].to(torch.int64).amax(0)
+            nbytes = (int(((reach + 3) // 4).sum()) * 4
+                      + lbv.numel() * 4 * (1 + 2 * nq) + nq * words * 1024)
+            (w1, s1), (w2, s2) = JARO_OPS["pass1"], JARO_OPS["pass2"]
+            ops = ((w1 * words + s1) * int(st[2].sum())
+                   + (w2 * words + s2) * int(st[3].sum()))
+            return nbytes, ops
+
+        st = jk.jaro_scan_plain(las, tabs[None], cand, lb, steps=True)
+        timed("jaro_scan",
+              lambda: torch.stack(jk.jaro_1v_many(
+                  q, cand, lb, staged=(las, tabs)))[:, None],
+              lambda: jk.jaro_scan_plain(las, tabs[None], cand, lb), 20,
+              jaro_work(lb, lk.words(q.size), 1, st))
+        st = jk.jaro_scan_plain(lasq, tabsq, cand, lb, steps=True)
+        timed("jaro_scan_nq",
+              lambda: torch.stack(jk.jaro_nq_many(
+                  qs, cand, lb, staged=(lasq, tabsq))),
+              lambda: jk.jaro_scan_plain(lasq, tabsq, cand, lb), 10,
+              jaro_work(lb, 2, 16, st))
+        every = LONG_SLICE["q64"]
+        sl_cand = long_sc.cand[:, ::every].contiguous()
+        sl_lb = long_sc.lb[::every].contiguous()
+        st = jk.jaro_scan_plain(l64[0], l64[1][None], long_sc.cand,
+                                long_sc.lb, steps=True)
+        timed("jaro_scan_long",
+              lambda: torch.stack(jk.jaro_1v_many(
+                  q64, long_sc.cand, long_sc.lb, staged=l64))[:, None],
+              lambda: jk.jaro_scan_plain(l64[0], l64[1][None], sl_cand,
+                                         sl_lb), 3,
+              jaro_work(long_sc.lb, 2, 1, st), warm=False, every=every)
+        extra["jaro_scan_long_steps"] = [int(st[2].sum()), int(st[3].sum())]
+        del sl_cand, sl_lb, st
+        # K1, K4, K6 and K8 over the long corpus at the other query widths
+        # of the long phase: 300 chars (K1's, K6's and K8's scratch forms,
+        # K4's registers) and ~4,000 (every scratch form)
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
+            extra[f"jaro_scan_long_{key}_ms"] = cuda_ms(
+                torch, lambda: jk.jaro_1v_many(enc[key], long_sc.cand,
+                                               long_sc.lb, staged=st), 2)
             extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
@@ -2136,7 +2537,7 @@ class Smoke:
             **extra, "seconds": time.perf_counter() - t_start})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 12
+    # ------------------------------------------------------------ phase 13
     def phase_rate(self, card: str):
         """Each short-text kernel (K1 in both forms, K3, K6, K7, K2) at N_RATE
         len-64 candidates, its plain version (but K7's, timed in the
@@ -2272,11 +2673,12 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
-          "sass_wlev_scan": sass_histogram(kc, "wlev_scan")})
+          "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
+          "sass_jaro_scan": sass_histogram(kc, "jaro_scan")})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
-    # short texts, the LCS family's, the long texts', OSA's, then the
-    # weighted one's
+    # short texts, the LCS family's, the long texts', OSA's, the weighted
+    # one's, then the Jaro family's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -2309,8 +2711,15 @@ def main(argv=None) -> int:
     for name in WLEV_PATH:
         if wlev_launches[name] == 0:
             raise AssertionError(f"weighted path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_jaro()
+    jaro_launches = dict(kc.LAUNCHES)
+    for name in JARO_PATH:
+        if jaro_launches[name] == 0:
+            raise AssertionError(f"Jaro path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
-                + osa_launches[k] + wlev_launches[k] for k in launches}
+                + osa_launches[k] + wlev_launches[k] + jaro_launches[k]
+                for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -2327,7 +2736,7 @@ def main(argv=None) -> int:
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
          # no single PyTorch call computes an edit distance (weighted or
-         # not) or an LCS length
+         # not), an LCS length or Jaro's components
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

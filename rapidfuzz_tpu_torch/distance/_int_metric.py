@@ -28,13 +28,18 @@ from ..utils import codec as _codec
 #: (the JAX package's threshold); smaller ones run the aligned-pair ops
 SCAN_MIN = 4096
 #: metrics the port's CorpusScanner serves with identical semantics
-_SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq", "osa"})
+_SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq", "osa", "jaro",
+                        "jaro_winkler"})
+#: of those, the f64 metrics (distance ``1.0 - similarity``)
+_F64 = ("jaro", "jaro_winkler")
 
 
 def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,
-                     score_cutoff=None):
+                     score_cutoff=None, prefix_weight: float = 0.1):
     """One-vs-many distances via a one-off CorpusScanner on ``device``, or
-    None for a metric the scanner does not serve.
+    None for a metric the scanner does not serve: int64, or f64 for the
+    Jaro family (``1.0 - similarity``, ``prefix_weight`` for
+    Jaro-Winkler).
 
     ``score_cutoff`` (a distance bound) routes the scanner's banded
     kernels; entries above it come back with some value above the cutoff
@@ -43,11 +48,11 @@ def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,
         return None
     from ..parallel.scan import CorpusScanner
     sc = CorpusScanner(list(corpus), metric=name, weights=weights,
-                       device=device)
+                       device=device, prefix_weight=prefix_weight)
     res = sc.distances(q, score_cutoff=score_cutoff)
     if score_cutoff is not None:
         res = res.values                       # masks re-applied upstream
-    return np.asarray(res, np.int64)
+    return np.asarray(res, np.float64 if name in _F64 else np.int64)
 
 
 def editops_not_ported() -> NotImplementedError:

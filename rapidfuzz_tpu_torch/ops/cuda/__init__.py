@@ -46,13 +46,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: route as ``lcs_band_long`` (``lcs_band_kernel._stream_kernel``), K6
 #: (the OSA scan) at buckets > 1024 as ``osa_scan_long``
 #: (``stream_kernel._osa_kernel``) and K7 (weighted Levenshtein) at
-#: buckets > 1024 as ``wlev_scan_long`` (``stream_kernel._wlev_kernel``).
+#: buckets > 1024 as ``wlev_scan_long`` (``stream_kernel._wlev_kernel``)
+#: and K8 (the Jaro components) at buckets > 1024 as ``jaro_scan_long``
+#: (``stream_kernel._jaro_kernel``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
             "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
             "lcs_band": 0, "lcs_band_long": 0, "osa_scan": 0,
             "osa_scan_nq": 0, "osa_scan_long": 0, "wlev_scan": 0,
-            "wlev_scan_long": 0}
+            "wlev_scan_long": 0, "jaro_scan": 0, "jaro_scan_nq": 0,
+            "jaro_scan_long": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -81,6 +84,9 @@ _SIGNATURES = {
     # pm, la, ins, del, sub, cand, lb, out, scratch, B, b0, nb, lb4, stream
     "rf_wlev_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
                      _I, _P],
+    # pm, las, cand, lb, out, scratch, B, b0, nb, lb4, W, nq, stream
+    "rf_jaro_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
+                     _P],
 }
 
 

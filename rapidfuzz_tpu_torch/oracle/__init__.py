@@ -6,7 +6,8 @@ g++ flags, built into the port's own build directory so the two packages
 never share (or race on) one shared object.  Bound so far: the uniform
 Levenshtein, indel and LCS entry points the ported scans are checked
 against and the library's scalar paths use, weighted Levenshtein, and
-OSA (``rf_osa`` and ``rf_osa_bp``).
+OSA (``rf_osa`` and ``rf_osa_bp``), Jaro and Jaro-Winkler (``rf_jaro``,
+``rf_jaro_winkler``).
 """
 
 from __future__ import annotations
@@ -81,6 +82,11 @@ def _load():
             lib.rf_osa.argtypes = [p64, i64, p64, i64]
             lib.rf_osa_bp.restype = i64
             lib.rf_osa_bp.argtypes = [p64, i64, p64, i64]
+            lib.rf_jaro.restype = ctypes.c_double
+            lib.rf_jaro.argtypes = [p64, i64, p64, i64]
+            lib.rf_jaro_winkler.restype = ctypes.c_double
+            lib.rf_jaro_winkler.argtypes = [p64, i64, p64, i64,
+                                            ctypes.c_double]
             _lib = lib
     return _lib
 
@@ -201,3 +207,16 @@ def osa_bp(a, b) -> int:
     """Hyyro u64 bit-parallel OSA, O(ceil(N/64)*M) (osa.rs:84-227)."""
     a, b = _arr(a), _arr(b)
     return int(_load().rf_osa_bp(a, a.size, b, b.size))
+
+
+def jaro(a, b) -> float:
+    """Jaro similarity (``jaro.rs:422-514``), f64."""
+    a, b = _arr(a), _arr(b)
+    return float(_load().rf_jaro(a, a.size, b, b.size))
+
+
+def jaro_winkler(a, b, prefix_weight: float = 0.1) -> float:
+    """Jaro-Winkler similarity (``jaro_winkler.rs:64-101``), f64."""
+    a, b = _arr(a), _arr(b)
+    return float(_load().rf_jaro_winkler(a, a.size, b, b.size,
+                                         float(prefix_weight)))

@@ -1,7 +1,8 @@
 """One-vs-many and many-vs-many corpus scans on one device.
 
 Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for Levenshtein (uniform
-and weighted), the LCS family (indel, lcs_seq) and OSA: the corpus is
+and weighted), the LCS family (indel, lcs_seq), OSA and the Jaro family
+(jaro, jaro_winkler): the corpus is
 encoded once, length-sorted, packed and kept on the device, and every
 query scan reuses it — the reference's ``BatchComparator`` pattern
 (``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
@@ -12,8 +13,11 @@ and there the port picks its own routes (Levenshtein: the run-time band
 or the full scan; LCS, OSA and weighted Levenshtein: the streamed
 routes); a weighted scan takes its kernel at every query length, where
 the JAX scanner leaves queries over 256 chars on streamed buckets to
-XLA.  Only the ops wrappers choose between a kernel (CUDA tensors) and
-its plain version (CPU tensors), so the host logic is the same on both.
+XLA, and a Jaro scan takes its kernel at every bucket and query length,
+where the JAX scanner leaves buckets over 16,384 chars and queries over
+its VMEM budget to XLA.  Only the ops wrappers choose between a kernel
+(CUDA tensors) and its plain version (CPU tensors), so the host logic is
+the same on both.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from ..ops.cuda import band_kernel as _bk
 from ..ops.cuda import default_device
+from ..ops.cuda import jaro_kernel as _jk
 from ..ops.cuda import lcs_band_kernel as _cbk
 from ..ops.cuda import lcs_kernel as _ck
 from ..ops.cuda import lev_kernel as _lk
@@ -41,7 +46,9 @@ BLOCK = 256
 #: there, though its kernels need no chunks
 STREAM_CHUNK = 512
 #: metrics the scanner serves
-METRICS = ("levenshtein", "indel", "lcs_seq", "osa")
+METRICS = ("levenshtein", "indel", "lcs_seq", "osa", "jaro", "jaro_winkler")
+#: of those, the f64 metrics: distance ``1.0 - similarity``
+F64_METRICS = ("jaro", "jaro_winkler")
 #: narrowest query (in u32 words) the LCS band serves: the TPU rule
 #: (``scan.py:866-872``), kept for parity
 LCS_BAND_MIN_W = 8
@@ -49,7 +56,8 @@ LCS_BAND_MIN_W = 8
 
 class CorpusScanner:
     """One-vs-many scan over a device-resident corpus: Levenshtein
-    (uniform or weighted), indel, lcs_seq or OSA distances.
+    (uniform or weighted), indel, lcs_seq or OSA distances, or Jaro and
+    Jaro-Winkler distances ``1.0 - similarity`` (f64).
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
@@ -72,6 +80,11 @@ class CorpusScanner:
     route, as in the JAX scanner: a cutoff masks the full scan.
     ``weights`` may be a ``(insertion, deletion, substitution)`` tuple or
     a :class:`~rapidfuzz_tpu_torch.distance.levenshtein.WeightTable`.
+    The Jaro family scans with K8 at every bucket and query length (no
+    band, no hint route, a cutoff masks the f64 distances) and finishes
+    each scan on the host in f64, the Winkler boost
+    (``prefix_weight``) from a host copy of each candidate's first 4
+    chars (``scan.py:436-458``).
 
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
@@ -85,18 +98,23 @@ class CorpusScanner:
     scratch (``4*la`` bytes per candidate), launched over chunks of
     candidates so that it stays within ``wlev_kernel.SCRATCH_BYTES``
     (1 GiB): a 300-char query over 1M strings is 1.2 GB of rows, a
-    4,001-char query over 131,072 texts 2.1 GB.
+    4,001-char query over 131,072 texts 2.1 GB.  A Jaro scan adds two
+    int32 outputs, queries over 256 chars a ``[W + LB/32, chunk]`` u32
+    scratch within ``jaro_kernel.SCRATCH_BYTES``, and the host keeps 4
+    chars and the length of each candidate.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
 
     def __init__(self, corpus, metric: str = "levenshtein",
-                 bucket: int | None = None, weights=None, device=None):
+                 bucket: int | None = None, weights=None, device=None,
+                 prefix_weight: float = 0.1):
         if metric not in METRICS:
             raise NotImplementedError(
                 f"metric {metric!r} is not ported yet (ROADMAP.md queue 1, "
-                "items 7-12)")
+                "items 8, 11 and 12)")
         self.metric = metric
+        self.prefix_weight = prefix_weight
         self.device = torch.device(device) if device is not None \
             else default_device()
         # weighted Levenshtein reduces algebraically where possible
@@ -125,9 +143,12 @@ class CorpusScanner:
         # remapped through a dense vocabulary that queries share
         # (pattern_match_vector.rs:104-154 overflow-hashmap equivalent)
         self._vocab = None
+        chars = text = None
         if corpus and all(type(s) is str for s in corpus):
-            # codepoints are < 0x110000: no remap case can occur
-            chars, lens = _codec.encode_batch(corpus, bucket)
+            # str corpora skip the codec's [n, width] int32 matrix when
+            # every char is < 256 (below)
+            lens = np.fromiter((len(s) for s in corpus), np.int32,
+                               count=len(corpus))
         else:
             arrs = [_codec.encode_one(s) for s in corpus]
             if _codec._needs_remap(arrs) or any(
@@ -139,55 +160,112 @@ class CorpusScanner:
                 arrs = [np.searchsorted(self._vocab, a).astype(np.int32)
                         for a in arrs]
             chars, lens = _codec.pad_batch(arrs, bucket)
-        # checkpoints refuse to resume against a different corpus of the
-        # same shape; chars+lens+vocab determine the original elements
-        h = hashlib.sha1()
-        h.update(np.ascontiguousarray(chars))    # hashed in place, no copy
-        h.update(lens.tobytes())
-        if self._vocab is not None:
-            h.update(self._vocab.tobytes())
-        self._fingerprint = h.hexdigest()
         n = len(lens)
-        self.lengths = lens[:n].copy()     # host lengths, corpus order
-        self._cmax = int(chars.max()) if chars.size else 0
-        # a packed word holds 4 chars: a bucket that is not a multiple of
-        # 4 gains PAD columns, which change no distance
-        self._LB = -(-chars.shape[1] // 4) * 4
-        self._long = self._LB > _lk.LONG_LB
-        self._stream = self._long and self._LB % STREAM_CHUNK == 0
-        self._wide = self._cmax >= 256
+        self.n = n
+        self.lengths = lens.copy()         # host lengths, corpus order
+        maxlen = int(lens.max()) if n else 0
+        # the codec's width (_scatter_pad): the bucket, or the smallest
+        # bucket that holds the longest string
+        width = chars.shape[1] if chars is not None else (
+            bucket if bucket is not None
+            else _codec.bucket_len(max(maxlen, 1)))
+        if maxlen > width:
+            raise ValueError(f"bucket {width} too small for max length "
+                             f"{maxlen}")
+        self._width = width
         padded = -(-max(n, 1) // BLOCK) * BLOCK
         # padding rows have length 0 and are masked out by _valid
         lens = np.concatenate([lens, np.zeros(padded - n, np.int32)])
-        self.n = n
         # length sort: a warp's candidates then run similar step counts;
         # padding rows (length 0) sort to the front
         self._order = np.argsort(lens, kind="stable")
         self._valid = self._order < n
         real = self._order[self._valid]
-        self.lb = torch.from_numpy(lens[self._order]).to(self.device)
-        width = chars.shape[1]
+        srt_lens = lens[self._order]
+        self.lb = torch.from_numpy(srt_lens).to(self.device)
+        if chars is None:
+            try:
+                # the strings' bytes in sorted order, one latin-1 encode
+                text = np.frombuffer("".join([corpus[i] for i in real])
+                                     .encode("latin-1"), np.uint8)
+            except UnicodeEncodeError:
+                # codepoints are < 0x110000: no remap case can occur
+                chars, _ = _codec.encode_batch(corpus, width)
+        # checkpoints refuse to resume against a different corpus of the
+        # same shape: chars+lens+vocab determine the original elements.
+        # Hashed here from the codec's matrix where there is one, else at
+        # first use from the packed corpus (_fingerprint)
+        self._fp = None
+        if chars is not None:
+            h = hashlib.sha1()
+            h.update(np.ascontiguousarray(chars))  # hashed in place
+            h.update(self.lengths.tobytes())
+            if self._vocab is not None:
+                h.update(self._vocab.tobytes())
+            self._fp = h.hexdigest()
+            self._cmax = int(chars.max()) if chars.size else 0
+        else:
+            self._cmax = int(text.max()) if text.size else int(_codec.PAD)
+        # a packed word holds 4 chars: a bucket that is not a multiple of
+        # 4 gains PAD columns, which change no distance
+        self._LB = -(-width // 4) * 4
+        self._long = self._LB > _lk.LONG_LB
+        self._stream = self._long and self._LB % STREAM_CHUNK == 0
+        self._wide = self._cmax >= 256
         if self._wide:
             # kept unpacked and pre-transposed: each query remaps it to
             # query-local byte ids (K2)
             srt = np.full((padded, self._LB), _codec.PAD, np.int32)
             srt[self._valid, :width] = chars[real]
-            del chars
             self._chars_dev = _lk.transpose_corpus(
                 torch.from_numpy(srt).to(self.device))
             self.cand = None
         else:
             # chars < 256: sort and pack bytes, so neither the host nor
-            # the device holds another copy as wide as the codec output
-            np.maximum(chars, 0, out=chars)
-            c8 = chars.astype(np.uint8)
-            del chars
+            # the device holds a copy wider than a byte per char
             srt = np.zeros((padded, self._LB), np.uint8)
-            srt[self._valid, :width] = c8[real]
-            del c8
+            if text is not None:
+                srt[np.arange(self._LB, dtype=np.int32)[None, :]
+                    < srt_lens[:, None]] = text
+            else:
+                np.maximum(chars, 0, out=chars)
+                srt[self._valid, :width] = chars[real].astype(np.uint8)
             self.cand, _ = _lk.prepare_corpus(
                 torch.from_numpy(srt).to(self.device), self.lb)
             self._chars_dev = None
+        if metric in F64_METRICS:
+            # the Jaro finish runs on the host in sorted order: lengths,
+            # and the first 4 chars for the Winkler prefix, taken before
+            # any per-query remap (it compares the original chars)
+            k = min(4, width)
+            self._lens_host = srt_lens
+            self._chars4 = srt[:, :k].astype(np.int32)
+            self._chars4[np.arange(k)[None, :] >= srt_lens[:, None]] = \
+                _codec.PAD
+
+    @property
+    def _fingerprint(self) -> str:
+        """Content hash of the corpus, the JAX scanner's (``scan.py:175``):
+        the codec's ``[n, width]`` int32 chars, the lengths and the vocab.
+        Where the build kept no such matrix it is rebuilt here, once, from
+        the packed corpus on the device, in chunks of rows."""
+        if self._fp is None:
+            h = hashlib.sha1()
+            inv = np.empty_like(self._order)
+            inv[self._order] = np.arange(self._order.size)
+            cols = torch.arange(self._width, device=self.device)
+            for s in range(0, self.n, 4096):
+                rows = torch.from_numpy(inv[s: min(s + 4096, self.n)]).to(
+                    self.device)
+                c = self.cand.index_select(1, rows).t().contiguous()
+                c = c.view(torch.uint8)[:, : self._width].to(torch.int32)
+                ln = self.lb.index_select(0, rows)
+                c = torch.where(cols[None, :] < ln[:, None], c,
+                                int(_codec.PAD))
+                h.update(c.cpu().numpy().tobytes())
+            h.update(self.lengths.tobytes())
+            self._fp = h.hexdigest()
+        return self._fp
 
     def _encode_query(self, query):
         q = _codec.encode_one(query)
@@ -230,6 +308,12 @@ class CorpusScanner:
         if self._zero:
             return np.zeros(self.lb.shape[0], np.int64)
         qk, mode, cand = self._query_view(q)
+        if self.metric in F64_METRICS:
+            # K8 at every bucket and query length; no band, no hint route
+            # (scan.py:809-826); a cutoff masks the distances in distances()
+            common, trans = _jk.jaro_1v_many(qk, cand, self.lb, mode=mode)
+            return self._jaro_finish(common.cpu().numpy(),
+                                     trans.cpu().numpy(), q)
         if self.metric == "osa":
             # the full scan at every bucket; no band, no hint route
             # (scan.py:798-808); a cutoff masks it in distances()
@@ -263,6 +347,26 @@ class CorpusScanner:
         if self._wscale != 1:
             out = out * self._wscale
         return out.cpu().numpy()
+
+    def _jaro_finish(self, common, trans, q):
+        """Sorted-order (common, transpositions) -> f64 distances
+        ``1.0 - sim``, exact on the host (``scan.py:436-458``)."""
+        from ..distance import jaro as _jaro_mod
+
+        lens = self._lens_host
+        l1 = np.full_like(lens, q.size)
+        sim = _jaro_mod.sim_from_components(common, trans, l1, lens)
+        if self.metric == "jaro_winkler":
+            P = min(4, q.size, self._chars4.shape[1])
+            if P:
+                pe = (self._chars4[:, :P] == q[:P]) & \
+                     (np.arange(P) < np.minimum(q.size, lens)[:, None])
+                prefix = np.cumprod(pe.astype(np.int64), -1).sum(-1)
+            else:
+                prefix = np.zeros(lens.shape, np.int64)
+            boosted = sim + prefix * self.prefix_weight * (1.0 - sim)
+            sim = np.where(sim > 0.7, boosted, sim)
+        return 1.0 - sim
 
     def _lcs_distances(self, q, qk, mode, cand, score_cutoff):
         """Indel or lcs_seq distances, sorted order (``scan.py:855-915``):
@@ -440,12 +544,15 @@ class CorpusScanner:
         Queries are encoded, grouped by (word bucket, PM mode), padded to
         :data:`NQ_GROUP` by repeating the group's last query (padded rows
         are dropped), and run through ``lev_kernel.lev_nq_many``,
-        ``osa_kernel.osa_nq_many`` or ``lcs_kernel.lcs_nq_many``
-        (``scan.py:1307-1310``); LCS lengths are finished per metric on
-        the corpus-order host lengths (``scan.py:1316-1333``).
+        ``osa_kernel.osa_nq_many``, ``lcs_kernel.lcs_nq_many`` or
+        ``jaro_kernel.jaro_nq_many`` (``scan.py:1295-1310``); LCS lengths
+        are finished per metric on the corpus-order host lengths
+        (``scan.py:1316-1333``), Jaro components in sorted order, as
+        :meth:`_jaro_finish` keeps its host arrays (``scan.py:1302``).
         """
         enc = [self._encode_query(q) for q in queries]
-        out = np.zeros((len(enc), self.n), np.int64)
+        jaro = self.metric in F64_METRICS
+        out = np.zeros((len(enc), self.n), np.float64 if jaro else np.int64)
         groups: dict = {}
         for i, q in enumerate(enc):
             groups.setdefault((_lk.words(q.size),
@@ -458,6 +565,14 @@ class CorpusScanner:
                 part = idxs[s: s + self.NQ_GROUP]
                 qs = [enc[i] for i in part]
                 qs = qs + [qs[-1]] * (self.NQ_GROUP - len(qs))
+                if jaro:
+                    cm, tr = _jk.jaro_nq_many(qs, self.cand, self.lb,
+                                              mode=mode)
+                    cm, tr = cm.cpu().numpy(), tr.cpu().numpy()
+                    for row, i in enumerate(part):
+                        out[i] = self._unsort(self._jaro_finish(
+                            cm[row], tr[row], enc[i]))
+                    continue
                 d = nq_fn(qs, self.cand, self.lb, mode=mode).cpu().numpy()
                 for row, i in enumerate(part):
                     r = self._unsort(d[row]).astype(np.int64)
@@ -581,11 +696,14 @@ class CorpusScanner:
                 ids = self._topk_host(d, np.arange(d.size), min(k, nv))
                 return res.values[ids], ids.astype(np.int32)
         k = min(k, self.n)
+        f64 = self.metric in F64_METRICS
         if k == 0:
-            return np.empty(0, np.int64), np.empty(0, np.int32)
+            return (np.empty(0, np.float64 if f64 else np.int64),
+                    np.empty(0, np.int32))
         # sorted space: mask padding rows, host top-k, map ids back (ties
         # break on the ORIGINAL corpus index, as the scan_many path does)
         dist = self._distances_dev(query)
         d = np.where(self._valid, dist.astype(np.float64), np.inf)
         ids = self._topk_host(d, self._order, k)
-        return d[ids].astype(np.int64), self._order[ids].astype(np.int32)
+        vals = d[ids] if f64 else d[ids].astype(np.int64)
+        return vals, self._order[ids].astype(np.int32)

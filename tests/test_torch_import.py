@@ -33,7 +33,10 @@ def test_port_imports_without_jax():
         "import rapidfuzz_tpu_torch.ops.cuda.lcs_band_kernel\n"
         "import rapidfuzz_tpu_torch.ops.cuda.osa_kernel\n"
         "from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel\n"
+        "from rapidfuzz_tpu_torch.ops.cuda import jaro_kernel\n"
+        "from rapidfuzz_tpu_torch.distance import jaro, jaro_winkler\n"
         "import rapidfuzz_tpu_torch.ops.osa\n"
+        "import rapidfuzz_tpu_torch.ops.jaro\n"
         "assert indel.distance('lewenstein', 'levenshtein') == 3\n"
         "assert lcs_seq.distance('lewenstein', 'levenshtein') == 2\n"
         "assert osa.distance('CA', 'AC') == 1\n"
@@ -53,6 +56,11 @@ def test_port_imports_without_jax():
         "d = wlev_kernel.wlev_1v_many(codec.encode_one('kitten'), c, l,\n"
         "                             ins=1, dele=2, sub_cost=3)\n"
         "assert d.tolist() == [7, 12], d\n"
+        "c, t = jaro_kernel.jaro_1v_many(codec.encode_one('sittign'), c, l)\n"
+        "assert c.tolist() == [7, 0] and t.tolist() == [2, 0], (c, t)\n"
+        "assert round(jaro.similarity('martha', 'marhta'), 4) == 0.9444\n"
+        "assert round(jaro_winkler.similarity('martha', 'marhta'), 4) \\\n"
+        "    == 0.9611\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'rapidfuzz_tpu'))\n"
         "assert not bad, bad\n"
