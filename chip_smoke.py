@@ -213,17 +213,24 @@ OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
        "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
        "wlev_scan": 3, "wlev_scan_long": 3}
-#: K8's register form, per text step of each pass: (INT32-lane operations
-#: per query word, per step), counted from the SASS of the two loops of
-#: jaro_scan_reg<1> and <2> (cuobjdump -sass of the built library: 14 and
-#: 23 in pass 1, 13 and 22 in pass 2), leaving out the IMADs (FMA lanes),
-#: the load of the next packed word (once per 4 steps) and the pop of a
-#: flagged step, so the bound is a lower one; pass 2 replays pass 1's
-#: flagging beside the pop.  The steps are those this run's data needs:
-#: pass 1 from the end of the common prefix until every pattern position
-#: is claimed or len2, pass 2 until the last flagged char
-#: (jaro_scan_plain(..., steps=True))
-JARO_OPS = {"pass1": (9, 5), "pass2": (9, 4)}
+#: K8's bound counts the work the function needs, the flagging once:
+#: pass 1 per text step, (INT32-lane operations per query word, per
+#: step), counted from the SASS of the pass-1 loops of jaro_scan_reg<1>
+#: and <2> (cuobjdump -sass of the built library: 14 and 23) leaving out
+#: the IMADs (FMA lanes) and the load of the next packed word (once per 4
+#: steps); then per step of pass 2 the test of a stored text flag (a
+#: shift and a test), and per flagged text char past the prefix the pop
+#: (the first non-zero word of the claimed set left: one select per
+#: query word; then negate, and, clear, the PM bit test and the count).
+#: The steps are those this run's data needs: pass 1 from the end of the
+#: common prefix until every pattern position is claimed or len2, pass 2
+#: until the last flagged char (jaro_scan_plain(..., steps=True)).
+#: K8's register form does not store the text flags but replays pass 1's
+#: flagging in pass 2 (13 and 22 INT32-lane instructions a step in the
+#: SASS without the pop: JARO_REPLAY_OPS); its time at the peak rate is
+#: reported beside the bound (*_replay_bound_ms), not in it
+JARO_OPS = {"pass1": (9, 5), "flag_test": 2, "pop": (1, 5)}
+JARO_REPLAY_OPS = (9, 4)
 LCS_BAND_STEP_OPS = 1
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
@@ -990,17 +997,24 @@ class Smoke:
 
     @oracle_time
     def oracle_full(self, queries, corpus, metric: str):
-        """Whole-corpus oracle rows for each query, the queries in
-        parallel (ctypes drops the GIL)."""
-        enc = [self.codec.encode_one(s) for s in corpus]
-        lens = np.fromiter((e.size for e in enc), np.int64, len(enc))
+        """Whole-corpus oracle rows for each query: the corpus's
+        codepoints from one utf-32 encode, each row in eight slices of
+        the corpus, all run in parallel (ctypes drops the GIL)."""
+        lens = np.fromiter(map(len, corpus), np.int64, len(corpus))
         offs = np.r_[0, np.cumsum(lens)]
-        flat = np.concatenate(enc)
+        flat = np.frombuffer("".join(corpus).encode("utf-32-le"),
+                             np.uint32).astype(np.int64)
         one = (self.oracle.levenshtein_uniform_1vN if metric == "levenshtein"
                else self.oracle.indel_1vN)
-        with ThreadPoolExecutor(4) as ex:
-            rows = list(ex.map(lambda q: one(self.codec.encode_one(q), flat,
-                                             offs), queries))
+        cuts = np.linspace(0, len(corpus), 9).astype(np.int64)
+        jobs = [(self.codec.encode_one(q), a, b) for q in queries
+                for a, b in zip(cuts[:-1], cuts[1:])]
+        with ThreadPoolExecutor(8) as ex:
+            done = list(ex.map(lambda j: one(
+                j[0], flat[offs[j[1]]: offs[j[2]]],
+                offs[j[1]: j[2] + 1] - offs[j[1]]), jobs))
+        rows = [np.concatenate(done[i: i + 8])
+                for i in range(0, len(done), 8)]
         if metric == "lcs_seq":
             rows = [np.maximum(len(q), lens) - (len(q) + lens - d) // 2
                     for q, d in zip(queries, rows)]
@@ -1986,7 +2000,7 @@ class Smoke:
             "long_topk_s": long_s, "parts_s": parts,
             "launches": dict(self.kc.LAUNCHES),
             "seconds": time.perf_counter() - t_start})
-        del self.odd_corpus, self.serve_lev, self.wide_corpus
+        del self.odd_corpus, self.serve_lev
 
     # ------------------------------------------------------------ phase 11
     @oracle_time
@@ -2057,7 +2071,9 @@ class Smoke:
         long corpus: top-k for the 64-, 300- and ~4,000-char queries on
         sampled rows and the near copies of the last (nearly every text
         lies within the bounds of the first two, and the oracle's scalar
-        Jaro of two ~4,000-char texts takes milliseconds); and
+        Jaro of two ~4,000-char texts takes milliseconds); a
+        ``CorpusScanner(metric="jaro_winkler")`` over the Cyrillic corpus
+        (K2, then K8 in local mode; sampled rows and top-k); and
         ``jaro_winkler.BatchComparator(q, JARO_LIB_PW).similarities`` over
         N_LIB strings (sampled rows and the 64 most similar) and the
         scalar scores."""
@@ -2183,6 +2199,26 @@ class Smoke:
         del long_sc
         parts["long"] = time.perf_counter() - t_part
         parts["long_oracle"] = self.oracle_s - o_part
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the Cyrillic corpus: K2's remap, then K8 in local mode, the
+        # Winkler prefix on the chars before the remap
+        before = self.kc.LAUNCHES["remap_pack"]
+        wide = CorpusScanner(self.wide_corpus, metric="jaro_winkler",
+                             bucket=LB, device=self.dev)
+        qw = self.wide_query_str
+        wsample = rng.choice(N_WIDE, N_SAMPLE, replace=False)
+        if not np.array_equal(wide.distances(qw)[wsample], self.jaro_rows(
+                qw, [self.wide_corpus[i] for i in wsample], JARO_PW)):
+            raise AssertionError("jaro_winkler wide distances != oracle on "
+                                 "sampled rows")
+        vals, ids = wide.topk(qw, 10)
+        self.check_topk_sampled(qw, self.wide_corpus, vals, ids, wsample,
+                                10, "jaro_winkler wide topk", "jaro_winkler")
+        if self.kc.LAUNCHES["remap_pack"] == before:
+            raise AssertionError("jaro wide route never launched remap_pack")
+        del wide
+        parts["wide"] = time.perf_counter() - t_part
+        parts["wide_oracle"] = self.oracle_s - o_part
         t_part = time.perf_counter()
         # the library: one query against N_LIB strings (the scanner,
         # whose 1.0 - d is the similarity, as in the JAX package), and the
@@ -2210,13 +2246,14 @@ class Smoke:
         parts["library"] = time.perf_counter() - t_part
         self.emit_phase({"phase": "jaro", "corpus": N_SERVE, "bucket": LB,
                          "long_corpus": len(long_corpus),
+                         "wide_corpus": N_WIDE,
                          "scanner_build_s": t_build, "long_build_s": t_long,
                          "warmup_s": warm,
                          "request_s": {k: v for k, v in timings.items()},
                          "long_topk_s": long_s, "parts_s": parts,
                          "launches": dict(self.kc.LAUNCHES),
                          "seconds": time.perf_counter() - t_start})
-        del self.long_corpus
+        del self.long_corpus, self.wide_corpus
 
     # ------------------------------------------------------------ phase 12
     def phase_timing(self, clock_mhz: float):
@@ -2462,17 +2499,25 @@ class Smoke:
         # data needs (the plain version's step rows over the whole shape)
         jk = self.jk
 
-        def jaro_work(lbv, words, nq, st):
+        def jaro_work(lbv, words, nq, st, row):
             """Bytes and operations of a K8 launch: the packed chars each
             candidate's passes reach (read once), its length, two int32
-            outputs per query, the PM tables once; JARO_OPS per query
-            word and step of each pass."""
+            outputs per query, the PM tables once; pass 1's JARO_OPS per
+            query word and step, the flag test per pass-2 step and the pop
+            per flagged char.  The replay's operations go to
+            ``extra[row + "_replay_bound_ms"]``."""
             reach = st[4].to(torch.int64).amax(0)
             nbytes = (int(((reach + 3) // 4).sum()) * 4
                       + lbv.numel() * 4 * (1 + 2 * nq) + nq * words * 1024)
-            (w1, s1), (w2, s2) = JARO_OPS["pass1"], JARO_OPS["pass2"]
-            ops = ((w1 * words + s1) * int(st[2].sum())
-                   + (w2 * words + s2) * int(st[3].sum()))
+            (w1, s1), (wp, sp) = JARO_OPS["pass1"], JARO_OPS["pop"]
+            steps1, steps2, pops = (int(st[i].to(torch.int64).sum())
+                                    for i in (2, 3, 5))
+            ops = ((w1 * words + s1) * steps1
+                   + JARO_OPS["flag_test"] * steps2 + (wp * words + sp) * pops)
+            wr, sr = JARO_REPLAY_OPS
+            extra[f"{row}_replay_bound_ms"] = \
+                (wr * words + sr) * steps2 / int_ops_s * 1e3
+            extra[f"{row}_steps"] = [steps1, steps2, pops]
             return nbytes, ops
 
         st = jk.jaro_scan_plain(las, tabs[None], cand, lb, steps=True)
@@ -2480,13 +2525,13 @@ class Smoke:
               lambda: torch.stack(jk.jaro_1v_many(
                   q, cand, lb, staged=(las, tabs)))[:, None],
               lambda: jk.jaro_scan_plain(las, tabs[None], cand, lb), 20,
-              jaro_work(lb, lk.words(q.size), 1, st))
+              jaro_work(lb, lk.words(q.size), 1, st, "jaro_scan"))
         st = jk.jaro_scan_plain(lasq, tabsq, cand, lb, steps=True)
         timed("jaro_scan_nq",
               lambda: torch.stack(jk.jaro_nq_many(
                   qs, cand, lb, staged=(lasq, tabsq))),
               lambda: jk.jaro_scan_plain(lasq, tabsq, cand, lb), 10,
-              jaro_work(lb, 2, 16, st))
+              jaro_work(lb, 2, 16, st, "jaro_scan_nq"))
         every = LONG_SLICE["q64"]
         sl_cand = long_sc.cand[:, ::every].contiguous()
         sl_lb = long_sc.lb[::every].contiguous()
@@ -2497,8 +2542,8 @@ class Smoke:
                   q64, long_sc.cand, long_sc.lb, staged=l64))[:, None],
               lambda: jk.jaro_scan_plain(l64[0], l64[1][None], sl_cand,
                                          sl_lb), 3,
-              jaro_work(long_sc.lb, 2, 1, st), warm=False, every=every)
-        extra["jaro_scan_long_steps"] = [int(st[2].sum()), int(st[3].sum())]
+              jaro_work(long_sc.lb, 2, 1, st, "jaro_scan_long"), warm=False,
+              every=every)
         del sl_cand, sl_lb, st
         # K1, K4, K6 and K8 over the long corpus at the other query widths
         # of the long phase: 300 chars (K1's, K6's and K8's scratch forms,

@@ -30,8 +30,6 @@ SCAN_MIN = 4096
 #: metrics the port's CorpusScanner serves with identical semantics
 _SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq", "osa", "jaro",
                         "jaro_winkler"})
-#: of those, the f64 metrics (distance ``1.0 - similarity``)
-_F64 = ("jaro", "jaro_winkler")
 
 
 def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,
@@ -46,13 +44,13 @@ def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,
     (callers re-apply the same mask)."""
     if name not in _SCANNABLE:
         return None
-    from ..parallel.scan import CorpusScanner
+    from ..parallel.scan import F64_METRICS, CorpusScanner
     sc = CorpusScanner(list(corpus), metric=name, weights=weights,
                        device=device, prefix_weight=prefix_weight)
     res = sc.distances(q, score_cutoff=score_cutoff)
     if score_cutoff is not None:
         res = res.values                       # masks re-applied upstream
-    return np.asarray(res, np.float64 if name in _F64 else np.int64)
+    return np.asarray(res, np.float64 if name in F64_METRICS else np.int64)
 
 
 def editops_not_ported() -> NotImplementedError:

@@ -72,13 +72,14 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     second walk, each flagged text char popping the lowest remaining
     claimed bit and counting a mismatch when its PM bit is clear.
 
-    With ``steps``, three more rows give the text steps the kernel's two
+    With ``steps``, four more rows give the text steps the kernel's two
     passes walk per pair (pass 1 from the end of the prefix until every
     pattern position is claimed or ``len2``, pass 2 until the last
-    flagged char) and the text chars they reach, the work its bound
-    counts.  On the CPU the candidates
-    go in slices of at most ``PLAIN_GRAIN / (NQ * W)``, so a step's
-    tensors stay under PyTorch's grain size and run on one thread."""
+    flagged char), the text chars they reach and the flagged text chars
+    past the prefix (pass 2's pops), the work its bound counts.  On the
+    CPU the candidates go in slices of at most ``PLAIN_GRAIN / (NQ * W)``,
+    so a step's tensors stay under PyTorch's grain size and run on one
+    thread."""
     NQ, W, _ = tabs.shape
     B = lb.numel()
     dev = lb.device
@@ -148,10 +149,11 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
         rows = [common, t]
         if steps:
             it2 = torch.where(last >= 0, last + 1 - pref, 0)
-            rows += [it1, it2, pref + torch.maximum(it1, it2)]
+            rows += [it1, it2, pref + torch.maximum(it1, it2),
+                     common - pref]
         outs.append(torch.stack(rows))
     if not outs:
-        return torch.zeros((5 if steps else 2, NQ, 0), dtype=torch.int32,
+        return torch.zeros((6 if steps else 2, NQ, 0), dtype=torch.int32,
                            device=dev)
     return torch.cat(outs, -1).to(torch.int32)
 

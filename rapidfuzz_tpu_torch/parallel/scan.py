@@ -143,10 +143,9 @@ class CorpusScanner:
         # remapped through a dense vocabulary that queries share
         # (pattern_match_vector.rs:104-154 overflow-hashmap equivalent)
         self._vocab = None
-        chars = text = None
+        chars = srt = None
         if corpus and all(type(s) is str for s in corpus):
-            # str corpora skip the codec's [n, width] int32 matrix when
-            # every char is < 256 (below)
+            # str corpora are encoded once sorted (below)
             lens = np.fromiter((len(s) for s in corpus), np.int32,
                                count=len(corpus))
         else:
@@ -163,16 +162,6 @@ class CorpusScanner:
         n = len(lens)
         self.n = n
         self.lengths = lens.copy()         # host lengths, corpus order
-        maxlen = int(lens.max()) if n else 0
-        # the codec's width (_scatter_pad): the bucket, or the smallest
-        # bucket that holds the longest string
-        width = chars.shape[1] if chars is not None else (
-            bucket if bucket is not None
-            else _codec.bucket_len(max(maxlen, 1)))
-        if maxlen > width:
-            raise ValueError(f"bucket {width} too small for max length "
-                             f"{maxlen}")
-        self._width = width
         padded = -(-max(n, 1) // BLOCK) * BLOCK
         # padding rows have length 0 and are masked out by _valid
         lens = np.concatenate([lens, np.zeros(padded - n, np.int32)])
@@ -184,28 +173,26 @@ class CorpusScanner:
         srt_lens = lens[self._order]
         self.lb = torch.from_numpy(srt_lens).to(self.device)
         if chars is None:
-            try:
-                # the strings' bytes in sorted order, one latin-1 encode
-                text = np.frombuffer("".join([corpus[i] for i in real])
-                                     .encode("latin-1"), np.uint8)
-            except UnicodeEncodeError:
-                # codepoints are < 0x110000: no remap case can occur
-                chars, _ = _codec.encode_batch(corpus, width)
+            # the codec's byte matrix in sorted order (padding rows
+            # empty) where every char is < 256, else its codepoints
+            # (< 0x110000: no remap case can occur)
+            srt = _codec.encode_latin1(
+                [corpus[i] if i < n else "" for i in self._order], bucket)
+            if srt is None:
+                chars, _ = _codec.encode_batch(corpus, bucket)
+            else:
+                srt = srt[0]
+        self._width = width = (chars if chars is not None else srt).shape[1]
         # checkpoints refuse to resume against a different corpus of the
         # same shape: chars+lens+vocab determine the original elements.
-        # Hashed here from the codec's matrix where there is one, else at
-        # first use from the packed corpus (_fingerprint)
+        # The byte matrix is hashed at first use (_fingerprint)
         self._fp = None
         if chars is not None:
-            h = hashlib.sha1()
-            h.update(np.ascontiguousarray(chars))  # hashed in place
-            h.update(self.lengths.tobytes())
-            if self._vocab is not None:
-                h.update(self._vocab.tobytes())
-            self._fp = h.hexdigest()
+            self._fp = _codec.fingerprint([chars], self.lengths, self._vocab)
             self._cmax = int(chars.max()) if chars.size else 0
         else:
-            self._cmax = int(text.max()) if text.size else int(_codec.PAD)
+            self._cmax = (int(srt.max()) if self.lengths.any()
+                          else int(_codec.PAD))
         # a packed word holds 4 chars: a bucket that is not a multiple of
         # 4 gains PAD columns, which change no distance
         self._LB = -(-width // 4) * 4
@@ -221,15 +208,14 @@ class CorpusScanner:
                 torch.from_numpy(srt).to(self.device))
             self.cand = None
         else:
-            # chars < 256: sort and pack bytes, so neither the host nor
-            # the device holds a copy wider than a byte per char
-            srt = np.zeros((padded, self._LB), np.uint8)
-            if text is not None:
-                srt[np.arange(self._LB, dtype=np.int32)[None, :]
-                    < srt_lens[:, None]] = text
-            else:
+            # chars < 256: sorted bytes, so neither the host nor the
+            # device holds a copy wider than a byte per char
+            if chars is not None:
                 np.maximum(chars, 0, out=chars)
+                srt = np.zeros((padded, self._LB), np.uint8)
                 srt[self._valid, :width] = chars[real].astype(np.uint8)
+            elif width != self._LB:
+                srt = np.pad(srt, ((0, 0), (0, self._LB - width)))
             self.cand, _ = _lk.prepare_corpus(
                 torch.from_numpy(srt).to(self.device), self.lb)
             self._chars_dev = None
@@ -245,26 +231,22 @@ class CorpusScanner:
 
     @property
     def _fingerprint(self) -> str:
-        """Content hash of the corpus, the JAX scanner's (``scan.py:175``):
-        the codec's ``[n, width]`` int32 chars, the lengths and the vocab.
-        Where the build kept no such matrix it is rebuilt here, once, from
-        the packed corpus on the device, in chunks of rows."""
+        """Content hash of the corpus, the JAX scanner's (``scan.py:175``,
+        ``codec.fingerprint``).  Where the build kept no host matrix (the
+        byte route), its rows come back here, once, from the packed
+        corpus on the device, in corpus order and chunks of rows."""
         if self._fp is None:
-            h = hashlib.sha1()
             inv = np.empty_like(self._order)
             inv[self._order] = np.arange(self._order.size)
-            cols = torch.arange(self._width, device=self.device)
-            for s in range(0, self.n, 4096):
-                rows = torch.from_numpy(inv[s: min(s + 4096, self.n)]).to(
-                    self.device)
-                c = self.cand.index_select(1, rows).t().contiguous()
-                c = c.view(torch.uint8)[:, : self._width].to(torch.int32)
-                ln = self.lb.index_select(0, rows)
-                c = torch.where(cols[None, :] < ln[:, None], c,
-                                int(_codec.PAD))
-                h.update(c.cpu().numpy().tobytes())
-            h.update(self.lengths.tobytes())
-            self._fp = h.hexdigest()
+
+            def rows():
+                for s in range(0, self.n, 4096):
+                    r = torch.from_numpy(inv[s: min(s + 4096, self.n)])
+                    c = self.cand.index_select(1, r.to(self.device))
+                    c = c.t().contiguous().view(torch.uint8)
+                    yield c[:, : self._width].cpu().numpy()
+
+            self._fp = _codec.fingerprint(rows(), self.lengths)
         return self._fp
 
     def _encode_query(self, query):
@@ -352,20 +334,15 @@ class CorpusScanner:
         """Sorted-order (common, transpositions) -> f64 distances
         ``1.0 - sim``, exact on the host (``scan.py:436-458``)."""
         from ..distance import jaro as _jaro_mod
+        from ..distance import jaro_winkler as _jw
 
         lens = self._lens_host
         l1 = np.full_like(lens, q.size)
         sim = _jaro_mod.sim_from_components(common, trans, l1, lens)
         if self.metric == "jaro_winkler":
-            P = min(4, q.size, self._chars4.shape[1])
-            if P:
-                pe = (self._chars4[:, :P] == q[:P]) & \
-                     (np.arange(P) < np.minimum(q.size, lens)[:, None])
-                prefix = np.cumprod(pe.astype(np.int64), -1).sum(-1)
-            else:
-                prefix = np.zeros(lens.shape, np.int64)
-            boosted = sim + prefix * self.prefix_weight * (1.0 - sim)
-            sim = np.where(sim > 0.7, boosted, sim)
+            sim = _jw.winkler(sim, _jw.prefix_len(self._chars4, q[None, :],
+                                                  q.size, lens),
+                              self.prefix_weight)
         return 1.0 - sim
 
     def _lcs_distances(self, q, qk, mode, cand, score_cutoff):

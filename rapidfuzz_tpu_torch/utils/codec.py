@@ -21,6 +21,8 @@ positions can never produce a character match (SURVEY.md hard part #5).
 
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 from typing import Iterable, Sequence
 
@@ -133,9 +135,9 @@ def remap_to_vocab(arrs: Sequence[np.ndarray]) -> list[np.ndarray]:
     return out
 
 
-def _scatter_pad(flat: np.ndarray, lens: np.ndarray,
-                 bucket: int | None) -> tuple[np.ndarray, np.ndarray]:
-    """Scatter concatenated elements into a PAD-filled ``[B, L]`` matrix.
+def _scatter_pad(flat: np.ndarray, lens: np.ndarray, bucket: int | None,
+                 dtype=np.int32) -> tuple[np.ndarray, np.ndarray]:
+    """Scatter concatenated elements into a padded ``[B, L]`` matrix.
 
     ``flat`` holds every element back-to-back, ``lens`` the per-row
     counts.  A boolean mask of the filled cells, written in row-major
@@ -143,9 +145,11 @@ def _scatter_pad(flat: np.ndarray, lens: np.ndarray,
     fills the matrix without the per-element row and column index arrays
     (16 bytes per element) of a fancy-index write; a corpus of 131,072
     texts of 8,192 chars needs 1 GiB of mask instead of 9 GiB of indices.
-    Shared by :func:`pad_batch` and :func:`encode_batch`'s str fast path —
-    the two ingestion routes must stay byte-identical (CorpusScanner
-    fingerprints the output).
+    Shared by :func:`pad_batch`, :func:`encode_batch`'s str fast path and
+    :func:`encode_latin1` — the ingestion routes must stay byte-identical
+    (CorpusScanner fingerprints the output, :func:`fingerprint`).  An
+    int32 matrix pads with ``PAD``; a ``uint8`` one with 0 (the lengths
+    mark its padding).
     """
     lens = lens.astype(np.int32)
     B = len(lens)
@@ -153,10 +157,10 @@ def _scatter_pad(flat: np.ndarray, lens: np.ndarray,
     L = bucket if bucket is not None else bucket_len(max(maxlen, 1))
     if maxlen > L:
         raise ValueError(f"bucket {L} too small for max length {maxlen}")
-    out = np.full((B, L), PAD, np.int32)
+    out = np.full((B, L), PAD if dtype == np.int32 else 0, dtype)
     if maxlen:
         filled = np.arange(L, dtype=np.int32)[None, :] < lens[:, None]
-        out[filled] = flat.astype(np.int32, copy=False)
+        out[filled] = flat.astype(dtype, copy=False)
     return out, lens
 
 
@@ -198,6 +202,47 @@ def encode_batch(seqs: Iterable, bucket: int | None = None
         return _scatter_pad(flat, lens, bucket)
     arrs = [encode_one(s) for s in seqs]
     return pad_batch(arrs, bucket)
+
+
+def encode_latin1(seqs: Sequence[str], bucket: int | None = None
+                  ) -> tuple[np.ndarray, np.ndarray] | None:
+    """Byte form of :func:`encode_batch` for a ``str`` batch whose chars
+    are all below 256: ``(chars[B, L] uint8, lens[B])``, the same rows
+    and width with 0 in the padding, or None when some char is 256 or
+    above.  A byte per char where ``encode_batch`` takes four: corpus
+    ingestion for CorpusScanner, which keeps bytes only."""
+    try:
+        flat = np.frombuffer("".join(seqs).encode("latin-1"), np.uint8)
+    except UnicodeEncodeError:
+        return None
+    lens = np.fromiter((len(s) for s in seqs), np.int32, count=len(seqs))
+    return _scatter_pad(flat, lens, bucket, np.uint8)
+
+
+def fingerprint(blocks: Iterable[np.ndarray], lens: np.ndarray,
+                vocab: np.ndarray | None = None) -> str:
+    """Content hash of a padded batch: sha1 over its int32 ``chars``
+    matrix as :func:`encode_batch` and :func:`pad_batch` give it, then
+    ``lens``, then the remap ``vocab`` where there is one (the JAX
+    package's CorpusScanner key).  ``blocks`` are the matrix's rows in
+    order, in one or more blocks: int32, or ``uint8`` as
+    :func:`encode_latin1` gives them (widened here, ``PAD`` past each
+    length)."""
+    h = hashlib.sha1()
+    row = 0
+    for blk in blocks:
+        n = blk.shape[0]
+        if blk.dtype != np.int32:
+            wide = blk.astype(np.int32)
+            wide[np.arange(blk.shape[1])[None, :]
+                 >= lens[row: row + n, None]] = PAD
+            blk = wide
+        h.update(np.ascontiguousarray(blk))     # hashed in place
+        row += n
+    h.update(np.asarray(lens, np.int32).tobytes())
+    if vocab is not None:
+        h.update(vocab.tobytes())
+    return h.hexdigest()
 
 
 def encode_pair_batch(seqs1: Iterable, seqs2: Iterable,

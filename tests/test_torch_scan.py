@@ -182,3 +182,32 @@ def test_weights_vocab_remap_and_unported_cases():
     with pytest.raises(NotImplementedError, match="item 18"):
         wide.distances("".join(chr(0x400 + i) for i in range(128)))
     assert codec.bucket_len(30) == 32
+
+
+@pytest.mark.parametrize("batch,bucket", [
+    (["kitten", "", "sitting\x00", "\xff\xe9abc"], None),
+    (["kitten", "", "sitting\x00", "\xff\xe9abc"], 30),
+    (["kitten", "Иванко", ""], None),
+])
+def test_byte_route_matches_the_codec_matrix(batch, bucket):
+    """The codec's byte route gives ``encode_batch``'s rows and width (None
+    past latin-1), the fingerprint of its bytes is that of the int32
+    matrix, and a scanner built on it (at a bucket that is not whole
+    packed words too) matches one built on the int32 route."""
+    chars, lens = codec.encode_batch(batch, bucket)
+    byts = codec.encode_latin1(batch, bucket)
+    fp = codec.fingerprint([chars], lens)
+    if max(map(ord, "".join(batch))) >= 256:
+        assert byts is None
+        return
+    c8, l8 = byts
+    assert c8.dtype == np.uint8 and c8.shape == chars.shape
+    np.testing.assert_array_equal(l8, lens)
+    np.testing.assert_array_equal(np.where(chars < 0, 0, chars), c8)
+    assert codec.fingerprint([c8[:1], c8[1:]], lens) == fp
+    sc = CorpusScanner(batch, bucket=bucket, device="cpu")
+    ref = CorpusScanner([s.encode("latin-1") for s in batch],
+                        bucket=bucket, device="cpu")
+    assert sc._fingerprint == fp
+    for q in ("kitten", "\xe9ab", ""):
+        np.testing.assert_array_equal(sc.distances(q), ref.distances(q))
