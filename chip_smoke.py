@@ -11,12 +11,13 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``) and, for K7, each kernel's SASS
-   instruction count and commonest opcodes (``cuobjdump``);
+   registers and spills (``ptxas -v``) and, for K7, K8 and K9, each
+   kernel's SASS instruction count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
-   long routes (K1 and K4 over 2048- and 8192-char buckets, the run-time
-   band, the streamed bands) at 2,048 candidates, where the plain
+   long routes (K1 and K4 over 2048- and 8192-char buckets, their
+   scratch forms over 2048 only, the run-time band, the streamed bands
+   over 2048) at 2,048 candidates, where the plain
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first scratch width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
@@ -33,6 +34,11 @@ Phases, each printing one JSON line before the next starts:
    over several chunks of a small scratch budget), at 262,144 candidates
    in byte and local mode, 16 queries per launch, and over 2048-, 8192-
    and 16,400-char buckets, over near copies with adjacent swaps planted;
+   K9 (Damerau-Levenshtein) in its register form (up to 32 chars) and its
+   scratch form (33-4,001 chars, also over several chunks of a small
+   scratch budget) over buckets of 32-16,400 chars, byte and local mode,
+   and its band at radius 3, 7 and 15 (equal to the plain full distances
+   within the radius, above it elsewhere);
    and one K2 case whose bucket (300,000 chars) makes its blocks
    stride past 65,535 grid rows, its scan held against the oracle on a
    sampled row;
@@ -97,7 +103,18 @@ Phases, each printing one JSON line before the next starts:
    as many common chars as the two strings share, with no
    transposition, boosted by its actual prefix; sampled rows where
    nearly every row lies within that bound);
-12. timing — each kernel and its plain version at its main-path shape
+12. dam    — Damerau-Levenshtein: ``ScanService(metric=
+   "damerau_levenshtein")`` over the serve corpus behind ``make_server``
+   (``/topk`` with no cutoff and under cutoffs 2, 7 and 15,
+   ``/distances`` plain and under a cutoff, ``/batch`` of 20 queries),
+   ``damerau_levenshtein.distance_many`` over 65,536 strings, a
+   ``CorpusScanner`` over the Cyrillic corpus, one over the long corpus
+   for the 64- and 300-char queries and the ~4,000-char query under
+   cutoff 15, and the ~4,000-char query in full over 4,096 of the
+   bucket-6000 texts, all held against the oracle (whole-corpus windows:
+   Damerau is at least the length difference and at least half the
+   Levenshtein distance);
+13. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound, the output of each timed launch
@@ -105,16 +122,19 @@ Phases, each printing one JSON line before the next starts:
    corpus and at 299 and 4,001 chars over the long corpus (the second
    launched over chunks of the 1 GiB scratch plan), its plain version on
    a slice of the candidates where the whole shape would take it over
-   10 s; K8 also at 300 and 4,001 chars over the long corpus;
-13. rate   — one len-64 query, then 16 per launch, against 67,108,864
+   10 s; K8 also at 300 and 4,001 chars over the long corpus; K9 also at
+   32 chars (its register form) and at radius 3 and 15 over the serve
+   corpus and at 300 chars over the long corpus;
+14. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
-8, 9, 10 and 11 and read after each, so the counts are those of the six
-main paths alone; every kernel must have launched in them.  Each phase's line
-gives its seconds and those of its oracle checks (``oracle_s``), the
-kernels phase's also per family of cases and the wlev phase's per part.
+8, 9, 10, 11 and 12 and read after each, so the counts are those of the
+seven main paths alone; every kernel must have launched in them.  Each
+phase's line gives its seconds and those of its oracle checks
+(``oracle_s``), the kernels phase's also per family of cases and the wlev,
+jaro and dam phases' per part.
 Any failure raises: the script then exits nonzero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits nonzero before any phase.
@@ -174,6 +194,14 @@ LONG_SLICE = {"q64": 8, "q300": 32, "q4k": 512}
 #: candidates
 HUGE_LB = 16400
 N_HUGE = 256
+#: the Damerau phase's full ~4,000-char scan runs over the last DAM_ODD of
+#: the bucket-6000 texts (the near copies of the query among them): the
+#: whole 16,384 take the scratch form ~4 s; and the timing phase holds
+#: K9's full scans on every DAM_SLICE-th candidate against its plain
+#: version, the band over the long corpus on every DAM_BAND_SLICE-th
+DAM_ODD = 4096
+DAM_SLICE = 8
+DAM_BAND_SLICE = 16
 #: the Jaro service's prefix weight (the default) and the library's
 JARO_PW = 0.1
 JARO_LIB_PW = 0.2
@@ -232,6 +260,16 @@ OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
 JARO_OPS = {"pass1": (9, 5), "flag_test": 2, "pop": (1, 5)}
 JARO_REPLAY_OPS = (9, 4)
 LCS_BAND_STEP_OPS = 1
+#: K9's INT32-lane operations per DP cell, counted from the SASS of its
+#: unrolled loops (cuobjdump -sass of the built library): 999 per two
+#: text rows of 32 cells in dam_scan_reg<1> (the full form; 3.9 IMADs a
+#: cell more issue on the FMA lanes and do not bind), 1,299 per two rows
+#: of 31 cells in dam_band_kernel<15> and 628 per two rows of 15 in <7>
+#: (the band, whose cells also mask the rows at the column-0 edge).  The
+#: cells are those this run's data needs: lb * la per candidate for the
+#: full form, lb * (2k + 1) for the band's candidates within k of the
+#: query's length (the others return without a row)
+DAM_OPS = {"full": 15.6, "band": 21.0}
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
@@ -253,6 +291,14 @@ REPLACES = {
     "jaro_scan": "rapidfuzz_tpu/ops/pallas/jaro_kernel.py:204",
     "jaro_scan_nq": "rapidfuzz_tpu/ops/pallas/jaro_kernel.py:268",
     "jaro_scan_long": "rapidfuzz_tpu/ops/pallas/stream_kernel.py:683",
+    # rows 26-29 (the lane-column forms and the int16 bodies) compute row
+    # 21's function at its shapes: dam_scan ports them with it
+    "dam_scan": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:522 "
+                "(and :146, :393, :623, :743)",
+    "dam_scan_long": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1674 "
+                     "(and :1648)",
+    "dam_band": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1038",
+    "dam_band_long": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1277",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -275,6 +321,10 @@ SOURCES = {
     "jaro_scan": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
     "jaro_scan_nq": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
     "jaro_scan_long": "rapidfuzz_tpu_torch/csrc/jaro_scan.cu",
+    "dam_scan": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
+    "dam_scan_long": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
+    "dam_band": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
+    "dam_band_long": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
@@ -283,6 +333,8 @@ LONG_PATH = ("lev_scan_long", "lev_band_rt", "lev_band_long",
 OSA_PATH = ("osa_scan", "osa_scan_nq", "osa_scan_long")
 WLEV_PATH = ("wlev_scan", "wlev_scan_long")
 JARO_PATH = ("jaro_scan", "jaro_scan_nq", "jaro_scan_long")
+DAM_PATH = ("dam_scan", "dam_scan_long", "dam_band", "dam_band_long")
+DAM = "damerau_levenshtein"
 
 
 def emit(obj) -> None:
@@ -373,6 +425,7 @@ class Smoke:
         from rapidfuzz_tpu_torch import oracle
         from rapidfuzz_tpu_torch.ops import cuda as kc
         from rapidfuzz_tpu_torch.ops.cuda import band_kernel as bk
+        from rapidfuzz_tpu_torch.ops.cuda import damerau_kernel as dk
         from rapidfuzz_tpu_torch.ops.cuda import jaro_kernel as jk
         from rapidfuzz_tpu_torch.ops.cuda import lcs_band_kernel as cbk
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
@@ -383,6 +436,7 @@ class Smoke:
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
         self.ck, self.cbk, self.ok, self.wk, self.jk = ck, cbk, ok, wk, jk
+        self.dk = dk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -413,6 +467,26 @@ class Smoke:
         if got.shape != ref.shape or not torch.equal(got, ref):
             raise AssertionError(f"{name} {what}: kernel != plain "
                                  f"(max abs err {err})")
+
+    def compare_band(self, name: str, got, full, kband: int,
+                     what: str) -> None:
+        """A band of radius ``kband`` against the plain full distances:
+        equal where they are within the radius, above it elsewhere, and
+        some candidate within it."""
+        torch = self.torch
+        within = full <= kband
+        err = int((got[within].to(torch.int64)
+                   - full[within].to(torch.int64)).abs().max()) \
+            if bool(within.any()) else 0
+        self.err[name] = max(self.err[name], err)
+        self.cases[name] += 1
+        if err or not bool((got[~within] > kband).all()):
+            raise AssertionError(f"{name} {what}: kernel != plain within "
+                                 f"the band or <= {kband} outside it "
+                                 f"(max abs err {err})")
+        if not bool(within.any()):
+            raise AssertionError(f"{name} {what}: no candidate within "
+                                 f"{kband}; inputs too far apart")
 
     # ------------------------------------------------------------ phase 3
     def byte_corpus(self, g, B, lb_max, alphabet):
@@ -520,6 +594,7 @@ class Smoke:
                 ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
                 ("jaro", lambda s: self.jaro_kernel_cases(rng, alph, s)),
+                ("dam", lambda s: self.dam_kernel_cases(rng, alph, s)),
                 ("stride", lambda s: self.stride_case(rng))):
             t0 = time.perf_counter()
             salt = run(salt)
@@ -533,19 +608,19 @@ class Smoke:
 
     def long_kernel_cases(self, rng, a, salt):
         """The long routes against their plain versions at
-        N_KERNEL_LONG candidates: K1 over 2048- and 8192-char buckets at
-        W = 2 (registers) and 10 (scratch form); the run-time band for
-        cutoffs 1-15 and queries of 8-40 chars over 64- and 2048-char
-        buckets; the streamed band at bw 1-3 over 2048- and 8192-char
+        N_KERNEL_LONG candidates: K1 over 2048-char buckets at W = 2
+        (registers) and 10 (scratch form) and over 8192 at W = 2; the
+        run-time band for cutoffs 1-15 and queries of 8-40 chars over 64-
+        and 2048-char buckets; the streamed band at bw 1-3 over 2048-char
         buckets, with queries that keep its PM table in shared memory
-        (300 chars) and that read it through the cache (thousands).  The
+        (300 chars) and that read it through the cache (2,000).  The
         plain versions take about 10 us per launch, some 20 launches per
-        step and word, so K1 at W = 10 over the 8192 bucket is the
-        longest case (seconds), and the band at bw 1 stays off that
-        bucket (held there by its plain version in the timing phase)."""
+        step and word, so the 8192 bucket's scratch form and streamed
+        band (seconds each) are held by their plain versions in the
+        timing phase and by the oracle in the long phase, not here."""
         torch, lk, bk = self.torch, self.lk, self.bk
         at = torch.from_numpy(a).to(self.dev)
-        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2), (LONG_LB, 10)):
+        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2)):
             salt += 1
             q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
             cand, lb = self.byte_corpus(self.gen(salt), N_KERNEL_LONG, LBl,
@@ -573,7 +648,7 @@ class Smoke:
                         lb, semi=cut)
                     self.compare("lev_band_rt", got, ref,
                                  f"LB={LBl} la={la} cutoff={cut}")
-        for LBl, la in ((2048, 300), (2048, 2000), (LONG_LB, LONG_LB - 192)):
+        for LBl, la in ((2048, 300), (2048, 2000)):
             salt += 1
             q = rng.choice(a, la)
             cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG, LBl)
@@ -594,13 +669,13 @@ class Smoke:
         """K4 and K5 against their plain versions: ``lcs_scan`` at W = 1,
         2, 8 and 17 (the first scratch width) and ``lcs_scan_nq`` over
         N_KERNEL candidates at bucket 64, in both PM modes; ``lcs_scan_long``
-        at W = 2 and 10 over 2048- and 8192-char buckets; ``lcs_band`` at
-        indel cutoffs 3, 15, 31 and 47 (bw 1-3) over near copies of a
-        100-char query with candidates far out of band (bucket 128); the
-        streamed band at bw 1 and 2 over a 2048-char bucket and over 8192,
-        where the ~8,000-char query's PM table is read through the cache.
-        Every candidate's value is compared, the band's underestimates
-        for rows out of band included."""
+        at W = 2 and 10 over 2048-char buckets and at W = 2 over 8192;
+        ``lcs_band`` at indel cutoffs 3, 15, 31 and 47 (bw 1-3) over near
+        copies of a 100-char query with candidates far out of band (bucket
+        128); the streamed band at bw 1 and 2 over a 2048-char bucket (its
+        PM table read through the cache over the long corpus is held by
+        the timing phase).  Every candidate's value is compared, the
+        band's underestimates for rows out of band included."""
         torch, lk, ck, cbk = self.torch, self.lk, self.ck, self.cbk
         for W in (1, 2, 8, ck.MAX_REG_W + 1):
             for mode in ("byte", "local"):
@@ -628,7 +703,7 @@ class Smoke:
                          ck.lcs_scan_plain(tabs, cand, lb),
                          f"16 queries W={W}")
         at = torch.from_numpy(alph["byte"]).to(self.dev)
-        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2), (LONG_LB, 10)):
+        for LBl, W in ((2048, 2), (2048, 10), (LONG_LB, 2)):
             salt += 1
             q = rng.choice(alph["byte"],
                            32 * (W - 1) + 1 + int(rng.integers(0, 32)))
@@ -666,8 +741,7 @@ class Smoke:
                     raise AssertionError(f"lcs band cutoff={cut}: needs "
                                          "rows in and out of band, exact "
                                          "within it")
-        for LBl, la, cuts in ((2048, 300, (15, 31)),
-                              (LONG_LB, LONG_LB - 192, (15, 31))):
+        for LBl, la, cuts in ((2048, 300, (15, 31)),):
             salt += 1
             q = rng.choice(alph["byte"], la)
             cand, lb = self.mutants(self.gen(salt), q, alph["byte"],
@@ -881,6 +955,88 @@ class Smoke:
             case("jaro_scan_long", q, "byte", cand, lb, f"LB={LBl} W={W}")
         return salt
 
+    def dam_kernel_cases(self, rng, alph, salt):
+        """K9 against its plain versions over near copies of the query with
+        adjacent swaps planted (across query words and packed 4-char
+        rows): the full form bit for bit, the band of radius 3, 7 or 15
+        equal to the plain full distances within the radius and above it
+        elsewhere.  ``dam_scan`` over N_KERNEL candidates of buckets 32, 64
+        and 128 (queries of 0, 1 and 31 chars in the register form, 33 and
+        64 in the scratch form, byte and local mode; 300 chars, longer
+        than every text, over N_KERNEL // 4), the scratch form once more
+        over chunks of a scratch budget a quarter of the candidates';
+        ``dam_scan_long`` and ``dam_band_long`` over N_KERNEL_LONG
+        candidates of buckets 160, 1,024 and 8,192 (33-300 chars), a
+        4,001-char query over 64 texts of about its length at bucket
+        8,192, and a 33-char query over N_HUGE candidates of HUGE_LB chars
+        (past the JAX package's 8,192-char cap)."""
+        torch, lk, dk, kc = self.torch, self.lk, self.dk, self.kc
+        if dk.MAX_REG_W != 1:
+            raise AssertionError("K9's forms moved: update these cases")
+
+        def case(name, q, mode, cand, lb, what, bands=()):
+            _, tabs = lk.stage_query(q, mode, self.dev)
+            got = dk.dam_1v_many(q, cand, lb, mode=mode)
+            full = dk.dam_scan_plain(q.size, tabs, cand, lb)
+            self.compare(name, got, full, what)
+            band = name.replace("scan", "band")
+            for kb in bands:
+                self.compare_band(band, dk.dam_band_1v_many(
+                    q, cand, lb, kband=kb, mode=mode), full, kb,
+                    f"{what} radius {kb}")
+
+        for LBs, la, mode, B, bands in (
+                (32, 0, "byte", N_KERNEL, ()),
+                (32, 1, "byte", N_KERNEL, (3,)),
+                (32, 31, "byte", N_KERNEL, (3, 7, 15)),
+                (32, 31, "local", N_KERNEL, (7,)),
+                (64, 33, "byte", N_KERNEL, (3, 15)),
+                (64, 64, "local", N_KERNEL, (7, 15)),
+                (128, 64, "byte", N_KERNEL, (15,)),
+                (128, 300, "byte", N_KERNEL // 4, ())):
+            salt += 1
+            a = alph[mode]
+            q = rng.choice(a, la)
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBs, swaps=True)
+            case("dam_scan", q, mode, cand, lb, f"LB={LBs} la={la} {mode}",
+                 bands)
+            if la == 64:
+                budget = 16 * la * (N_KERNEL // 4)
+                chunk = budget // (16 * la) // dk.BLOCK * dk.BLOCK
+                before = kc.LAUNCHES["dam_scan"]
+                plan = dk.SCRATCH_BYTES
+                dk.SCRATCH_BYTES = budget
+                try:
+                    case("dam_scan", q, mode, cand, lb,
+                         f"la={la} over chunks of {chunk}")
+                finally:
+                    dk.SCRATCH_BYTES = plan
+                if kc.LAUNCHES["dam_scan"] - before != -(-N_KERNEL // chunk):
+                    raise AssertionError("K9 scratch: wrong number of "
+                                         "chunk launches")
+        a = alph["byte"]
+        for LBl, la, B, bands in ((160, 33, N_KERNEL_LONG, (3, 7)),
+                                  (160, 160, N_KERNEL_LONG, (15,)),
+                                  (1024, 300, N_KERNEL_LONG, (15,)),
+                                  (LONG_LB, 64, N_KERNEL_LONG, ()),
+                                  (8192, 4001, 64, (15,)),
+                                  (HUGE_LB, 33, N_HUGE, ())):
+            salt += 1
+            q = rng.choice(a, la)
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl, swaps=True)
+            if la < 4001:
+                lb[:8] = LBl                  # the bucket's last rows
+            if bands:
+                # the query with swaps across a packed row and a query
+                # word: within every band, however few random copies are
+                row = q.copy()
+                row[[3, 4, 31, 32]] = row[[4, 3, 32, 31]]
+                self.plant_rows(cand, lb, torch.from_numpy(row).to(self.dev),
+                                4)
+            case("dam_scan_long", q, "byte", cand, lb, f"LB={LBl} la={la}",
+                 bands)
+        return salt
+
     def stride_case(self, rng):
         """K2 over a bucket of STRIDE_LB chars (75,000 packed rows: its
         blocks stride past the 65,535 rows grid.y can hold) of N_STRIDE
@@ -935,7 +1091,7 @@ class Smoke:
         a = torch.from_numpy(alphabet).to(self.dev)
         base = torch.full((lb_max,), int(alphabet[0]), device=self.dev,
                           dtype=torch.int64)
-        base[: q.size] = torch.from_numpy(q).to(self.dev)
+        base[: q.size] = torch.from_numpy(q[:lb_max]).to(self.dev)
         rnd = a[torch.randint(0, a.numel(), (B, lb_max), generator=g,
                               device=self.dev)]
         rate = torch.randint(0, 40, (B, 1), generator=g,
@@ -964,8 +1120,9 @@ class Smoke:
     def oracle_rows(self, query: str, strings,
                     metric="levenshtein") -> np.ndarray:
         """Oracle distances of ``query`` to ``strings`` under ``metric``
-        (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``; OSA one
-        scalar call per string; a weight tuple ``(ins, del, sub)`` is
+        (lcs_seq from indel: ``lcs = (la + lb - indel) / 2``; OSA and
+        Damerau-Levenshtein one scalar call per string; a weight tuple
+        ``(ins, del, sub)`` is
         weighted Levenshtein with the query as the pattern, one scalar
         call per string; "jaro" and "jaro_winkler" (at JARO_PW) are f64
         distances ``1.0 - similarity``, from :meth:`jaro_rows`)."""
@@ -973,9 +1130,10 @@ class Smoke:
             return self.jaro_rows(query, strings,
                                   None if metric == "jaro" else JARO_PW)
         enc = [self.codec.encode_one(s) for s in strings]
-        if metric == "osa" or isinstance(metric, tuple):
+        if metric in ("osa", DAM) or isinstance(metric, tuple):
             eq = self.codec.encode_one(query)
-            one = (self.oracle.osa if metric == "osa" else
+            one = ({"osa": self.oracle.osa, DAM: self.oracle.damerau}[metric]
+                   if metric in ("osa", DAM) else
                    lambda a, b: self.oracle.levenshtein_weighted(a, b,
                                                                  *metric))
             # eight slices in parallel (ctypes drops the GIL)
@@ -1466,14 +1624,17 @@ class Smoke:
                      metric="levenshtein", lev=None):
         """Oracle distances of ``q`` to every row that can lie within
         ``bound``: rows with ``|len - len(q)| > bound`` cannot (each of
-        the four metrics is at least the length difference), nor, under
-        OSA, rows whose Levenshtein distance exceeds ``2 * bound`` (one
-        OSA edit is at most two Levenshtein edits); a weight tuple
+        the five metrics is at least the length difference), nor, under
+        OSA and Damerau-Levenshtein, rows whose Levenshtein distance
+        exceeds ``2 * bound`` (one OSA edit is at most two Levenshtein
+        edits; a Damerau transposition with the edits between its chars,
+        cost ``c``, at most ``c + 1 <= 2c``); a weight tuple
         ``(ins, del, sub)`` costs at least ``ins`` per char the row is
         longer and ``del`` per char it is shorter, and at least the
         cheapest cost times the Levenshtein distance.  The Levenshtein
-        distances are ``lev`` where given, else, under OSA and weights,
-        the banded bit-parallel oracle's on the rows the lengths leave
+        distances are ``lev`` where given, else, under OSA, Damerau and
+        weights, the banded bit-parallel oracle's on the rows the lengths
+        leave
         (far cheaper than their scalar calls).  Only the rows left are
         computed; Levenshtein banded at ``bound`` (exact when within it,
         ``bound + 1`` above), the other metrics exact.  Returns (row ids,
@@ -1487,7 +1648,7 @@ class Smoke:
                 lev_bound = bound // min(metric)
         else:
             near = np.abs(lens - len(q)) <= bound
-            if lev is not None or metric == "osa":
+            if lev is not None or metric in ("osa", DAM):
                 lev_bound = 2 * bound
         if lev is not None and lev_bound is not None:
             near &= lev <= lev_bound
@@ -2000,7 +2161,6 @@ class Smoke:
             "long_topk_s": long_s, "parts_s": parts,
             "launches": dict(self.kc.LAUNCHES),
             "seconds": time.perf_counter() - t_start})
-        del self.odd_corpus, self.serve_lev
 
     # ------------------------------------------------------------ phase 11
     @oracle_time
@@ -2253,9 +2413,206 @@ class Smoke:
                          "long_topk_s": long_s, "parts_s": parts,
                          "launches": dict(self.kc.LAUNCHES),
                          "seconds": time.perf_counter() - t_start})
-        del self.long_corpus, self.wide_corpus
 
     # ------------------------------------------------------------ phase 12
+    def phase_dam(self):
+        """Damerau-Levenshtein on its main path: ``ScanService(metric=
+        "damerau_levenshtein")`` over the serve corpus behind
+        ``make_server`` -- ``/topk`` with no cutoff for the three anchors
+        (whole corpus) and a random query (sampled rows), ``/topk`` under
+        cutoffs 2, 7 and 15 (the band at radius 3, 7 and 15; whole
+        corpus), ``/distances`` plain (every row within the Levenshtein
+        bounds, ``lev / 2 <= d <= lev``, sampled and planted rows exact)
+        and under cutoff 7 (whole corpus), ``/batch`` of 20 queries
+        (N_BATCH_SAMPLE sampled rows and the planted ones); the library's
+        ``distance_many`` over N_LIB strings (every row) and its scalar
+        scores; a ``CorpusScanner`` over the Cyrillic corpus (K2, then K9
+        in local mode: sampled rows, top-k, cutoff 3); one over the long
+        corpus: top-k for the 64- and 300-char queries (the full form)
+        and the ~4,000-char query under cutoff 15 (the band; whole
+        corpus); and the ~4,000-char query in full over the last DAM_ODD
+        bucket-6000 texts (top-k, whole slice).  Whole-corpus checks
+        compute the oracle only on rows that can lie within the bound
+        (:meth:`window_truth`).  The full ~4,000-char query over the whole
+        long corpus (~2.4e12 cells, minutes of the scratch form) is left
+        out."""
+        from rapidfuzz_tpu_torch.distance import damerau_levenshtein as dl
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 9)
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus
+        lens = np.array([len(s) for s in corpus])
+        t0 = time.perf_counter()
+        service = ScanService(corpus, metric=DAM, bucket=LB, device=self.dev)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad or "distances_hint" in warm:
+            raise AssertionError(f"damerau warmup routes: {warm}")
+        queries, levs = self.serve_queries, self.serve_lev
+        sample = np.unique(np.r_[rng.choice(N_SERVE, N_SAMPLE,
+                                            replace=False),
+                                 self.serve_planted])
+        call, stop, timings = self.serve_http(service)
+        try:
+            for qi, (q, lev) in enumerate(zip(queries, levs)):
+                out = call("/topk", {"query": q, "k": 10})
+                if qi < len(self.serve_anchors):
+                    self.check_topk_window(q, corpus, lens, out["values"],
+                                           out["indices"], 10,
+                                           f"dam /topk anchor {qi}", DAM,
+                                           lev)
+                else:
+                    self.check_topk_sampled(q, corpus, out["values"],
+                                            out["indices"], sample, 10,
+                                            "dam /topk random", DAM)
+                if out["strings"] != [corpus[i] for i in out["indices"]]:
+                    raise AssertionError("dam /topk strings mismatch")
+            for qi, cut in ((0, 2), (1, 7), (2, 15)):
+                q, lev = queries[qi], levs[qi]
+                out = call("/topk", {"query": q, "k": 10,
+                                     "score_cutoff": cut})
+                rows, dw = self.window_truth(q, corpus, lens, cut, DAM, lev)
+                keep = dw <= cut
+                order = np.lexsort((rows[keep], dw[keep]))[:10]
+                if not order.size or \
+                        out["indices"] != rows[keep][order].tolist() or \
+                        out["values"] != dw[keep][order].tolist():
+                    raise AssertionError(f"dam /topk cutoff {cut}: "
+                                         f"{out['values']} "
+                                         f"{out['indices']} != oracle")
+            q0, lev0 = queries[0], levs[0]
+            d = np.asarray(call("/distances", {"query": q0})["values"])
+            lo = np.maximum(np.abs(lens - len(q0)), (lev0 + 1) // 2)
+            if not ((d >= lo).all() and (d <= lev0).all()):
+                raise AssertionError("dam /distances outside the "
+                                     "Levenshtein bounds")
+            if not np.array_equal(d[sample], self.oracle_rows(
+                    q0, [corpus[i] for i in sample], DAM)):
+                raise AssertionError("dam /distances != oracle on sampled "
+                                     "rows")
+            if not (d < lev0).any():
+                raise AssertionError("dam /distances never beat "
+                                     "Levenshtein")
+            out = call("/distances", {"query": q0, "score_cutoff": 7})
+            self.check_cutoff_window(q0, corpus, lens, out, 7,
+                                     "dam /distances cutoff 7", metric=DAM,
+                                     lev=lev0)
+            bq = list(queries)
+            while len(bq) < 20:
+                n = int(rng.integers(33, LB + 1))
+                bq.append(rng.integers(97, 123, n, dtype=np.uint8)
+                          .tobytes().decode("ascii"))
+            out = call("/batch", {"queries": bq, "k": 10})
+            bsample = np.unique(np.r_[rng.choice(N_SERVE, N_BATCH_SAMPLE,
+                                                 replace=False),
+                                      self.serve_planted])
+            for qi, q in enumerate(bq):
+                self.check_topk_sampled(q, corpus, out["values"][qi],
+                                        out["indices"][qi], bsample, 10,
+                                        f"dam /batch query {qi}", DAM)
+        finally:
+            stop()
+        del service
+        parts = {"serve": time.perf_counter() - t_start,
+                 "serve_oracle": self.oracle_s - self.oracle_mark}
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the library: one query against N_LIB strings (the scanner), and
+        # the scalar scores
+        sub = corpus[:N_LIB]
+        truth = self.oracle_rows(q0, sub, DAM)
+        res = dl.distance_many([q0], sub)
+        if not (np.array_equal(res.values, truth) and res.valid.all()):
+            raise AssertionError("damerau_levenshtein.distance_many != "
+                                 "oracle")
+        for s1, s2, want in (("CA", "ABC", 2), ("CA", "AC", 1),
+                             (q0, sub[int(np.argmin(truth))],
+                              int(truth.min()))):
+            m = max(len(s1), len(s2))
+            got = (dl.distance(s1, s2), dl.similarity(s1, s2),
+                   dl.normalized_distance(s1, s2))
+            if got != (want, m - want, want / m):
+                raise AssertionError(f"damerau scalar scores {s1!r} "
+                                     f"{s2!r}: {got}")
+        # the Cyrillic corpus: K2's remap, then K9 in local mode
+        before = self.kc.LAUNCHES["remap_pack"]
+        wide = CorpusScanner(self.wide_corpus, metric=DAM, bucket=LB,
+                             device=self.dev)
+        qw = self.wide_query_str
+        wsample = rng.choice(N_WIDE, N_SAMPLE, replace=False)
+        wtruth = self.oracle_rows(qw, [self.wide_corpus[i] for i in wsample],
+                                  DAM)
+        if not np.array_equal(wide.distances(qw)[wsample], wtruth):
+            raise AssertionError("damerau wide distances != oracle on "
+                                 "sampled rows")
+        res = wide.distances(qw, score_cutoff=3)
+        ok = wtruth <= 3
+        if not (np.array_equal(res.valid[wsample], ok) and ok.any()
+                and np.array_equal(res.values[wsample][ok], wtruth[ok])):
+            raise AssertionError("damerau wide cutoff 3 != oracle on "
+                                 "sampled rows")
+        vals, ids = wide.topk(qw, 10)
+        self.check_topk_sampled(qw, self.wide_corpus, vals, ids, wsample,
+                                10, "damerau wide topk", DAM)
+        if self.kc.LAUNCHES["remap_pack"] == before:
+            raise AssertionError("damerau wide route never launched "
+                                 "remap_pack")
+        del wide
+        parts["library_wide"] = time.perf_counter() - t_part
+        parts["library_wide_oracle"] = self.oracle_s - o_part
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the long texts: the full form over buckets > 128 (64 and 300
+        # chars), the band with the ~4,000-char query under cutoff 15
+        qs = self.long_queries
+        long_corpus, long_lens = self.long_corpus, self.long_lens
+        t0 = time.perf_counter()
+        long_sc = CorpusScanner(long_corpus, metric=DAM, bucket=LONG_LB,
+                                device=self.dev)
+        t_long = time.perf_counter() - t0
+        long_s = {}
+        for key in ("q64", "q300"):
+            t0 = time.perf_counter()
+            vals, ids = long_sc.topk(qs[key], 10)
+            long_s[key] = time.perf_counter() - t0
+            self.check_topk_window(qs[key], long_corpus, long_lens, vals,
+                                   ids, 10, f"dam long topk {key}", DAM)
+        q4k = qs["q4k"]
+        t0 = time.perf_counter()
+        res = long_sc.distances(q4k, score_cutoff=15)
+        long_s["q4k_cutoff15"] = time.perf_counter() - t0
+        self.check_cutoff_window(q4k, long_corpus, long_lens,
+                                 {"valid": res.valid, "values": res.values},
+                                 15, "dam long cutoff 15", metric=DAM)
+        del long_sc
+        # the full ~4,000-char query over a slice of the bucket-6000 texts
+        # (the near copies of it among them)
+        odd_corpus = self.odd_corpus[-DAM_ODD:]
+        odd_lens = self.odd_lens[-DAM_ODD:]
+        odd = CorpusScanner(odd_corpus, metric=DAM, bucket=ODD_LB,
+                            device=self.dev)
+        t0 = time.perf_counter()
+        vals, ids = odd.topk(q4k, 10)
+        long_s["q4k_odd"] = time.perf_counter() - t0
+        self.check_topk_window(q4k, odd_corpus, odd_lens, vals, ids, 10,
+                               f"dam bucket {ODD_LB} topk q4k", DAM)
+        del odd
+        self.sync()
+        parts["long"] = time.perf_counter() - t_part
+        parts["long_oracle"] = self.oracle_s - o_part
+        self.emit_phase({"phase": "dam", "corpus": N_SERVE, "bucket": LB,
+                         "long_corpus": len(long_corpus),
+                         "odd_corpus": len(odd_corpus),
+                         "wide_corpus": N_WIDE, "scanner_build_s": t_build,
+                         "long_build_s": t_long, "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "long_topk_s": long_s, "parts_s": parts,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
+        del self.long_corpus, self.wide_corpus, self.odd_corpus, self.serve_lev
+
+    # ------------------------------------------------------------ phase 13
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -2545,6 +2902,82 @@ class Smoke:
               jaro_work(long_sc.lb, 2, 1, st, "jaro_scan_long"), warm=False,
               every=every)
         del sl_cand, sl_lb, st
+        # K9: the full form with the len-64 query at the serve corpus (its
+        # scratch form) and over the long corpus, the band at radius 7
+        # (cutoff 7) at the serve corpus and at radius 15 with the
+        # ~4,000-char query over the long corpus (cutoff 15), the main
+        # paths' shapes; the full forms' plain versions on every
+        # DAM_SLICE-th candidate, the long band's on every
+        # DAM_BAND_SLICE-th
+        dk = self.dk
+
+        def dam_work(lbv, la, kband=None):
+            """Bytes and operations of a K9 launch: the packed chars of each
+            candidate that walks its rows (the band: those within
+            ``kband`` of the query's length), every candidate's length and
+            output, the PM table once; DAM_OPS per cell of those walks."""
+            l64 = lbv.to(torch.int64)
+            if kband is None:
+                walk, width, per = l64, la, DAM_OPS["full"]
+            else:
+                walk = torch.where((l64 - la).abs() <= kband, l64, 0)
+                width, per = 2 * kband + 1, DAM_OPS["band"]
+            nbytes = (int(((walk + 3) // 4).sum()) * 4 + lbv.numel() * 8
+                      + lk.words(la) * 1024)
+            return nbytes, per * width * int(walk.sum())
+
+        sl_cand = cand[:, ::DAM_SLICE].contiguous()
+        sl_lb = lb[::DAM_SLICE].contiguous()
+        timed("dam_scan",
+              lambda: dk.dam_1v_many(q, cand, lb, staged=(las, tabs)),
+              lambda: dk.dam_scan_plain(q.size, tabs, sl_cand, sl_lb), 5,
+              dam_work(lb, q.size), every=DAM_SLICE)
+        timed("dam_band",
+              lambda: dk.dam_band_1v_many(q, cand, lb, kband=7,
+                                          staged=(las, tabs)),
+              lambda: dk.dam_band_plain(q.size, 7, tabs, cand, lb), 20,
+              dam_work(lb, q.size, 7))
+        # the register form (the query's first 32 chars) and the band at
+        # radius 3 and 15, kernel times and bounds only
+        q32 = q[:32]
+        s32 = lk.stage_query(q32, "local", self.dev)
+        extra["dam_scan_la32_ms"] = cuda_ms(
+            torch, lambda: dk.dam_1v_many(q32, cand, lb, staged=s32), 10)
+        nb, ops = dam_work(lb, 32)
+        extra["dam_scan_la32_bound_ms"] = max(nb / HBM_BYTES_S,
+                                              ops / int_ops_s) * 1e3
+        for kb in (3, 15):
+            extra[f"dam_band_k{kb}_ms"] = cuda_ms(
+                torch, lambda: dk.dam_band_1v_many(q, cand, lb, kband=kb,
+                                                   staged=(las, tabs)), 20)
+            nb, ops = dam_work(lb, q.size, kb)
+            extra[f"dam_band_k{kb}_bound_ms"] = max(nb / HBM_BYTES_S,
+                                                    ops / int_ops_s) * 1e3
+        sl_cand = long_sc.cand[:, ::DAM_SLICE].contiguous()
+        sl_lb = long_sc.lb[::DAM_SLICE].contiguous()
+        timed("dam_scan_long",
+              lambda: dk.dam_1v_many(q64, long_sc.cand, long_sc.lb,
+                                     staged=l64),
+              lambda: dk.dam_scan_plain(q64.size, l64[1], sl_cand, sl_lb), 2,
+              dam_work(long_sc.lb, q64.size), warm=False, every=DAM_SLICE)
+        sl_cand = long_sc.cand[:, ::DAM_BAND_SLICE].contiguous()
+        sl_lb = long_sc.lb[::DAM_BAND_SLICE].contiguous()
+        timed("dam_band_long",
+              lambda: dk.dam_band_1v_many(q4k, long_sc.cand, long_sc.lb,
+                                          kband=15, staged=l4k),
+              lambda: dk.dam_band_plain(q4k.size, 15, l4k[1], sl_cand,
+                                        sl_lb), 5,
+              dam_work(long_sc.lb, q4k.size, 15), warm=False,
+              every=DAM_BAND_SLICE)
+        del sl_cand, sl_lb
+        s300 = lk.stage_query(enc["q300"], "local", self.dev)
+        extra["dam_scan_long_q300_ms"] = cuda_ms(
+            torch, lambda: dk.dam_1v_many(enc["q300"], long_sc.cand,
+                                          long_sc.lb, staged=s300), 1,
+            warm=False)
+        nb, ops = dam_work(long_sc.lb, enc["q300"].size)
+        extra["dam_scan_long_q300_bound_ms"] = max(nb / HBM_BYTES_S,
+                                                   ops / int_ops_s) * 1e3
         # K1, K4, K6 and K8 over the long corpus at the other query widths
         # of the long phase: 300 chars (K1's, K6's and K8's scratch forms,
         # K4's registers) and ~4,000 (every scratch form)
@@ -2582,7 +3015,7 @@ class Smoke:
             **extra, "seconds": time.perf_counter() - t_start})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 13
+    # ------------------------------------------------------------ phase 14
     def phase_rate(self, card: str):
         """Each short-text kernel (K1 in both forms, K3, K6, K7, K2) at N_RATE
         len-64 candidates, its plain version (but K7's, timed in the
@@ -2719,11 +3152,12 @@ def main(argv=None) -> int:
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
-          "sass_jaro_scan": sass_histogram(kc, "jaro_scan")})
+          "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
+          "sass_dam_scan": sass_histogram(kc, "dam_")})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
     # short texts, the LCS family's, the long texts', OSA's, the weighted
-    # one's, then the Jaro family's
+    # one's, the Jaro family's, then Damerau-Levenshtein's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -2762,9 +3196,15 @@ def main(argv=None) -> int:
     for name in JARO_PATH:
         if jaro_launches[name] == 0:
             raise AssertionError(f"Jaro path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_dam()
+    dam_launches = dict(kc.LAUNCHES)
+    for name in DAM_PATH:
+        if dam_launches[name] == 0:
+            raise AssertionError(f"Damerau path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
                 + osa_launches[k] + wlev_launches[k] + jaro_launches[k]
-                for k in launches}
+                + dam_launches[k] for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -2780,8 +3220,8 @@ def main(argv=None) -> int:
          "plain_ms": smoke.timing[name][1],
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
-         # no single PyTorch call computes an edit distance (weighted or
-         # not), an LCS length or Jaro's components
+         # no single PyTorch call computes an edit distance (weighted,
+         # uniform or Damerau), an LCS length or Jaro's components
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -29,7 +29,7 @@ from ..utils import codec as _codec
 SCAN_MIN = 4096
 #: metrics the port's CorpusScanner serves with identical semantics
 _SCANNABLE = frozenset({"levenshtein", "indel", "lcs_seq", "osa", "jaro",
-                        "jaro_winkler"})
+                        "jaro_winkler", "damerau_levenshtein"})
 
 
 def scan_one_vs_many(name: str, q, corpus, weights=None, device=None,

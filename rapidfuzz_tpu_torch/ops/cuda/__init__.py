@@ -48,14 +48,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: (``stream_kernel._osa_kernel``) and K7 (weighted Levenshtein) at
 #: buckets > 1024 as ``wlev_scan_long`` (``stream_kernel._wlev_kernel``)
 #: and K8 (the Jaro components) at buckets > 1024 as ``jaro_scan_long``
-#: (``stream_kernel._jaro_kernel``).
+#: (``stream_kernel._jaro_kernel``).  K9 (Damerau-Levenshtein) splits at
+#: the JAX package's Damerau bucket of 128 chars instead: its full form
+#: counts as ``dam_scan`` up to it and ``dam_scan_long``
+#: (``damerau_kernel._kernel_long``) past it, its banded form as
+#: ``dam_band`` and ``dam_band_long`` (``_kernel_sqband_stream``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
             "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
             "lcs_band": 0, "lcs_band_long": 0, "osa_scan": 0,
             "osa_scan_nq": 0, "osa_scan_long": 0, "wlev_scan": 0,
             "wlev_scan_long": 0, "jaro_scan": 0, "jaro_scan_nq": 0,
-            "jaro_scan_long": 0}
+            "jaro_scan_long": 0, "dam_scan": 0, "dam_scan_long": 0,
+            "dam_band": 0, "dam_band_long": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -87,6 +92,10 @@ _SIGNATURES = {
     # pm, las, cand, lb, out, scratch, B, b0, nb, lb4, W, nq, stream
     "rf_jaro_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
                      _P],
+    # pm, la, cand, lb, out, scratch, B, b0, nb, lb4, stream
+    "rf_dam_scan": [_P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I, _P],
+    # pm, ws, la, kband, cand, lb, out, B, lb4, stream
+    "rf_dam_band": [_P, _I, _I, _I, _P, _P, _P, _I64, _I, _P],
 }
 
 

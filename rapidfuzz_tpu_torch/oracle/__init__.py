@@ -7,7 +7,8 @@ never share (or race on) one shared object.  Bound so far: the uniform
 Levenshtein, indel and LCS entry points the ported scans are checked
 against and the library's scalar paths use, weighted Levenshtein, and
 OSA (``rf_osa`` and ``rf_osa_bp``), Jaro and Jaro-Winkler (``rf_jaro``,
-``rf_jaro_winkler``).
+``rf_jaro_winkler``), and Damerau-Levenshtein (``rf_damerau`` and its
+rolling-row form ``rf_damerau_rows``).
 """
 
 from __future__ import annotations
@@ -87,6 +88,10 @@ def _load():
             lib.rf_jaro_winkler.restype = ctypes.c_double
             lib.rf_jaro_winkler.argtypes = [p64, i64, p64, i64,
                                             ctypes.c_double]
+            lib.rf_damerau.restype = i64
+            lib.rf_damerau.argtypes = [p64, i64, p64, i64]
+            lib.rf_damerau_rows.restype = i64
+            lib.rf_damerau_rows.argtypes = [p64, i64, p64, i64]
             _lib = lib
     return _lib
 
@@ -220,3 +225,18 @@ def jaro_winkler(a, b, prefix_weight: float = 0.1) -> float:
     a, b = _arr(a), _arr(b)
     return float(_load().rf_jaro_winkler(a, a.size, b, b.size,
                                          float(prefix_weight)))
+
+
+def damerau(a, b) -> int:
+    """Unrestricted Damerau-Levenshtein distance
+    (``damerau_levenshtein.rs:111-168``): the full matrix, the rolling-row
+    form for long inputs."""
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_damerau(a, a.size, b, b.size))
+
+
+def damerau_rows(a, b) -> int:
+    """Rolling-row Lowrance-Wagner (the long-input route inside
+    :func:`damerau`), a second opinion for the tests."""
+    a, b = _arr(a), _arr(b)
+    return int(_load().rf_damerau_rows(a, a.size, b, b.size))

@@ -1,8 +1,8 @@
 """One-vs-many and many-vs-many corpus scans on one device.
 
 Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for Levenshtein (uniform
-and weighted), the LCS family (indel, lcs_seq), OSA and the Jaro family
-(jaro, jaro_winkler): the corpus is
+and weighted), the LCS family (indel, lcs_seq), OSA, the Jaro family
+(jaro, jaro_winkler) and Damerau-Levenshtein: the corpus is
 encoded once, length-sorted, packed and kept on the device, and every
 query scan reuses it — the reference's ``BatchComparator`` pattern
 (``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
@@ -15,7 +15,9 @@ routes); a weighted scan takes its kernel at every query length, where
 the JAX scanner leaves queries over 256 chars on streamed buckets to
 XLA, and a Jaro scan takes its kernel at every bucket and query length,
 where the JAX scanner leaves buckets over 16,384 chars and queries over
-its VMEM budget to XLA.  Only the ops wrappers choose between a kernel
+its VMEM budget to XLA, and a Damerau scan takes its kernels at every
+bucket, where the JAX scanner leaves buckets over 8,192 chars to XLA
+(``damerau_kernel.py:1694``).  Only the ops wrappers choose between a kernel
 (CUDA tensors) and its plain version (CPU tensors), so the host logic is
 the same on both.
 """
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import band_kernel as _bk
+from ..ops.cuda import damerau_kernel as _dk
 from ..ops.cuda import default_device
 from ..ops.cuda import jaro_kernel as _jk
 from ..ops.cuda import lcs_band_kernel as _cbk
@@ -46,7 +49,8 @@ BLOCK = 256
 #: there, though its kernels need no chunks
 STREAM_CHUNK = 512
 #: metrics the scanner serves
-METRICS = ("levenshtein", "indel", "lcs_seq", "osa", "jaro", "jaro_winkler")
+METRICS = ("levenshtein", "indel", "lcs_seq", "osa", "jaro", "jaro_winkler",
+           "damerau_levenshtein")
 #: of those, the f64 metrics: distance ``1.0 - similarity``
 F64_METRICS = ("jaro", "jaro_winkler")
 #: narrowest query (in u32 words) the LCS band serves: the TPU rule
@@ -56,8 +60,9 @@ LCS_BAND_MIN_W = 8
 
 class CorpusScanner:
     """One-vs-many scan over a device-resident corpus: Levenshtein
-    (uniform or weighted), indel, lcs_seq or OSA distances, or Jaro and
-    Jaro-Winkler distances ``1.0 - similarity`` (f64).
+    (uniform or weighted), indel, lcs_seq, OSA or Damerau-Levenshtein
+    distances, or Jaro and Jaro-Winkler distances ``1.0 - similarity``
+    (f64).
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
@@ -84,7 +89,11 @@ class CorpusScanner:
     band, no hint route, a cutoff masks the f64 distances) and finishes
     each scan on the host in f64, the Winkler boost
     (``prefix_weight``) from a host copy of each candidate's first 4
-    chars (``scan.py:436-458``).
+    chars (``scan.py:436-458``).  Damerau-Levenshtein scans with K9
+    (:meth:`_dam_distances`): under an integer cutoff its banded form
+    where the JAX scanner's rules pick the band, otherwise its full form,
+    at every bucket and query length; a hint is ignored and ``scan_many``
+    runs one query per launch, as in the JAX scanner.
 
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
@@ -101,7 +110,12 @@ class CorpusScanner:
     4,001-char query over 131,072 texts 2.1 GB.  A Jaro scan adds two
     int32 outputs, queries over 256 chars a ``[W + LB/32, chunk]`` u32
     scratch within ``jaro_kernel.SCRATCH_BYTES``, and the host keeps 4
-    chars and the length of each candidate.
+    chars and the length of each candidate.  A Damerau scan reads the same
+    packed corpus (no second copy, where the JAX scanner stages its band's
+    own layout); queries over 32 chars keep a ``[4, la, chunk]`` int32
+    scratch (``16*la`` bytes per candidate) within
+    ``damerau_kernel.SCRATCH_BYTES``: a 64-char query over 1M strings is
+    1 GiB, one launch.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
@@ -112,7 +126,7 @@ class CorpusScanner:
         if metric not in METRICS:
             raise NotImplementedError(
                 f"metric {metric!r} is not ported yet (ROADMAP.md queue 1, "
-                "items 8, 11 and 12)")
+                "items 8 and 12)")
         self.metric = metric
         self.prefix_weight = prefix_weight
         self.device = torch.device(device) if device is not None \
@@ -296,6 +310,8 @@ class CorpusScanner:
             common, trans = _jk.jaro_1v_many(qk, cand, self.lb, mode=mode)
             return self._jaro_finish(common.cpu().numpy(),
                                      trans.cpu().numpy(), q)
+        if self.metric == "damerau_levenshtein":
+            return self._dam_distances(qk, mode, cand, score_cutoff)
         if self.metric == "osa":
             # the full scan at every bucket; no band, no hint route
             # (scan.py:798-808); a cutoff masks it in distances()
@@ -344,6 +360,29 @@ class CorpusScanner:
                                                   q.size, lens),
                               self.prefix_weight)
         return 1.0 - sim
+
+    def _dam_distances(self, qk, mode, cand, score_cutoff):
+        """Damerau-Levenshtein distances, sorted order, routed as the JAX
+        scanner's Pallas route (``scan.py:593-651``): over buckets of at
+        most ``damerau_kernel.MAX_TEXT`` chars the band for an integer
+        cutoff ``>= 0`` whose :func:`~.damerau_kernel.pick_dam_band` radius
+        (against the bucket rounded up to 16) exists, over longer buckets
+        for an integer cutoff in 0-15; otherwise the full scan.  Banded
+        values above the cutoff are some value above it, masked in
+        :meth:`distances`."""
+        kb, cut = None, score_cutoff
+        if cut is not None and cut >= 0 and int(cut) == cut:
+            if self._width <= _dk.MAX_TEXT:
+                kb = _dk.pick_dam_band(int(cut), -(-max(self._width, 16)
+                                                   // 16) * 16)
+            elif cut <= 15:
+                kb = _dk.pick_dam_band(int(cut), 1 << 30)
+        if kb is not None:
+            out = _dk.dam_band_1v_many(qk, cand, self.lb, kband=kb,
+                                       mode=mode)
+        else:
+            out = _dk.dam_1v_many(qk, cand, self.lb, mode=mode)
+        return out.cpu().numpy()
 
     def _lcs_distances(self, q, qk, mode, cand, score_cutoff):
         """Indel or lcs_seq distances, sorted order (``scan.py:855-915``):
@@ -510,10 +549,12 @@ class CorpusScanner:
         """scan_many batches queries into one multi-query launch when the
         packed corpus is query-independent (not on the wide-alphabet
         route, which remaps the corpus per query) and, as in the JAX
-        scanner, the bucket is at most 1024 chars and the scan is not
-        weighted (K7 has no multi-query form, ``scan.py:1260``)."""
+        scanner, the bucket is at most 1024 chars and the scan is neither
+        weighted nor Damerau (K7 and K9 have no multi-query form,
+        ``scan.py:1260-1262``)."""
         return (not self._wide and not self._zero and not self._long
-                and self._weights is None)
+                and self._weights is None
+                and self.metric != "damerau_levenshtein")
 
     def _distances_many(self, queries):
         """``[len(queries), n]`` distances via grouped multi-query launches.
