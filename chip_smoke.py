@@ -190,6 +190,9 @@ N_STRIDE = 256
 #: the whole long corpus
 WLEV_SLICE = 64
 LONG_SLICE = {"q64": 8, "q300": 32, "q4k": 512}
+#: the timing phase holds K1's and K4's 300-char scans over the long corpus
+#: on its LONG_SHORTEST shortest texts
+LONG_SHORTEST = 2048
 #: the kernel cases' bucket past the TPU's 16,384-char Jaro cap, and its
 #: candidates
 HUGE_LB = 16400
@@ -260,16 +263,22 @@ OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
 JARO_OPS = {"pass1": (9, 5), "flag_test": 2, "pop": (1, 5)}
 JARO_REPLAY_OPS = (9, 4)
 LCS_BAND_STEP_OPS = 1
-#: K9's INT32-lane operations per DP cell, counted from the SASS of its
-#: unrolled loops (cuobjdump -sass of the built library): 999 per two
-#: text rows of 32 cells in dam_scan_reg<1> (the full form; 3.9 IMADs a
-#: cell more issue on the FMA lanes and do not bind), 1,299 per two rows
-#: of 31 cells in dam_band_kernel<15> and 628 per two rows of 15 in <7>
-#: (the band, whose cells also mask the rows at the column-0 edge).  The
-#: cells are those this run's data needs: lb * la per candidate for the
-#: full form, lb * (2k + 1) for the band's candidates within k of the
-#: query's length (the others return without a row)
-DAM_OPS = {"full": 15.6, "band": 21.0}
+#: K9's bound charges every DP cell the least INT32-lane operations its
+#: unrolled row bodies take for it, counted in the SASS of the built
+#: library (the build line's sass row_blocks: the non-IMAD instructions of
+#: the largest branch-free blocks; IMADs issue on the FMA lanes and do not
+#: bind).  The full form: 995 per two text rows of 32 cells in
+#: dam_scan_reg<1>.  The band, per radius (its shared-memory form
+#: dam_band_kernel<k,1>): (the unmasked rows, the first k + 1 rows, which
+#: also mask the column-0 edge) per cell: 190 and 224 per two rows of 7
+#: cells at k = 3, 437 and 577 of 15 at 7, 935 and 1,194 of 31 at 15.
+#: The bound charges each band cell the unmasked rate; the edge rows' extra
+#: goes beside it (*_edge_bound_ms).  The cells are those this run's data
+#: needs: lb * la per candidate for the full form, lb * (2k + 1) for the
+#: band's candidates within k of the query's length (the others return
+#: without a row)
+DAM_CELL_OPS = 15.55
+DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
@@ -362,9 +371,11 @@ def ptxas_summary(report: dict) -> dict:
 
 def sass_histogram(kc, kernel: str):
     """For each kernel of the built library whose name holds ``kernel``:
-    its SASS instruction count and its ten commonest opcodes
-    (``cuobjdump -sass``, beside nvcc); None where the toolkit has no
-    cuobjdump."""
+    its SASS instruction count, its ten commonest opcodes and the
+    instructions other than IMAD (which issue on the FMA lanes) in each of
+    its four largest branch-free blocks, the bodies of an unrolled loop
+    (``row_blocks``, largest first; ``cuobjdump -sass``, beside nvcc);
+    None where the toolkit has no cuobjdump."""
     dump = os.path.join(os.path.dirname(kc._nvcc()), "cuobjdump")
     if not os.path.exists(dump):
         return None
@@ -376,13 +387,23 @@ def sass_histogram(kc, kernel: str):
         name = body.split("\n", 1)[0].strip()
         if kernel not in name:
             continue
-        # the template's name and argument: wlev_scan_reg<4>
-        key = re.sub(r"^.*\d(%s\w*?)IL[ib](\d+)E.*$" % kernel, r"\1<\2>",
-                     name)
+        # the template's name and arguments: dam_band_kernel<15,1>
+        m = re.search(r"\d(%s\w*?)I((?:L[ib]\d+E)+)E" % kernel, name)
+        key = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>"
+               if m else name)
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)", body)
+                         r"([A-Z][A-Z0-9_]*)|(\.L_x_\d+:)", body)
+        blocks, run = [], 0
+        for op, label in ops:
+            if label or op in ("BRA", "BSYNC", "BSSY", "EXIT", "RET"):
+                blocks.append(run)
+                run = 0
+            elif op != "IMAD":
+                run += 1
+        ops = [op for op, _ in ops if op]
         out[key] = {"instructions": len(ops),
-                    "top": dict(collections.Counter(ops).most_common(10))}
+                    "top": dict(collections.Counter(ops).most_common(10)),
+                    "row_blocks": sorted(blocks + [run])[:-5:-1]}
     return out
 
 
@@ -2639,13 +2660,15 @@ class Smoke:
         int_ops_s = INT32_LANES * clock_mhz * 1e6
 
         def timed(name, kernel, plain, reps, work, warm=True, every=1,
-                  row=None, kwarm=True):
+                  row=None, kwarm=True, cols=None):
             """Times ``kernel`` (after a warm-up run unless ``kwarm`` is
             false) and ``plain`` (likewise ``warm``) and holds the output
             of the kernel's last timed run, on every ``every``-th
-            candidate, against ``plain``, which the caller gives those
-            candidates alone where the whole shape would take it over
-            10 s.  Kept under ``row`` (default: ``name``)."""
+            candidate (or on the slice ``cols`` of them), against
+            ``plain``, which the caller gives those candidates alone where
+            the whole shape would take it over 10 s.  Kept under ``row``
+            (default: ``name``)."""
+            sel = cols if cols is not None else slice(None, None, every)
             row = row or name
             last = [None]
 
@@ -2655,10 +2678,10 @@ class Smoke:
             ms = cuda_ms(torch, run, reps, warm=kwarm)
             ref = []
             pms = cuda_ms(torch, lambda: ref.append(plain()), 1, warm=warm)
-            self.compare(name, last[0][..., ::every], ref[-1],
+            self.compare(name, last[0][..., sel], ref[-1],
                          f"{row} timing inputs")
             rows[row] = (ms, pms)
-            if every > 1:
+            if every > 1 or cols is not None:
                 plain_n[row] = int(ref[-1].shape[-1])
             nbytes, ops = work
             t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -2911,20 +2934,27 @@ class Smoke:
         # DAM_BAND_SLICE-th
         dk = self.dk
 
-        def dam_work(lbv, la, kband=None):
+        def dam_work(lbv, la, kband=None, row=None):
             """Bytes and operations of a K9 launch: the packed chars of each
             candidate that walks its rows (the band: those within
             ``kband`` of the query's length), every candidate's length and
-            output, the PM table once; DAM_OPS per cell of those walks."""
+            output, the PM table once; DAM_CELL_OPS (the band:
+            DAM_BAND_OPS's unmasked rate) per cell of those walks.  The
+            band's edge rows' extra goes to
+            ``extra[row + "_edge_bound_ms"]``."""
             l64 = lbv.to(torch.int64)
+            nbytes = lbv.numel() * 8 + lk.words(la) * 1024
             if kband is None:
-                walk, width, per = l64, la, DAM_OPS["full"]
-            else:
-                walk = torch.where((l64 - la).abs() <= kband, l64, 0)
-                width, per = 2 * kband + 1, DAM_OPS["band"]
-            nbytes = (int(((walk + 3) // 4).sum()) * 4 + lbv.numel() * 8
-                      + lk.words(la) * 1024)
-            return nbytes, per * width * int(walk.sum())
+                nbytes += int(((l64 + 3) // 4).sum()) * 4
+                return nbytes, DAM_CELL_OPS * la * int(l64.sum())
+            walk = torch.where((l64 - la).abs() <= kband, l64, 0)
+            nbytes += int(((walk + 3) // 4).sum()) * 4
+            width = 2 * kband + 1
+            body, edge = DAM_BAND_OPS[kband]
+            edge_cells = width * int(walk.clamp(max=kband + 1).sum())
+            extra[f"{row}_edge_bound_ms"] = \
+                (edge - body) * edge_cells / int_ops_s * 1e3
+            return nbytes, body * width * int(walk.sum())
 
         sl_cand = cand[:, ::DAM_SLICE].contiguous()
         sl_lb = lb[::DAM_SLICE].contiguous()
@@ -2936,7 +2966,7 @@ class Smoke:
               lambda: dk.dam_band_1v_many(q, cand, lb, kband=7,
                                           staged=(las, tabs)),
               lambda: dk.dam_band_plain(q.size, 7, tabs, cand, lb), 20,
-              dam_work(lb, q.size, 7))
+              dam_work(lb, q.size, 7, "dam_band"))
         # the register form (the query's first 32 chars) and the band at
         # radius 3 and 15, kernel times and bounds only
         q32 = q[:32]
@@ -2950,7 +2980,7 @@ class Smoke:
             extra[f"dam_band_k{kb}_ms"] = cuda_ms(
                 torch, lambda: dk.dam_band_1v_many(q, cand, lb, kband=kb,
                                                    staged=(las, tabs)), 20)
-            nb, ops = dam_work(lb, q.size, kb)
+            nb, ops = dam_work(lb, q.size, kb, f"dam_band_k{kb}")
             extra[f"dam_band_k{kb}_bound_ms"] = max(nb / HBM_BYTES_S,
                                                     ops / int_ops_s) * 1e3
         sl_cand = long_sc.cand[:, ::DAM_SLICE].contiguous()
@@ -2967,8 +2997,8 @@ class Smoke:
                                           kband=15, staged=l4k),
               lambda: dk.dam_band_plain(q4k.size, 15, l4k[1], sl_cand,
                                         sl_lb), 5,
-              dam_work(long_sc.lb, q4k.size, 15), warm=False,
-              every=DAM_BAND_SLICE)
+              dam_work(long_sc.lb, q4k.size, 15, "dam_band_long"),
+              warm=False, every=DAM_BAND_SLICE)
         del sl_cand, sl_lb
         s300 = lk.stage_query(enc["q300"], "local", self.dev)
         extra["dam_scan_long_q300_ms"] = cuda_ms(
@@ -2978,20 +3008,44 @@ class Smoke:
         nb, ops = dam_work(long_sc.lb, enc["q300"].size)
         extra["dam_scan_long_q300_bound_ms"] = max(nb / HBM_BYTES_S,
                                                    ops / int_ops_s) * 1e3
+        # K1 and K4 over the long corpus with the 300-char query (K1's
+        # scratch form, K4's registers), held against their plain versions
+        # on the LONG_SHORTEST shortest texts (the plain versions walk as
+        # many steps as the longest text they are given: 8,192 take K1's
+        # over 20 s)
+        cols = slice(0, LONG_SHORTEST)
+        sl_cand = long_sc.cand[:, cols].contiguous()
+        sl_lb = long_sc.lb[cols].contiguous()
+        w300 = lk.words(enc["q300"].size)
+        timed("lev_scan_long",
+              lambda: lk.lev_1v_many(enc["q300"], long_sc.cand, long_sc.lb,
+                                     staged=s300),
+              lambda: lk.lev_scan_plain(s300[0], s300[1][None], sl_cand,
+                                        sl_lb)[0], 2,
+              scan_work("lev_scan_long", long_sc.lb, w300), warm=False,
+              cols=cols, row="lev_scan_long_q300")
+        timed("lcs_scan_long",
+              lambda: ck.lcs_1v_many(enc["q300"], long_sc.cand, long_sc.lb,
+                                     staged=s300),
+              lambda: ck.lcs_scan_plain(s300[1][None], sl_cand, sl_lb)[0], 2,
+              scan_work("lcs_scan_long", long_sc.lb, w300), warm=False,
+              cols=cols, row="lcs_scan_long_q300")
+        del sl_cand, sl_lb
         # K1, K4, K6 and K8 over the long corpus at the other query widths
-        # of the long phase: 300 chars (K1's, K6's and K8's scratch forms,
-        # K4's registers) and ~4,000 (every scratch form)
+        # of the long phase: 300 chars (K6's and K8's scratch forms) and
+        # ~4,000 (every scratch form), kernel times only
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
             extra[f"jaro_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: jk.jaro_1v_many(enc[key], long_sc.cand,
                                                long_sc.lb, staged=st), 2)
-            extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
-                torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
-                                              long_sc.lb, staged=st), 2)
-            extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
-                torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
-                                              long_sc.lb, staged=st), 2)
+            if key == "q4k":
+                extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
+                    torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
+                                                  long_sc.lb, staged=st), 2)
+                extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
+                    torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
+                                                  long_sc.lb, staged=st), 2)
             extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)

@@ -45,15 +45,16 @@
 // The state of a candidate is D[i-1], D[i-2] and X, three ints per query
 // column.
 //
-// What bounds it on an H100: integer issue.  A cell of the full form is
-// 15.6 INT32-lane instructions in the SASS of the unrolled register form
+// What bounds it on an H100: integer issue.  A cell is 15.6 INT32-lane
+// instructions in the SASS of the full form's unrolled register form
 // (the bit tests, the mins and a DPX add-min for cand, the adds and
-// selects of the transposition and of the match's updates), a cell of
-// the band 21 (it also masks the rows at the column-0 edge): la cells per
-// text row for the full form, 2*kband + 1 for the band
-// (chip_smoke.DAM_OPS).  The corpus is read once, a byte per char.  The
-// scratch form adds a 4-byte load and a 4-byte store per cell, and those
-// bytes bound it instead.
+// selects of the transposition and of the match's updates), 13.6-15.1 in
+// the band's at radius 3-15, 16-19.3 in its first kband + 1 rows, which
+// also mask the column-0 edge: la cells per text row for the full form,
+// 2*kband + 1 for the band (chip_smoke.DAM_CELL_OPS, DAM_BAND_OPS).
+// The corpus is read once, a byte per char.  The scratch form adds a
+// 4-byte load and a 4-byte store per cell, and those bytes bound it
+// instead.
 //
 // Design:
 // * one thread per candidate, over the chunk [b0, b0 + nb) of the corpus
@@ -80,9 +81,12 @@
 //   the row's 2k + 1 equality bits one funnel shift of two PM words, the
 //   previous row's the same word shifted by one; the three arrays of
 //   2k + 2 positions in registers (the last a pad that column entering
-//   the band reads as fresh), at any bucket length.  A candidate whose
-//   length differs from the query's by more than k cannot be within k,
-//   so it returns BIG without a row;
+//   the band reads as fresh), at any bucket length; the rows that reach
+//   column 0 (i <= k + 1, the first (k + 1) / 4 packed words) run a loop
+//   of their own that masks the edge, so the others do not pay for it
+//   (a branch per row instead costs registers: ptxas spills at k = 15).
+//   A candidate whose length differs from the query's by more than k
+//   cannot be within k, so it returns BIG without a row;
 // * la == 0 gives lb; lb == 0 gives la;
 // * every offset into the corpus, the output and the scratch is 64-bit.
 
@@ -333,14 +337,14 @@ __device__ __forceinline__ uint32_t pm_window(const uint32_t* pm, int ws,
 // by one position as it is read (column j sits one position further left
 // in each row).  eb: bit p = eq(i, i - K + p); pb: bit p = eq(i-1, same
 // column), cleared at p = 2K (that column was outside row i-1's band).
-template <int K>
+// EDGE: a row i <= K + 1, whose band reaches column 0 or left of it.
+template <int K, bool EDGE>
 __device__ __forceinline__ void row_band(uint32_t eb, uint32_t pb,
                                          int (&cur)[2 * K + 2],
                                          const int (&prv)[2 * K + 2],
                                          int (&X)[2 * K + 2], int i) {
     constexpr int P = 2 * K + 1;
-    const bool edge = i <= K + 1;             // columns <= 0 in the band
-    int left = (i == K + 1) ? i : kBig;       // D[i][i - K - 1]
+    int left = (EDGE && i == K + 1) ? i : kBig;   // D[i][i - K - 1]
     int dprev = kBig;
     int rt = kBig;
     const uint32_t e1b = eb << 1;
@@ -353,7 +357,7 @@ __device__ __forceinline__ void row_band(uint32_t eb, uint32_t pb,
         const bool e = (eb >> p) & 1u;
         int nv = cell(up, diag, left, xo, rt + p, i, e, (e1b >> p) & 1u,
                       (pb >> p) & 1u);
-        if (edge) {
+        if (EDGE) {
             const int jcol = i - K + p;
             nv = jcol >= 1 ? nv : (jcol == 0 ? i : kBig);
         }
@@ -362,6 +366,41 @@ __device__ __forceinline__ void row_band(uint32_t eb, uint32_t pb,
         cur[p] = nv;
         left = nv;
         dprev = diag;
+    }
+}
+
+// The band's rows over packed words [r, r_end) of a candidate's text of
+// n chars (rows words at col, stride B): next holds word r, already
+// loaded; i is the last row done and eprev its equality bits.  EDGE: rows
+// that reach column 0.  Rows run in pairs, so that A and D (each row
+// overwriting the older) swap at compile time: a word holds 4 rows, so
+// i = 4r is even at a call and row i + 1 writes A.
+template <int K, bool EDGE, bool SMEM>
+__device__ __forceinline__ void band_words(
+        const uint32_t* pm, int ws, const uint32_t* col, int64_t B, int n,
+        int rows, int r, int r_end, uint32_t& next, uint32_t& eprev, int& i,
+        int (&A)[2 * K + 2], int (&D)[2 * K + 2], int (&X)[2 * K + 2]) {
+    constexpr uint32_t kPrevMask = (1u << (2 * K)) - 1u;
+#pragma unroll 1
+    for (; r < r_end; ++r) {
+        const uint32_t word = next;
+        if (r + 1 < rows) next = col[(size_t)(r + 1) * B];
+        const int m = min(4, n - 4 * r);
+#pragma unroll 1
+        for (int u = 0; u < m; u += 2) {
+            ++i;
+            uint32_t eb = pm_window<SMEM>(pm, ws, (word >> (8 * u)) & 0xFFu,
+                                          i - K - 1);
+            row_band<K, EDGE>(eb, (eprev >> 1) & kPrevMask, A, D, X, i);
+            eprev = eb;
+            if (u + 1 < m) {
+                ++i;
+                eb = pm_window<SMEM>(pm, ws, (word >> (8 * u + 8)) & 0xFFu,
+                                     i - K - 1);
+                row_band<K, EDGE>(eb, (eprev >> 1) & kPrevMask, D, A, X, i);
+                eprev = eb;
+            }
+        }
     }
 }
 
@@ -394,33 +433,19 @@ dam_band_kernel(const uint32_t* __restrict__ pm_g, int ws, int la,
         D[p] = (p >= K && p < P) ? p - K : kBig;
         X[p] = kBig;
     }
-    constexpr uint32_t kPrevMask = (1u << (2 * K)) - 1u;
     uint32_t eprev = 0u;                      // row i-1's bits at its offset
     const uint32_t* col = cand + b;
     const int rows = (n + 3) >> 2;
     uint32_t next = rows ? col[0] : 0u;
     int i = 0;
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) {
-        const uint32_t word = next;
-        if (r + 1 < rows) next = col[(size_t)(r + 1) * B];
-        const int m = min(4, n - 4 * r);
-#pragma unroll 1
-        for (int u = 0; u < m; u += 2) {
-            ++i;
-            uint32_t eb = pm_window<SMEM>(pm, ws, (word >> (8 * u)) & 0xFFu,
-                                          i - K - 1);
-            row_band<K>(eb, (eprev >> 1) & kPrevMask, A, D, X, i);
-            eprev = eb;
-            if (u + 1 < m) {
-                ++i;
-                eb = pm_window<SMEM>(pm, ws, (word >> (8 * u + 8)) & 0xFFu,
-                                     i - K - 1);
-                row_band<K>(eb, (eprev >> 1) & kPrevMask, D, A, X, i);
-                eprev = eb;
-            }
-        }
-    }
+    // the first K + 1 rows (whole packed words) reach column 0 and take
+    // the masked body, the others the unmasked one
+    static_assert((K + 1) % 4 == 0, "edge rows fill whole packed words");
+    const int r_edge = min(rows, (K + 1) / 4);
+    band_words<K, true, SMEM>(pm, ws, col, B, n, rows, 0, r_edge, next,
+                              eprev, i, A, D, X);
+    band_words<K, false, SMEM>(pm, ws, col, B, n, rows, r_edge, rows, next,
+                               eprev, i, A, D, X);
     // D[n][la] at position la - n + K of row n (A when n is odd)
     const bool odd = n & 1;
     const int pf = la - n + K;

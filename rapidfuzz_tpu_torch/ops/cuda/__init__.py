@@ -62,6 +62,10 @@ LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "jaro_scan_long": 0, "dam_scan": 0, "dam_scan_long": 0,
             "dam_band": 0, "dam_band_long": 0}
 
+#: elements under which a PyTorch CPU op runs on one thread (its grain
+#: size); the plain versions' CPU steps stay under it
+PLAIN_GRAIN = 32768
+
 _lock = threading.Lock()
 _lib = None
 #: seconds the last nvcc build took (None: the library was already built)
@@ -107,6 +111,13 @@ def default_device() -> torch.device:
             "no CUDA device: pass device='cpu' to run the plain PyTorch "
             "versions of the kernels on the CPU")
     return torch.device("cuda")
+
+
+def plain_slice(B: int, width: int, dev: torch.device) -> int:
+    """Candidates per slice of a plain version: all ``B`` on the card, on
+    the CPU few enough that a step's ``[b, width]`` tensors stay under
+    :data:`PLAIN_GRAIN` and run on one thread."""
+    return B if dev.type != "cpu" else max(1, PLAIN_GRAIN // width)
 
 
 def reset_launches() -> None:

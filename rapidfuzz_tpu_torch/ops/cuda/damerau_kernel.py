@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..damerau import BIG, cell_targets, full_row, last_match, left_scan
-from . import check, launch
+from . import check, launch, plain_slice
 from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import PM_ROWS, stage_query, words
 
@@ -59,9 +59,6 @@ BLOCK = 256              # candidates per CUDA block
 #: the smallest radius >= it, a wider band being exact for all results
 #: <= the cutoff
 DAM_BAND_BUCKETS = (3, 7, 15)
-#: elements under which a PyTorch CPU op runs on one thread (its grain
-#: size); the plain versions' CPU steps stay under it
-PLAIN_GRAIN = 32768
 
 
 def pick_dam_band(cutoff: int, lbmax: int):
@@ -85,13 +82,6 @@ def _eq_table(la: int, tabs: torch.Tensor) -> torch.Tensor:
     return hit.t().to(torch.bool).contiguous()
 
 
-def _slices(B: int, width: int, dev) -> int:
-    """Candidates per plain-version slice: all of them on the card, on the
-    CPU few enough that a step's ``[b, width]`` tensors stay under
-    :data:`PLAIN_GRAIN` and run on one thread."""
-    return B if dev.type != "cpu" else max(1, PLAIN_GRAIN // width)
-
-
 def dam_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
                    lb: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch K9 full form: ``tabs [W, 256]`` -> ``[B]`` int32.
@@ -108,7 +98,7 @@ def dam_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
         return lb64.to(torch.int32)
     dev = lb.device
     eq = _eq_table(la, tabs)
-    step = _slices(B, la + 1, dev)
+    step = plain_slice(B, la + 1, dev)
     out = []
     for s in range(0, B, step):
         lbs = lb64[s: s + step]
@@ -155,7 +145,7 @@ def dam_band_plain(la: int, kband: int, tabs: torch.Tensor,
     n = min(la, LB + K)
     eq[:, K: K + n] = _eq_table(la, tabs)[:, :n]
     p = torch.arange(P, device=dev)
-    step = _slices(B, P + 1, dev)
+    step = plain_slice(B, P + 1, dev)
     out = []
     for s in range(0, B, step):
         lbs = lb64[s: s + step]

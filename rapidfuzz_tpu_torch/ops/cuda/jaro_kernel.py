@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..bitpack import popcount
-from . import check, launch
+from . import check, launch, plain_slice
 from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
                          words)
@@ -47,9 +47,6 @@ MAX_REG_W = 8            # K8 keeps its state in registers up to this many
 SCRATCH_BYTES = 1 << 30  # bound of one launch's scratch (the scanner's
                          # memory plan)
 BLOCK = 256              # candidates per CUDA block
-#: elements under which a PyTorch CPU op runs on one thread (its grain
-#: size); the plain version's CPU steps stay under it
-PLAIN_GRAIN = 32768
 
 
 def _below(n: torch.Tensor) -> torch.Tensor:
@@ -86,7 +83,7 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     tab = padded_tables(tabs)                            # [NQ, W, 257]
     la = las.to(torch.int64)[:, None]                    # [NQ, 1]
     base = (32 * torch.arange(W, device=dev))[None, :, None]
-    step = B if dev.type != "cpu" else max(1, PLAIN_GRAIN // (NQ * W))
+    step = plain_slice(B, NQ * W, dev)
     LB = cand.shape[0] * 4
     outs = []
     for s in range(0, B, step):

@@ -37,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import check, launch
+from . import check, launch, plain_slice
 from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import LONG_LB, PM_ROWS, stage_query, words
 
@@ -46,9 +46,6 @@ MAX_REG_LA = 128         # K7 keeps the row in registers up to this many
 SCRATCH_BYTES = 1 << 30  # bound of one scan's row scratch (the scanner's
                          # memory plan)
 BLOCK = 256              # candidates per CUDA block
-#: elements under which a PyTorch CPU op runs on one thread (its grain
-#: size); the plain version's CPU steps stay under it
-PLAIN_GRAIN = 32768
 
 
 def fits_int32(la: int, LB: int, ins: int, dele: int, sub: int) -> bool:
@@ -86,7 +83,7 @@ def wlev_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
     # [257, la]: the substitution cost of each char at each position,
     # less the deletion the shift to E folds in (row 256: past the end)
     cost = ((1 - hit) * sub - dele).t().to(torch.int32).contiguous()
-    step = B if dev.type != "cpu" else max(1, PLAIN_GRAIN // (la + 1))
+    step = plain_slice(B, la + 1, dev)
     out = []
     for s in range(0, B, step):
         lbs = lb64[s: s + step]
