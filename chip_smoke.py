@@ -11,7 +11,7 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``) and, for K7, K8 and K9, each
+   registers and spills (``ptxas -v``) and, for K7, K8, K9 and K10, each
    kernel's SASS instruction count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
@@ -38,7 +38,12 @@ Phases, each printing one JSON line before the next starts:
    scratch form (33-4,001 chars, also over several chunks of a small
    scratch budget) over buckets of 32-16,400 chars, byte and local mode,
    and its band at radius 3, 7 and 15 (equal to the plain full distances
-   within the radius, above it elsewhere);
+   within the radius, above it elsewhere); K10 (partial_ratio's window
+   sweep) at queries of 1-300 chars in its register form and 520 in its
+   scratch form (also over several chunks of a small scratch budget),
+   over buckets of 64, 1,024 and 8,192 chars, byte and local mode, with
+   empty candidates, candidates on both sides of the query's length and
+   planted exact windows in both roles;
    and one K2 case whose bucket (300,000 chars) makes its blocks
    stride past 65,535 grid rows, its scan held against the oracle on a
    sampled row;
@@ -114,7 +119,17 @@ Phases, each printing one JSON line before the next starts:
    bucket-6000 texts, all held against the oracle (whole-corpus windows:
    Damerau is at least the length difference and at least half the
    Levenshtein distance);
-13. timing — each kernel and its plain version at its main-path shape
+13. partial — ``fuzz.partial_ratio``: ``ScanService(metric=
+   "partial_ratio")`` over the serve corpus behind ``make_server``
+   (``/topk`` for a 12- and a 64-char query, ``/distances`` plain and
+   under a cutoff, ``/batch``), ``CorpusScanner``s over the long corpus
+   (64-char query), 16,384 bucket-6000 texts (300-char query) and the
+   Cyrillic corpus, and ``fuzz.partial_ratio_many`` and
+   ``partial_ratio_alignment_many`` over 65,536 strings, held against the
+   oracle's brute-force ``1.0 - partial_ratio`` bit for bit on sampled
+   rows (the 12-char query's top-k over the whole corpus) and the
+   windows against the port's scalar ``partial_ratio_alignment``;
+14. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound, the output of each timed launch
@@ -124,17 +139,19 @@ Phases, each printing one JSON line before the next starts:
    a slice of the candidates where the whole shape would take it over
    10 s; K8 also at 300 and 4,001 chars over the long corpus; K9 also at
    32 chars (its register form) and at radius 3 and 15 over the serve
-   corpus and at 300 chars over the long corpus;
-14. rate   — one len-64 query, then 16 per launch, against 67,108,864
+   corpus and at 300 chars over the long corpus; K10 with a 12-char query
+   over the serve corpus, and a 64-char one over the serve and the long
+   corpus;
+15. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
-8, 9, 10, 11 and 12 and read after each, so the counts are those of the
-seven main paths alone; every kernel must have launched in them.  Each
+8, 9, 10, 11, 12 and 13 and read after each, so the counts are those of
+the eight main paths alone; every kernel must have launched in them.  Each
 phase's line gives its seconds and those of its oracle checks
 (``oracle_s``), the kernels phase's also per family of cases and the wlev,
-jaro and dam phases' per part.
+jaro, dam and partial phases' per part.
 Any failure raises: the script then exits nonzero and never prints its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
 exits nonzero before any phase.
@@ -279,6 +296,31 @@ LCS_BAND_STEP_OPS = 1
 #: without a row)
 DAM_CELL_OPS = 15.55
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
+#: K10's bound charges every window step the function needs, per query
+#: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
+#: the SASS of the built library: the loop body of K10's role for
+#: candidates shorter than the query (the non-IMAD instructions over one or
+#: two text chars, divided by the G windows and W words it steps; IMADs,
+#: here the W = 1 add, issue on the FMA lanes and do not bind), whose
+#: window mask folds into the lop3 that ands S with the PM word:
+#: partial_scan_reg<1,8> 55 per two chars, <2,8> 63 per char.  The steps
+#: are those this run's data needs: for a candidate of n >= m chars the
+#: m - 1 prefix steps and each window's min(m, n - st) chars, for
+#: 0 < n < m the whole candidate once for each of its n + m - 1 query
+#: windows.  What the group layout adds for n >= m goes beside the bound
+#: (*_layout_bound_ms), not in it: its body selects each window's PM on
+#: every step (PARTIAL_LAYOUT_OPS: 97 per two chars, 105 per char), and it
+#: steps all G windows over the group's m + G - 1 chars, the steps before
+#: a window's start and past its end being identity steps; the shorter
+#: candidates' last group of windows is padded to G
+PARTIAL_STEP_OPS = {1: 55 / 16, 2: 63 / 16}
+PARTIAL_LAYOUT_OPS = {1: 97 / 16, 2: 105 / 16}
+PARTIAL_G = 8
+#: the kernel cases' first query length past K10's register form, and the
+#: partial phase's sampled rows of the 300-char query over the
+#: bucket-6000 texts (the oracle's brute force takes ~0.3 s a pair there)
+PARTIAL_WIDE = 32 * 16 + 8
+PARTIAL_ODD_SAMPLE = 24
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
@@ -308,6 +350,8 @@ REPLACES = {
                      "(and :1648)",
     "dam_band": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1038",
     "dam_band_long": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1277",
+    "partial_scan": "rapidfuzz_tpu/ops/pallas/partial_kernel.py:366 "
+                    "(_kernel_q :227, _kernel :68)",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -334,6 +378,7 @@ SOURCES = {
     "dam_scan_long": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
     "dam_band": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
     "dam_band_long": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
+    "partial_scan": "rapidfuzz_tpu_torch/csrc/partial_scan.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
@@ -343,7 +388,9 @@ OSA_PATH = ("osa_scan", "osa_scan_nq", "osa_scan_long")
 WLEV_PATH = ("wlev_scan", "wlev_scan_long")
 JARO_PATH = ("jaro_scan", "jaro_scan_nq", "jaro_scan_long")
 DAM_PATH = ("dam_scan", "dam_scan_long", "dam_band", "dam_band_long")
+PARTIAL_PATH = ("partial_scan",)
 DAM = "damerau_levenshtein"
+PR = "partial_ratio"
 
 
 def emit(obj) -> None:
@@ -452,12 +499,13 @@ class Smoke:
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
         from rapidfuzz_tpu_torch.ops.cuda import osa_kernel as ok
+        from rapidfuzz_tpu_torch.ops.cuda import partial_kernel as pk
         from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel as wk
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
         self.ck, self.cbk, self.ok, self.wk, self.jk = ck, cbk, ok, wk, jk
-        self.dk = dk
+        self.dk, self.pk = dk, pk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -616,6 +664,8 @@ class Smoke:
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
                 ("jaro", lambda s: self.jaro_kernel_cases(rng, alph, s)),
                 ("dam", lambda s: self.dam_kernel_cases(rng, alph, s)),
+                ("partial", lambda s: self.partial_kernel_cases(rng, alph,
+                                                                s)),
                 ("stride", lambda s: self.stride_case(rng))):
             t0 = time.perf_counter()
             salt = run(salt)
@@ -1058,6 +1108,102 @@ class Smoke:
                  bands)
         return salt
 
+    def partial_corpus(self, g, q, alphabet, B, lb_max):
+        """Packed candidates of 0..lb_max chars for K10's cases, in four
+        kinds by row: the query at a random offset inside a longer row
+        (an exact window, n >= m), a piece of the query of fewer than m
+        chars as the whole row (an exact window in the swapped role), a
+        random row of exactly m chars, a random row; row 0 empty."""
+        torch, dev = self.torch, self.dev
+        m = q.size
+        a = torch.from_numpy(alphabet).to(dev)
+        qt = torch.from_numpy(q).to(dev)
+        chars = a[torch.randint(0, a.numel(), (B, lb_max), generator=g,
+                                device=dev)]
+        lens = torch.randint(0, lb_max + 1, (B,), generator=g, device=dev)
+        kind = torch.arange(B, device=dev) % 4
+        pos = torch.arange(lb_max, device=dev)[None, :]
+        if m <= lb_max:
+            off = torch.randint(0, lb_max - m + 1, (B,), generator=g,
+                                device=dev)
+            at = (kind == 0)[:, None] & (pos >= off[:, None]) \
+                & (pos < off[:, None] + m)
+            chars = torch.where(at, qt[(pos - off[:, None]).clamp(0, m - 1)],
+                                chars)
+            lens = torch.where(kind == 0, torch.maximum(lens, off + m), lens)
+            lens = torch.where(kind == 2, m, lens)
+        if m > 1:
+            k = torch.randint(1, min(m - 1, lb_max) + 1, (B,), generator=g,
+                              device=dev)
+            st = (torch.rand(B, generator=g, device=dev)
+                  * (m - k + 1)).long().clamp(max=m - 1)
+            piece = qt[(st[:, None] + pos).clamp(max=m - 1)]
+            chars = torch.where((kind == 1)[:, None], piece, chars)
+            lens = torch.where(kind == 1, k, lens)
+        lens[0] = 0
+        chars = torch.where(pos < lens[:, None], chars, -1).to(torch.int32)
+        return self.lk.prepare_corpus(chars, lens.to(torch.int32))
+
+    def partial_kernel_cases(self, rng, alph, salt):
+        """K10 against its plain version, (num, den, start, end) bit for
+        bit, over :meth:`partial_corpus` rows (every role with rows must
+        hold an exact window, score 1.0): queries of 1, 7, 32, 33, 64, 65
+        and 300 chars and PARTIAL_WIDE (past the register form) over
+        N_KERNEL candidates of bucket 64 (N_KERNEL // 16 from 300 chars),
+        byte and local mode; 33, 300 and PARTIAL_WIDE chars over
+        N_KERNEL_LONG candidates of bucket 1,024 (PARTIAL_WIDE over a
+        quarter of them) and 64 chars over bucket 8,192; the scratch form
+        once more over chunks of a scratch budget a quarter of the
+        candidates'."""
+        torch, lk, pk, kc = self.torch, self.lk, self.pk, self.kc
+
+        def case(q, mode, cand, lb, what):
+            _, tabs = lk.stage_query(q, mode, self.dev)
+            got = torch.stack(pk.partial_ratio_1v_many(q, cand, lb,
+                                                       mode=mode))
+            self.compare("partial_scan", got,
+                         pk.partial_scan_plain(q.size, tabs, cand, lb), what)
+            n = lb.to(torch.int64)
+            exact = got[0] == got[1]
+            for role, rows in (("n >= m", n >= q.size),
+                               ("n < m", (n > 0) & (n < q.size))):
+                if bool(rows.any()) and not bool((exact & rows).any()):
+                    raise AssertionError(f"partial_scan {what}: no exact "
+                                         f"window where {role}")
+
+        for LBs, la, mode, B in (
+                (64, 1, "byte", N_KERNEL), (64, 7, "local", N_KERNEL),
+                (64, 32, "byte", N_KERNEL), (64, 33, "local", N_KERNEL),
+                (64, 64, "byte", N_KERNEL), (64, 65, "local", N_KERNEL),
+                (64, 300, "byte", N_KERNEL // 16),
+                (64, PARTIAL_WIDE, "local", N_KERNEL // 16),
+                (1024, 33, "byte", N_KERNEL_LONG),
+                (1024, 300, "local", N_KERNEL_LONG),
+                (1024, PARTIAL_WIDE, "byte", N_KERNEL_LONG // 4),
+                (LONG_LB, 64, "byte", N_KERNEL_LONG)):
+            salt += 1
+            a = alph[mode]
+            q = rng.choice(a, la)
+            cand, lb = self.partial_corpus(self.gen(salt), q, a, B, LBs)
+            what = f"LB={LBs} la={la} {mode}"
+            case(q, mode, cand, lb, what)
+            if LBs == 64 and la == PARTIAL_WIDE:
+                W = lk.words(la)
+                budget = 4 * W * (B // 4)
+                chunk = max(pk.BLOCK, budget // (4 * W) // pk.BLOCK
+                            * pk.BLOCK)
+                before = kc.LAUNCHES["partial_scan"]
+                plan = pk.SCRATCH_BYTES
+                pk.SCRATCH_BYTES = budget
+                try:
+                    case(q, mode, cand, lb, f"{what} over chunks of {chunk}")
+                finally:
+                    pk.SCRATCH_BYTES = plan
+                if kc.LAUNCHES["partial_scan"] - before != -(-B // chunk):
+                    raise AssertionError("K10 scratch: wrong number of "
+                                         "chunk launches")
+        return salt
+
     def stride_case(self, rng):
         """K2 over a bucket of STRIDE_LB chars (75,000 packed rows: its
         blocks stride past the 65,535 rows grid.y can hold) of N_STRIDE
@@ -1146,10 +1292,13 @@ class Smoke:
         ``(ins, del, sub)`` is
         weighted Levenshtein with the query as the pattern, one scalar
         call per string; "jaro" and "jaro_winkler" (at JARO_PW) are f64
-        distances ``1.0 - similarity``, from :meth:`jaro_rows`)."""
+        distances ``1.0 - similarity``, from :meth:`jaro_rows`, and
+        "partial_ratio" ``1.0 - score``, from :meth:`partial_rows`)."""
         if metric in ("jaro", "jaro_winkler"):
             return self.jaro_rows(query, strings,
                                   None if metric == "jaro" else JARO_PW)
+        if metric == PR:
+            return self.partial_rows(query, strings)
         enc = [self.codec.encode_one(s) for s in strings]
         if metric in ("osa", DAM) or isinstance(metric, tuple):
             eq = self.codec.encode_one(query)
@@ -2204,6 +2353,20 @@ class Smoke:
         return 1.0 - np.array([v for part in done for v in part],
                               np.float64)
 
+    def partial_rows(self, query, strings) -> np.ndarray:
+        """The oracle's f64 distances ``1.0 - partial_ratio`` of ``query``
+        to ``strings`` (its brute force: one indel DP per window), one
+        scalar call per string, eight slices in parallel (ctypes drops the
+        GIL)."""
+        eq = self.codec.encode_one(query)
+        enc = [self.codec.encode_one(s) for s in strings]
+        parts = np.array_split(np.arange(len(enc)), 8)
+        with ThreadPoolExecutor(8) as ex:
+            done = list(ex.map(lambda ix: [self.oracle.partial_ratio(
+                eq, enc[i]) for i in ix], parts))
+        return 1.0 - np.array([v for part in done for v in part],
+                              np.float64)
+
     def jaro_window(self, q, corpus, lens, s_min, pw=None, common=None,
                     prefix=None):
         """Rows whose similarity to ``q`` can reach ``s_min``, and the
@@ -2631,9 +2794,162 @@ class Smoke:
                          "long_topk_s": long_s, "parts_s": parts,
                          "launches": dict(self.kc.LAUNCHES),
                          "seconds": time.perf_counter() - t_start})
-        del self.long_corpus, self.wide_corpus, self.odd_corpus, self.serve_lev
+        del self.serve_lev
 
     # ------------------------------------------------------------ phase 13
+    def phase_partial(self):
+        """``fuzz.partial_ratio`` on its main path:
+        ``ScanService(metric="partial_ratio")`` over the serve corpus behind
+        ``make_server`` -- ``/topk`` for a 12-char piece of an anchor (every
+        row whose score is 1.0, the query inside it or it inside the query,
+        found on the host over the whole corpus; sampled rows) and for the
+        64-char anchor (nearly every row shorter: the swapped role; sampled
+        rows), ``/distances`` plain and under cutoff 0.1 (sampled and
+        planted rows), ``/batch`` of both queries (equal to the ``/topk``
+        answers); a ``CorpusScanner`` over the long corpus with the 64-char
+        query and one over the first N_ODD bucket-6000 texts with the
+        300-char query (top-k on sampled rows: the oracle's brute force
+        takes ~0.3 s a pair at 300 chars); one over the Cyrillic corpus (K2,
+        then K10 in local mode); and ``fuzz.partial_ratio_many`` and
+        ``partial_ratio_alignment_many`` over N_LIB strings, the positions
+        held against the port's scalar ``partial_ratio_alignment``.  Every
+        value is the oracle's ``1.0 - partial_ratio`` bit for bit."""
+        from rapidfuzz_tpu_torch import fuzz
+        from rapidfuzz_tpu_torch.parallel import CorpusScanner
+        from rapidfuzz_tpu_torch.serve import ScanService
+
+        rng = np.random.default_rng(self.seed + 10)
+        t_start = time.perf_counter()
+        corpus = self.serve_corpus
+        t0 = time.perf_counter()
+        service = ScanService(corpus, metric=PR, bucket=LB, device=self.dev)
+        t_build = time.perf_counter() - t0
+        warm = service.warmup(full=True)
+        bad = {k: v for k, v in warm.items() if not isinstance(v, float)}
+        if bad or "distances_hint" in warm:
+            raise AssertionError(f"partial warmup routes: {warm}")
+        q64 = self.serve_anchors[0]
+        q12 = q64[20:32]
+        sample = np.unique(np.r_[rng.choice(N_SERVE, N_SAMPLE,
+                                            replace=False),
+                                 self.serve_planted])
+        call, stop, timings = self.serve_http(service)
+        try:
+            answers = {}
+            for q in (q12, q64):
+                out = call("/topk", {"query": q, "k": 10})
+                answers[q] = out
+                self.check_topk_sampled(q, corpus, out["values"],
+                                        out["indices"], sample, 10,
+                                        f"partial /topk len {len(q)}", PR)
+                if out["strings"] != [corpus[i] for i in out["indices"]]:
+                    raise AssertionError("partial /topk strings mismatch")
+            # score 1.0 exactly where the query lies in the row or the row
+            # (non-empty, shorter) in the query: the whole-corpus top-k of
+            # the 12-char query
+            exact = [i for i, s in enumerate(corpus)
+                     if (q12 in s if len(s) >= len(q12) else s and s in q12)]
+            out = answers[q12]
+            if not (len(exact) >= 10 and out["indices"] == exact[:10]
+                    and out["values"] == [0.0] * 10):
+                raise AssertionError(f"partial /topk len 12: "
+                                     f"{out['indices']} != {exact[:10]}")
+            d = np.asarray(call("/distances", {"query": q64})["values"])
+            if not np.array_equal(d[sample], self.oracle_rows(
+                    q64, [corpus[i] for i in sample], PR)):
+                raise AssertionError("partial /distances != oracle on "
+                                     "sampled rows")
+            cut = 0.1
+            out = call("/distances", {"query": q64, "score_cutoff": cut})
+            valid = np.asarray(out["valid"])
+            if not (np.array_equal(np.asarray(out["values"]), d)
+                    and np.array_equal(valid, d <= cut) and valid.any()):
+                raise AssertionError(f"partial /distances score_cutoff={cut}"
+                                     " != the plain distances' mask")
+            out = call("/batch", {"queries": [q12, q64], "k": 10})
+            for qi, q in enumerate((q12, q64)):
+                if (out["values"][qi] != answers[q]["values"]
+                        or out["indices"][qi] != answers[q]["indices"]):
+                    raise AssertionError(f"partial /batch query {qi} != "
+                                         "/topk")
+        finally:
+            stop()
+        del service
+        parts = {"serve": time.perf_counter() - t_start,
+                 "serve_oracle": self.oracle_s - self.oracle_mark}
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the long texts: the 64-char query over the long corpus, the
+        # 300-char one over the bucket-6000 texts
+        qs = self.long_queries
+        long_s = {}
+        for key, texts, bucket, nsample in (
+                ("q64", self.long_corpus, LONG_LB, LONG_SAMPLE),
+                ("q300", self.odd_corpus, ODD_LB, PARTIAL_ODD_SAMPLE)):
+            sc = CorpusScanner(texts, metric=PR, bucket=bucket,
+                               device=self.dev)
+            t0 = time.perf_counter()
+            vals, ids = sc.topk(qs[key], 10)
+            long_s[key] = time.perf_counter() - t0
+            lsample = rng.choice(len(texts), nsample, replace=False)
+            self.check_topk_sampled(qs[key], texts, vals, ids, lsample, 10,
+                                    f"partial long topk {key}", PR)
+            del sc
+        parts["long"] = time.perf_counter() - t_part
+        parts["long_oracle"] = self.oracle_s - o_part
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the Cyrillic corpus: K2's remap, then K10 in local mode
+        before = self.kc.LAUNCHES["remap_pack"]
+        wide = CorpusScanner(self.wide_corpus, metric=PR, bucket=LB,
+                             device=self.dev)
+        qw = self.wide_query_str
+        wsample = rng.choice(N_WIDE, N_SAMPLE, replace=False)
+        if not np.array_equal(wide.distances(qw)[wsample], self.oracle_rows(
+                qw, [self.wide_corpus[i] for i in wsample], PR)):
+            raise AssertionError("partial wide distances != oracle on "
+                                 "sampled rows")
+        vals, ids = wide.topk(qw, 10)
+        self.check_topk_sampled(qw, self.wide_corpus, vals, ids, wsample, 10,
+                                "partial wide topk", PR)
+        if self.kc.LAUNCHES["remap_pack"] == before:
+            raise AssertionError("partial wide route never launched "
+                                 "remap_pack")
+        del wide
+        parts["wide"] = time.perf_counter() - t_part
+        parts["wide_oracle"] = self.oracle_s - o_part
+        t_part, o_part = time.perf_counter(), self.oracle_s
+        # the library: one K10 launch for the scores, one for the windows
+        sub = corpus[:N_LIB]
+        res = fuzz.partial_ratio_many(q12, sub, score_cutoff=0.5)
+        al = fuzz.partial_ratio_alignment_many(q12, sub)
+        rows = np.unique(np.r_[rng.choice(N_LIB, N_SAMPLE, replace=False),
+                               np.argsort(res.values)[-64:]])
+        truth = 1.0 - self.oracle_rows(q12, [sub[i] for i in rows], PR)
+        if not (np.array_equal(res.values[rows], truth)
+                and np.array_equal(res.valid, res.values >= 0.5)
+                and [al[i].score for i in rows] == truth.tolist()):
+            raise AssertionError("partial_ratio_many / _alignment_many != "
+                                 "oracle on sampled rows")
+        lens = np.array([len(s) for s in sub])
+        for i in np.r_[rows[:4], np.flatnonzero(lens < len(q12))[:4],
+                       int(np.argmax(res.values))]:
+            if al[i] != fuzz.partial_ratio_alignment(q12, sub[i]):
+                raise AssertionError(f"partial alignment row {i}: {al[i]} "
+                                     "!= the scalar sweep's")
+        self.sync()
+        parts["library"] = time.perf_counter() - t_part
+        parts["library_oracle"] = self.oracle_s - o_part
+        self.emit_phase({"phase": "partial", "corpus": N_SERVE, "bucket": LB,
+                         "long_corpus": len(self.long_corpus),
+                         "odd_corpus": len(self.odd_corpus),
+                         "wide_corpus": N_WIDE, "scanner_build_s": t_build,
+                         "warmup_s": warm,
+                         "request_s": {k: v for k, v in timings.items()},
+                         "long_topk_s": long_s, "parts_s": parts,
+                         "launches": dict(self.kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
+        del self.long_corpus, self.wide_corpus, self.odd_corpus
+
+    # ------------------------------------------------------------ phase 14
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -3049,6 +3365,59 @@ class Smoke:
             extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
                                               long_sc.lb, staged=st), 2)
+        # K10: the serve corpus with a 12-char piece of the query (the
+        # partial phase's /topk), the kernels line's row; then the 64-char
+        # query over the serve corpus (nearly every candidate shorter: the
+        # swapped role) and over the long corpus, kernel times and bounds
+        pk = self.pk
+
+        def partial_work(lbv, la, row):
+            """Bytes and INT32 operations of a K10 launch: each candidate's
+            packed chars, length and four outputs once, the PM table once,
+            and PARTIAL_STEP_OPS per query word and window step this data
+            needs.  The group layout's extra (see PARTIAL_STEP_OPS) goes to
+            ``extra[row + "_layout_bound_ms"]``."""
+            n = lbv.to(torch.int64)
+            win = n >= la
+            steps_win = int(torch.where(win, la - 1 + la * (n - la + 1)
+                                        + la * (la - 1) // 2, 0).sum())
+            steps_swap = int(torch.where(win, 0, n * (n + la - 1)).sum())
+            W = lk.words(la)
+            G, span = PARTIAL_G, la + PARTIAL_G - 1
+            # the layout's steps for n >= m: G windows over min(span,
+            # n - base) chars for each group base = 0, G, 2G, .. < n
+            ng = (n + G - 1) // G
+            full = (torch.div(n - span, G, rounding_mode="floor") + 1
+                    ).clamp(min=0).minimum(ng)
+            group = G * (full * span + (ng - full) * n
+                         - G * ((ng - 1) * ng - (full - 1) * full) // 2)
+            group = int(torch.where(win, group, 0).sum())
+            nw = n + la - 1
+            pad = int(torch.where(win | (n == 0), 0,
+                                  n * ((nw + G - 1) // G * G - nw)).sum())
+            prefix = (la - 1) * int(win.sum())
+            layout = (PARTIAL_LAYOUT_OPS[W] * group
+                      + PARTIAL_STEP_OPS[W] * (pad - steps_win + prefix))
+            extra[f"{row}_layout_bound_ms"] = W * layout / int_ops_s * 1e3
+            nbytes = int(((n + 3) // 4).sum()) * 4 + n.numel() * 20 + W * 1024
+            return nbytes, W * PARTIAL_STEP_OPS[W] * (steps_win + steps_swap)
+
+        q12 = q[20:32]
+        s12 = lk.stage_query(q12, "local", self.dev)
+        timed("partial_scan",
+              lambda: torch.stack(pk.partial_ratio_1v_many(q12, cand, lb,
+                                                           staged=s12)),
+              lambda: pk.partial_scan_plain(q12.size, s12[1], cand, lb), 20,
+              partial_work(lb, q12.size, "partial_scan"))
+        for key, (qp, st, c, lv) in (
+                ("q64", (q, (las, tabs), cand, lb)),
+                ("long_q64", (q64, l64, long_sc.cand, long_sc.lb))):
+            extra[f"partial_scan_{key}_ms"] = cuda_ms(
+                torch, lambda: pk.partial_ratio_1v_many(qp, c, lv, staged=st),
+                5)
+            nb, ops = partial_work(lv, qp.size, f"partial_scan_{key}")
+            extra[f"partial_scan_{key}_bound_ms"] = max(
+                nb / HBM_BYTES_S, ops / int_ops_s) * 1e3
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
         self.timing, self.bounds = rows, bounds
@@ -3069,7 +3438,7 @@ class Smoke:
             **extra, "seconds": time.perf_counter() - t_start})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 14
+    # ------------------------------------------------------------ phase 15
     def phase_rate(self, card: str):
         """Each short-text kernel (K1 in both forms, K3, K6, K7, K2) at N_RATE
         len-64 candidates, its plain version (but K7's, timed in the
@@ -3207,11 +3576,13 @@ def main(argv=None) -> int:
           "ptxas": ptxas_summary(kc.ptxas_report),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
           "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
-          "sass_dam_scan": sass_histogram(kc, "dam_")})
+          "sass_dam_scan": sass_histogram(kc, "dam_"),
+          "sass_partial_scan": sass_histogram(kc, "partial_scan")})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
     # short texts, the LCS family's, the long texts', OSA's, the weighted
-    # one's, the Jaro family's, then Damerau-Levenshtein's
+    # one's, the Jaro family's, Damerau-Levenshtein's, then
+    # partial_ratio's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -3256,9 +3627,15 @@ def main(argv=None) -> int:
     for name in DAM_PATH:
         if dam_launches[name] == 0:
             raise AssertionError(f"Damerau path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_partial()
+    partial_launches = dict(kc.LAUNCHES)
+    for name in PARTIAL_PATH:
+        if partial_launches[name] == 0:
+            raise AssertionError(f"partial_ratio path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
                 + osa_launches[k] + wlev_launches[k] + jaro_launches[k]
-                + dam_launches[k] for k in launches}
+                + dam_launches[k] + partial_launches[k] for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -3275,7 +3652,8 @@ def main(argv=None) -> int:
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
          # no single PyTorch call computes an edit distance (weighted,
-         # uniform or Damerau), an LCS length or Jaro's components
+         # uniform or Damerau), an LCS length, Jaro's components or a
+         # windowed LCS
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,8 +7,9 @@ never share (or race on) one shared object.  Bound so far: the uniform
 Levenshtein, indel and LCS entry points the ported scans are checked
 against and the library's scalar paths use, weighted Levenshtein, and
 OSA (``rf_osa`` and ``rf_osa_bp``), Jaro and Jaro-Winkler (``rf_jaro``,
-``rf_jaro_winkler``), and Damerau-Levenshtein (``rf_damerau`` and its
-rolling-row form ``rf_damerau_rows``).
+``rf_jaro_winkler``), Damerau-Levenshtein (``rf_damerau`` and its
+rolling-row form ``rf_damerau_rows``), and ``fuzz.partial_ratio``
+(``rf_partial_ratio``).
 """
 
 from __future__ import annotations
@@ -92,6 +93,8 @@ def _load():
             lib.rf_damerau.argtypes = [p64, i64, p64, i64]
             lib.rf_damerau_rows.restype = i64
             lib.rf_damerau_rows.argtypes = [p64, i64, p64, i64]
+            lib.rf_partial_ratio.restype = ctypes.c_double
+            lib.rf_partial_ratio.argtypes = [p64, i64, p64, i64]
             _lib = lib
     return _lib
 
@@ -240,3 +243,11 @@ def damerau_rows(a, b) -> int:
     :func:`damerau`), a second opinion for the tests."""
     a, b = _arr(a), _arr(b)
     return int(_load().rf_damerau_rows(a, a.size, b, b.size))
+
+
+def partial_ratio(a, b) -> float:
+    """Brute-force best-window indel ratio of the shorter input over every
+    clipped window of the longer (``native/oracle.cpp:501``), f64: one
+    indel DP per window, independent of the library's window sweeps."""
+    a, b = _arr(a), _arr(b)
+    return float(_load().rf_partial_ratio(a, a.size, b, b.size))

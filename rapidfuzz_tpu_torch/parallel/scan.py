@@ -2,7 +2,8 @@
 
 Counterpart of ``rapidfuzz_tpu/parallel/scan.py`` for Levenshtein (uniform
 and weighted), the LCS family (indel, lcs_seq), OSA, the Jaro family
-(jaro, jaro_winkler) and Damerau-Levenshtein: the corpus is
+(jaro, jaro_winkler), Damerau-Levenshtein and ``fuzz.partial_ratio``:
+the corpus is
 encoded once, length-sorted, packed and kept on the device, and every
 query scan reuses it — the reference's ``BatchComparator`` pattern
 (``levenshtein.rs:1625-1657``) over a corpus.  Routing follows the JAX
@@ -17,7 +18,11 @@ XLA, and a Jaro scan takes its kernel at every bucket and query length,
 where the JAX scanner leaves buckets over 16,384 chars and queries over
 its VMEM budget to XLA, and a Damerau scan takes its kernels at every
 bucket, where the JAX scanner leaves buckets over 8,192 chars to XLA
-(``damerau_kernel.py:1694``).  Only the ops wrappers choose between a kernel
+(``damerau_kernel.py:1694``), and a partial_ratio scan takes its kernel at
+every bucket and query length, candidates shorter than the query
+included, where the JAX scanner leaves queries over 64 chars and buckets
+over 1024 to its host sweep and re-scores the shorter candidates on the
+host.  Only the ops wrappers choose between a kernel
 (CUDA tensors) and its plain version (CPU tensors), so the host logic is
 the same on both.
 """
@@ -38,6 +43,7 @@ from ..ops.cuda import lcs_band_kernel as _cbk
 from ..ops.cuda import lcs_kernel as _ck
 from ..ops.cuda import lev_kernel as _lk
 from ..ops.cuda import osa_kernel as _ok
+from ..ops.cuda import partial_kernel as _pk
 from ..ops.cuda import wlev_kernel as _wk
 from ..utils import codec as _codec
 
@@ -50,9 +56,11 @@ BLOCK = 256
 STREAM_CHUNK = 512
 #: metrics the scanner serves
 METRICS = ("levenshtein", "indel", "lcs_seq", "osa", "jaro", "jaro_winkler",
-           "damerau_levenshtein")
-#: of those, the f64 metrics: distance ``1.0 - similarity``
-F64_METRICS = ("jaro", "jaro_winkler")
+           "damerau_levenshtein", "partial_ratio")
+#: the Jaro family, finished on the host from K8's components
+JARO_METRICS = ("jaro", "jaro_winkler")
+#: the f64 metrics: distance ``1.0 - similarity``
+F64_METRICS = JARO_METRICS + ("partial_ratio",)
 #: narrowest query (in u32 words) the LCS band serves: the TPU rule
 #: (``scan.py:866-872``), kept for parity
 LCS_BAND_MIN_W = 8
@@ -61,8 +69,8 @@ LCS_BAND_MIN_W = 8
 class CorpusScanner:
     """One-vs-many scan over a device-resident corpus: Levenshtein
     (uniform or weighted), indel, lcs_seq, OSA or Damerau-Levenshtein
-    distances, or Jaro and Jaro-Winkler distances ``1.0 - similarity``
-    (f64).
+    distances, or Jaro, Jaro-Winkler and ``partial_ratio`` distances
+    ``1.0 - similarity`` (f64).
 
     The corpus is encoded once (length-sorted, byte-packed) on ``device``
     (default: ``cuda``; pass ``"cpu"`` for the kernels' plain versions).
@@ -93,7 +101,11 @@ class CorpusScanner:
     (:meth:`_dam_distances`): under an integer cutoff its banded form
     where the JAX scanner's rules pick the band, otherwise its full form,
     at every bucket and query length; a hint is ignored and ``scan_many``
-    runs one query per launch, as in the JAX scanner.
+    runs one query per launch, as in the JAX scanner.  ``partial_ratio``
+    scans with K10 (:meth:`_partial_distances`) at every bucket and query
+    length, candidates shorter than the query included: no band, no hint
+    route, a cutoff masks the f64 distances, ``scan_many`` one query per
+    launch.
 
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
@@ -115,7 +127,10 @@ class CorpusScanner:
     own layout); queries over 32 chars keep a ``[4, la, chunk]`` int32
     scratch (``16*la`` bytes per candidate) within
     ``damerau_kernel.SCRATCH_BYTES``: a 64-char query over 1M strings is
-    1 GiB, one launch.
+    1 GiB, one launch.  A partial_ratio scan adds K10's four int32 outputs
+    (num, den, start, end: 16 bytes per candidate) and, for queries over
+    512 chars, one window's state in a ``[W, chunk]`` u32 scratch (``4*W``
+    bytes per candidate) within ``partial_kernel.SCRATCH_BYTES``.
     """
 
     NQ_GROUP = 16  # queries per multi-query launch
@@ -126,7 +141,7 @@ class CorpusScanner:
         if metric not in METRICS:
             raise NotImplementedError(
                 f"metric {metric!r} is not ported yet (ROADMAP.md queue 1, "
-                "items 8 and 12)")
+                "item 8)")
         self.metric = metric
         self.prefix_weight = prefix_weight
         self.device = torch.device(device) if device is not None \
@@ -233,7 +248,7 @@ class CorpusScanner:
             self.cand, _ = _lk.prepare_corpus(
                 torch.from_numpy(srt).to(self.device), self.lb)
             self._chars_dev = None
-        if metric in F64_METRICS:
+        if metric in JARO_METRICS:
             # the Jaro finish runs on the host in sorted order: lengths,
             # and the first 4 chars for the Winkler prefix, taken before
             # any per-query remap (it compares the original chars)
@@ -303,8 +318,14 @@ class CorpusScanner:
         q = self._encode_query(query)
         if self._zero:
             return np.zeros(self.lb.shape[0], np.int64)
+        if self.metric == "partial_ratio" and q.size == 0:
+            # an empty query: 1.0 against every non-empty candidate
+            # (scan.py:488-489)
+            return (self.lb > 0).cpu().numpy().astype(np.float64)
         qk, mode, cand = self._query_view(q)
-        if self.metric in F64_METRICS:
+        if self.metric == "partial_ratio":
+            return self._partial_distances(qk, mode, cand)
+        if self.metric in JARO_METRICS:
             # K8 at every bucket and query length; no band, no hint route
             # (scan.py:809-826); a cutoff masks the distances in distances()
             common, trans = _jk.jaro_1v_many(qk, cand, self.lb, mode=mode)
@@ -360,6 +381,20 @@ class CorpusScanner:
                                                   q.size, lens),
                               self.prefix_weight)
         return 1.0 - sim
+
+    def _partial_distances(self, qk, mode, cand):
+        """partial_ratio distances ``1.0 - score`` (f64), sorted order: K10
+        scores every candidate, the shorter-than-query ones in the swapped
+        role (``scan.py:478-586``, where they are re-scored on the host);
+        the score's f64 finish is the JAX package's (``fuzz.py:502-504``).
+        No band, no hint route; a cutoff masks the distances in
+        :meth:`distances`."""
+        num, den, _, _ = _pk.partial_ratio_1v_many(qk, cand, self.lb,
+                                                   mode=mode)
+        num = num.cpu().numpy().astype(np.float64)
+        den = den.cpu().numpy().astype(np.float64)
+        score = 1.0 - (den - num) / den
+        return 1.0 - score
 
     def _dam_distances(self, qk, mode, cand, score_cutoff):
         """Damerau-Levenshtein distances, sorted order, routed as the JAX
@@ -549,12 +584,13 @@ class CorpusScanner:
         """scan_many batches queries into one multi-query launch when the
         packed corpus is query-independent (not on the wide-alphabet
         route, which remaps the corpus per query) and, as in the JAX
-        scanner, the bucket is at most 1024 chars and the scan is neither
-        weighted nor Damerau (K7 and K9 have no multi-query form,
-        ``scan.py:1260-1262``)."""
+        scanner, the bucket is at most 1024 chars and the scan is not
+        weighted, Damerau or partial_ratio (K7, K9 and K10 have no
+        multi-query form, ``scan.py:1260-1262``)."""
         return (not self._wide and not self._zero and not self._long
                 and self._weights is None
-                and self.metric != "damerau_levenshtein")
+                and self.metric not in ("damerau_levenshtein",
+                                        "partial_ratio"))
 
     def _distances_many(self, queries):
         """``[len(queries), n]`` distances via grouped multi-query launches.
@@ -569,7 +605,7 @@ class CorpusScanner:
         :meth:`_jaro_finish` keeps its host arrays (``scan.py:1302``).
         """
         enc = [self._encode_query(q) for q in queries]
-        jaro = self.metric in F64_METRICS
+        jaro = self.metric in JARO_METRICS
         out = np.zeros((len(enc), self.n), np.float64 if jaro else np.int64)
         groups: dict = {}
         for i, q in enumerate(enc):

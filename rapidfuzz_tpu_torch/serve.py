@@ -3,7 +3,8 @@
 Counterpart of ``rapidfuzz_tpu/serve.py``: load the corpus once, keep it
 on the device, answer one-vs-many queries over HTTP under one metric
 (``--metric levenshtein``, ``indel``, ``lcs_seq``, ``osa``, ``jaro``,
-``jaro_winkler`` or ``damerau_levenshtein``).  Stdlib-only.  The Jaro family answers f64 distances
+``jaro_winkler``, ``damerau_levenshtein`` or ``partial_ratio``).
+Stdlib-only.  The Jaro family and ``partial_ratio`` answer f64 distances
 ``1.0 - similarity``; Jaro-Winkler's ``prefix_weight`` (default 0.1) and
 Levenshtein's ``weights`` have no flag, as in the JAX server: pass them
 to :class:`ScanService` in Python.
@@ -41,6 +42,8 @@ Run::
         --metric jaro_winkler
     python -m rapidfuzz_tpu_torch.serve --corpus words.txt \
         --metric damerau_levenshtein
+    python -m rapidfuzz_tpu_torch.serve --corpus products.txt \
+        --metric partial_ratio
 
 Requests serialize through a lock: one scan saturates the card, so
 concurrency would only interleave kernel launches.
@@ -253,7 +256,8 @@ def main(argv=None):
                     help="text file, one corpus string per line")
     ap.add_argument("--metric", default="levenshtein",
                     help="levenshtein, indel, lcs_seq, osa, jaro, "
-                         "jaro_winkler or damerau_levenshtein")
+                         "jaro_winkler, damerau_levenshtein or "
+                         "partial_ratio")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8947)
     ap.add_argument("--bucket", type=int, default=None,

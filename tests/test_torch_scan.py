@@ -176,7 +176,7 @@ def test_weights_vocab_remap_and_unported_cases():
     np.testing.assert_array_equal(
         CorpusScanner(["a" * 1500, "ab"], device="cpu").distances("aa"),
         [1498, 1])
-    with pytest.raises(NotImplementedError, match="items 8 and 12"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         CorpusScanner(corpus, metric="prefix", device="cpu")
     wide = CorpusScanner(corpus + ["а"], device="cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
