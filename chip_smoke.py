@@ -11,7 +11,7 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``) and, for K7, K8, K9 and K10, each
+   registers and spills (``ptxas -v``) and, for K7-K11, each
    kernel's SASS instruction count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: the short-text routes at 262,144 candidates, the
@@ -43,7 +43,9 @@ Phases, each printing one JSON line before the next starts:
    scratch form (also over several chunks of a small scratch budget),
    over buckets of 64, 1,024 and 8,192 chars, byte and local mode, with
    empty candidates, candidates on both sides of the query's length and
-   planted exact windows in both roles;
+   planted exact windows in both roles; K11 (one long pair's band) at
+   R = 1, 2, 3, 4 and 8 over texts of 3,000-5,000 chars, at the band's
+   edge, with la - lb > K, identical runs and a wide vocabulary;
    and one K2 case whose bucket (300,000 chars) makes its blocks
    stride past 65,535 grid rows, its scan held against the oracle on a
    sampled row;
@@ -129,7 +131,15 @@ Phases, each printing one JSON line before the next starts:
    oracle's brute-force ``1.0 - partial_ratio`` bit for bit on sampled
    rows (the 12-char query's top-k over the whole corpus) and the
    windows against the port's scalar ``partial_ratio_alignment``;
-14. timing — each kernel and its plain version at its main-path shape
+14. pair    — one long pair on the library's device scalar route
+   (``RAPIDFUZZ_TPU_SCALAR_BACKEND=device``, K11 and its hint ladder): the
+   OCR fixture (106,514 x 107,244 chars, distance 5,278) with no cutoff,
+   cutoff 2,500 (``None``) and hint 0, ``similarity`` and
+   ``normalized_similarity`` under cutoffs, and a pair of two 30,000-char
+   strings past the band's ceiling (4 rungs, then the host route), every
+   answer held against the same call on the host oracle's route and each
+   call's rungs counted;
+15. timing — each kernel and its plain version at its main-path shape
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound, the output of each timed launch
@@ -141,14 +151,15 @@ Phases, each printing one JSON line before the next starts:
    32 chars (its register form) and at radius 3 and 15 over the serve
    corpus and at 300 chars over the long corpus; K10 with a 12-char query
    over the serve corpus, and a 64-char one over the serve and the long
-   corpus;
-15. rate   — one len-64 query, then 16 per launch, against 67,108,864
+   corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8, its plain version
+   on the first 4,096 text chars at R = 4;
+16. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
-8, 9, 10, 11, 12 and 13 and read after each, so the counts are those of
-the eight main paths alone; every kernel must have launched in them.  Each
+8, 9, 10, 11, 12, 13 and 14 and read after each, so the counts are those
+of the nine main paths alone; every kernel must have launched in them.  Each
 phase's line gives its seconds and those of its oracle checks
 (``oracle_s``), the kernels phase's also per family of cases and the wlev,
 jaro, dam and partial phases' per part.
@@ -321,6 +332,34 @@ PARTIAL_G = 8
 #: bucket-6000 texts (the oracle's brute force takes ~0.3 s a pair there)
 PARTIAL_WIDE = 32 * 16 + 8
 PARTIAL_ODD_SAMPLE = 24
+#: K11's bound charges every band word of every text step the INT32-lane
+#: instructions that the Myers/Hyyro band step needs, counted in the SASS
+#: of lev_pair_kernel<4> (the R of the OCR pair's last rung) over its 16
+#: band words a lane: the window's funnel shift, the and with vp, the add
+#: and its carry into the next word (IADD3, IADD3.X: 16 + 15), the two
+#: LOP3s of d0, hp, hn, the slide's funnel shift, vp and vn, 175 in all.
+#: What the design adds goes beside the bound (lev_pair_layout_bound_ms),
+#: not in it: the lane's all-ones mask, the ballots and the carry into the
+#: lane and its words, the diagonal delta, the neighbour's word for the
+#: slide, the window's address, in-table test and offset switch and the
+#: char broadcast (112 non-IMAD instructions a lane and diagonal step on
+#: the in-table path, either step of the loop), and the horizontal phase's
+#: select of hp, hn (70 more a lane and step); the loads and the loop are
+#: in neither.  The one-warp figures (lev_pair_warp_bound_ms,
+#: lev_pair_warp_layout_ms) issue the same instructions at one warp's 32
+#: lanes a cycle, the floor of a design that steps one pair with one warp
+LEV_PAIR_OPS = (16 + 16 + 16 + 15 + 2 * 16 + 16 + 16 + 3 * 16) / 16
+LEV_PAIR_LAYOUT = (112, 70)
+#: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
+#: levenshtein.rs:2139-2161): its distance and the cutoff that must give
+#: None; the pair past the band's ceiling (max_cutoff(8) = 16,383): two
+#: independent strings of PAIR_FAR chars over 26 letters
+OCR = "tests/fixtures/ocr.npz"
+OCR_DIST = 5278
+OCR_CUT = 2500
+PAIR_FAR = 30000
+#: text chars of the OCR pair the plain version walks in the timing phase
+PAIR_PLAIN_STEPS = 4096
 REPLACES = {
     "lev_scan": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:149",
     "lev_scan_nq": "rapidfuzz_tpu/ops/pallas/lev_kernel.py:407",
@@ -352,6 +391,7 @@ REPLACES = {
     "dam_band_long": "rapidfuzz_tpu/ops/pallas/damerau_kernel.py:1277",
     "partial_scan": "rapidfuzz_tpu/ops/pallas/partial_kernel.py:366 "
                     "(_kernel_q :227, _kernel :68)",
+    "lev_pair": "rapidfuzz_tpu/ops/pallas/pair_kernel.py:191 (_kernel :79)",
 }
 SOURCES = {
     "lev_scan": "rapidfuzz_tpu_torch/csrc/lev_scan.cu",
@@ -379,6 +419,7 @@ SOURCES = {
     "dam_band": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
     "dam_band_long": "rapidfuzz_tpu_torch/csrc/dam_scan.cu",
     "partial_scan": "rapidfuzz_tpu_torch/csrc/partial_scan.cu",
+    "lev_pair": "rapidfuzz_tpu_torch/csrc/lev_pair.cu",
 }
 SHORT_PATH = ("lev_scan", "lev_scan_nq", "remap_pack", "lev_band")
 LCS_PATH = ("lcs_scan", "lcs_scan_nq", "lcs_band")
@@ -389,6 +430,7 @@ WLEV_PATH = ("wlev_scan", "wlev_scan_long")
 JARO_PATH = ("jaro_scan", "jaro_scan_nq", "jaro_scan_long")
 DAM_PATH = ("dam_scan", "dam_scan_long", "dam_band", "dam_band_long")
 PARTIAL_PATH = ("partial_scan",)
+PAIR_PATH = ("lev_pair",)
 DAM = "damerau_levenshtein"
 PR = "partial_ratio"
 
@@ -499,13 +541,14 @@ class Smoke:
         from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
         from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
         from rapidfuzz_tpu_torch.ops.cuda import osa_kernel as ok
+        from rapidfuzz_tpu_torch.ops.cuda import pair_kernel as prk
         from rapidfuzz_tpu_torch.ops.cuda import partial_kernel as pk
         from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel as wk
         from rapidfuzz_tpu_torch.utils import codec
 
         self.torch, self.kc, self.lk, self.bk = torch, kc, lk, bk
         self.ck, self.cbk, self.ok, self.wk, self.jk = ck, cbk, ok, wk, jk
-        self.dk, self.pk = dk, pk
+        self.dk, self.pk, self.prk = dk, pk, prk
         self.oracle, self.codec = oracle, codec
         self.seed = seed
         self.dev = torch.device("cuda")
@@ -666,6 +709,7 @@ class Smoke:
                 ("dam", lambda s: self.dam_kernel_cases(rng, alph, s)),
                 ("partial", lambda s: self.partial_kernel_cases(rng, alph,
                                                                 s)),
+                ("pair", lambda s: self.pair_kernel_cases(rng, s)),
                 ("stride", lambda s: self.stride_case(rng))):
             t0 = time.perf_counter()
             salt = run(salt)
@@ -1202,6 +1246,39 @@ class Smoke:
                 if kc.LAUNCHES["partial_scan"] - before != -(-B // chunk):
                     raise AssertionError("K10 scratch: wrong number of "
                                          "chunk launches")
+        return salt
+
+    def pair_kernel_cases(self, rng, salt):
+        """K11 against its plain version, bit for bit, at R = 1, 2, 3, 4
+        and 8, over texts of 3,000-5,000 chars (the plain version's ~30
+        launches a step): a near copy at the band's edge K = max_cutoff(1);
+        la - lb > K at R = 2; at R = 3 (a band born of a hint) K = la - 1,
+        the band spanning the pattern; identical runs at R = 4, whose
+        add's carry crosses every lane; a wide-vocabulary pair (Cyrillic
+        and CJK) at R = 8's edge, K = 16,383, most of its steps in the
+        horizontal phase."""
+        prk, enc = self.prk, self.codec.encode_one
+        abc = np.arange(97, 101)
+        wide = np.r_[np.arange(0x410, 0x450), np.arange(0x4E00, 0x4E40)]
+        near = "".join(rng.choice(list("abcd"), 3000))
+        near5 = "".join(rng.choice(list("abcd"), 5000))
+        cases = (
+            ("near copy", enc(near), enc(self.edit(rng, near, 60)), 1,
+             prk.max_cutoff(1)),
+            ("la - lb > K", rng.choice(abc, 8000), rng.choice(abc, 3000), 2,
+             prk.max_cutoff(2)),
+            ("band spans", enc(near5), enc(self.edit(rng, near5, 150)), 3,
+             4999),
+            ("identical runs", np.full(9000, 97), np.full(3500, 97), 4,
+             prk.max_cutoff(4)),
+            ("wide vocab", rng.choice(wide, 17000), rng.choice(wide, 4000),
+             8, prk.max_cutoff(8)))
+        for what, a, b, R, K in cases:
+            la, text, table = prk.stage_pair(a, b, self.dev)
+            got = prk._pair(table, text, la, K, R)
+            self.compare("lev_pair", got,
+                         prk.lev_pair_plain(table, text, la, K, R),
+                         f"{what} R={R} K={K}")
         return salt
 
     def stride_case(self, rng):
@@ -2950,6 +3027,85 @@ class Smoke:
         del self.long_corpus, self.wide_corpus, self.odd_corpus
 
     # ------------------------------------------------------------ phase 14
+    def phase_pair(self):
+        """One long pair on the library's device scalar route
+        (``RAPIDFUZZ_TPU_SCALAR_BACKEND=device``; K11 and the hint ladder):
+        the OCR fixture (106,514 x 107,244 chars) gives 5,278 with no
+        cutoff (3 rungs: R = 1, 2, 4), ``None`` under cutoff 2,500 (1 rung)
+        and 5,278 under hint 0 (3 rungs); ``similarity`` and
+        ``normalized_similarity`` under cutoffs (bands of R = 4 and 3) equal
+        the same calls on the host oracle's route
+        (``levenshtein_uniform_auto``); and two independent PAIR_FAR-char
+        strings, whose distance passes the band's ceiling, climb 4 rungs and
+        then take the host route, equal to the oracle.  The rungs of each
+        call are its ``lev_pair`` launches."""
+        from rapidfuzz_tpu_torch.distance import levenshtein as L
+
+        kc, prk = self.kc, self.prk
+        t_start = time.perf_counter()
+        fix = np.load(OCR)
+        a, b = fix["ex1"].astype(np.int64), fix["ex2"].astype(np.int64)
+        rng = np.random.default_rng(self.seed + 11)
+        far = (rng.integers(97, 123, PAIR_FAR), rng.integers(97, 123,
+                                                             PAIR_FAR))
+        mx = max(a.size, b.size)
+        calls = (
+            ("distance", L.distance, (a, b), {}, OCR_DIST, 3),
+            ("distance_cutoff", L.distance, (a, b),
+             {"score_cutoff": OCR_CUT}, None, 1),
+            ("distance_hint0", L.distance, (a, b), {"score_hint": 0},
+             OCR_DIST, 3),
+            ("similarity_cutoff", L.similarity, (a, b),
+             {"score_cutoff": mx - OCR_DIST - 1000}, None, 1),
+            ("normalized_similarity_cutoff", L.normalized_similarity,
+             (a, b), {"score_cutoff": 0.95}, None, 1),
+            ("far_pair", L.distance, far, {}, None, 4))
+        out = {}
+        key = "RAPIDFUZZ_TPU_SCALAR_BACKEND"
+        before_env = os.environ.get(key)
+        try:
+            # every call on the host oracle's route first (the "cpp"
+            # backend), then on the device route
+            os.environ[key] = "cpp"
+            t0 = time.perf_counter()
+            truth = {name: fn(*pair, **kw)
+                     for name, fn, pair, kw, _, _ in calls}
+            self.oracle_s += time.perf_counter() - t0
+            if truth["distance"] != OCR_DIST or truth["distance_hint0"] \
+                    != OCR_DIST or truth["distance_cutoff"] is not None:
+                raise AssertionError(f"pair: the oracle's OCR answers "
+                                     f"{truth}")
+            if truth["far_pair"] <= prk.max_cutoff(prk.ROWS):
+                raise AssertionError(f"pair: the far pair's distance "
+                                     f"{truth['far_pair']} is within the "
+                                     "band")
+            os.environ[key] = "device"
+            for name, fn, pair, kw, want, rungs in calls:
+                n0 = kc.LAUNCHES["lev_pair"]
+                t0 = time.perf_counter()
+                got = fn(*pair, **kw)
+                sec = time.perf_counter() - t0
+                n = kc.LAUNCHES["lev_pair"] - n0
+                out[name] = {"value": got, "rungs": n, "s": sec}
+                if got != truth[name] or (want is not None and got != want):
+                    raise AssertionError(f"pair {name}: {got} != the "
+                                         f"oracle's {truth[name]}")
+                if n != rungs:
+                    raise AssertionError(f"pair {name}: {n} rungs, "
+                                         f"expected {rungs}")
+        finally:
+            if before_env is None:
+                del os.environ[key]
+            else:
+                os.environ[key] = before_env
+        self.sync()
+        self.emit_phase({"phase": "pair", "lengths": [int(a.size),
+                                                      int(b.size)],
+                         "far_lengths": PAIR_FAR, "calls": out,
+                         "launches": dict(kc.LAUNCHES),
+                         "seconds": time.perf_counter() - t_start})
+
+    # ------------------------------------------------------------ phase 15
     def phase_timing(self, clock_mhz: float):
         """Each kernel and its plain version at its main-path shape, with
         the least time the card could take for the same work: the
@@ -3418,6 +3574,42 @@ class Smoke:
             nb, ops = partial_work(lv, qp.size, f"partial_scan_{key}")
             extra[f"partial_scan_{key}_bound_ms"] = max(
                 nb / HBM_BYTES_S, ops / int_ops_s) * 1e3
+        # K11: the OCR pair's last rung (R = 4) and each other band on it;
+        # the plain version on the first PAIR_PLAIN_STEPS text chars, held
+        # to the kernel on those chars
+        prk = self.prk
+        fix = np.load(OCR)
+        la, text, table = prk.stage_pair(fix["ex1"], fix["ex2"], self.dev)
+        lbp = text.numel()
+        rung_ms = {R: cuda_ms(torch, lambda: prk._pair(
+            table, text, la, prk.max_cutoff(R), R), 3 if R == 4 else 1)
+            for R in (1, 2, 3, 4, 8)}
+        head = text[:PAIR_PLAIN_STEPS].contiguous()
+        K4 = prk.max_cutoff(4)
+        ref = []
+        pms = cuda_ms(torch, lambda: ref.append(prk.lev_pair_plain(
+            table, head, la, K4, 4)), 1, warm=False)
+        self.compare("lev_pair", prk._pair(table, head, la, K4, 4), ref[-1],
+                     f"timing inputs, first {PAIR_PLAIN_STEPS} text chars")
+        rows["lev_pair"] = (rung_ms[4], pms)
+        ops = LEV_PAIR_OPS * 4 * 128 * lbp
+        # the layout's lane-steps: every step, and the horizontal ones
+        # (j >= la - K) again for their select
+        layout = 32 * (LEV_PAIR_LAYOUT[0] * lbp
+                       + LEV_PAIR_LAYOUT[1] * max(lbp - (la - K4), 0))
+        t_bytes = (table.numel() + lbp + 1) * 4 / HBM_BYTES_S * 1e3
+        t_ops = ops / int_ops_s * 1e3
+        bounds["lev_pair"] = (max(t_bytes, t_ops),
+                              "bytes" if t_bytes >= t_ops else "operations")
+        extra.update({
+            "lev_pair_rungs_ms": rung_ms,
+            "lev_pair_plain_text_chars": PAIR_PLAIN_STEPS,
+            "lev_pair_warp_bound_ms": ops / (32 * clock_mhz * 1e6) * 1e3,
+            "lev_pair_layout_bound_ms": layout / int_ops_s * 1e3,
+            "lev_pair_warp_layout_ms": layout / (32 * clock_mhz * 1e6) * 1e3,
+            "lev_pair_ns_per_step": rung_ms[4] * 1e6 / lbp,
+            "lev_pair_table_bytes": table.numel() * 4})
+        del table, text, head
         steps = int(long_sc.lb.to(torch.int64).sum())
         ms_long = rows["lev_scan_long"][0]
         self.timing, self.bounds = rows, bounds
@@ -3438,7 +3630,7 @@ class Smoke:
             **extra, "seconds": time.perf_counter() - t_start})
         del self.long_scanner, self.odd_scanner, self.mid_scanner
 
-    # ------------------------------------------------------------ phase 15
+    # ------------------------------------------------------------ phase 16
     def phase_rate(self, card: str):
         """Each short-text kernel (K1 in both forms, K3, K6, K7, K2) at N_RATE
         len-64 candidates, its plain version (but K7's, timed in the
@@ -3577,12 +3769,13 @@ def main(argv=None) -> int:
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
           "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
           "sass_dam_scan": sass_histogram(kc, "dam_"),
-          "sass_partial_scan": sass_histogram(kc, "partial_scan")})
+          "sass_partial_scan": sass_histogram(kc, "partial_scan"),
+          "sass_lev_pair": sass_histogram(kc, "lev_pair")})
     smoke.phase_kernels()
     # the main paths, each counted from zero: the serving path over
     # short texts, the LCS family's, the long texts', OSA's, the weighted
-    # one's, the Jaro family's, Damerau-Levenshtein's, then
-    # partial_ratio's
+    # one's, the Jaro family's, Damerau-Levenshtein's, partial_ratio's,
+    # then one long pair's
     kc.reset_launches()
     smoke.phase_serve()
     smoke.phase_wide()
@@ -3633,9 +3826,16 @@ def main(argv=None) -> int:
     for name in PARTIAL_PATH:
         if partial_launches[name] == 0:
             raise AssertionError(f"partial_ratio path never launched {name}")
+    kc.reset_launches()
+    smoke.phase_pair()
+    pair_launches = dict(kc.LAUNCHES)
+    for name in PAIR_PATH:
+        if pair_launches[name] == 0:
+            raise AssertionError(f"long-pair path never launched {name}")
     launches = {k: launches[k] + lcs_launches[k] + long_launches[k]
                 + osa_launches[k] + wlev_launches[k] + jaro_launches[k]
-                + dam_launches[k] + partial_launches[k] for k in launches}
+                + dam_launches[k] + partial_launches[k] + pair_launches[k]
+                for k in launches}
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
@@ -3652,8 +3852,8 @@ def main(argv=None) -> int:
          "bound_ms": smoke.bounds[name][0],
          "bound_by": smoke.bounds[name][1],
          # no single PyTorch call computes an edit distance (weighted,
-         # uniform or Damerau), an LCS length, Jaro's components or a
-         # windowed LCS
+         # uniform, banded or Damerau), an LCS length, Jaro's components or
+         # a windowed LCS
          "library_ms": None}
         for name in kc.LAUNCHES]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -8,7 +8,12 @@ batch APIs ``*_many`` and a ``BatchComparator``.
 * Scalar scores run on the host oracle (``native/oracle.cpp``).  The JAX
   package's in-process C route for str/bytes (``native/rf_scalar.cpp``)
   is a latency item still to port (ROADMAP.md queue 1, item 3); it
-  returns the same values.
+  returns the same values.  Under ``RAPIDFUZZ_TPU_SCALAR_BACKEND=device``
+  they run on the card: one long pair of uniform weights
+  (``len1 * len2 > 10**6``) through the banded pair kernel
+  (``ops/cuda/pair_kernel.lev_pair``, K11) and its hint ladder, with the
+  host oracle past its band (a distance over 16,383 edits); other pairs
+  as a one-pair batch of the aligned-pair ops.
 * Batch scores run on ``device`` (default ``cuda``; ``device="cpu"`` runs
   the kernels' plain versions): one query against at least
   :data:`~._int_metric.SCAN_MIN` strings through the port's
@@ -21,9 +26,8 @@ batch APIs ``*_many`` and a ``BatchComparator``.
   (``levenshtein.rs:1244-1279``): ins == del == 0 -> 0, uniform * factor,
   sub >= ins + del -> indel * factor.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-queue 1 item: ``editops``/``opcodes`` (item 13) and the device scalar
-backend's route for one long pair (item 17).
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP.md
+queue 1 item: ``editops``/``opcodes`` (item 13).
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ from .. import oracle as _oracle
 from ..ops import dispatch as _dispatch
 from ..ops import lcs as _lcs_ops
 from ..ops import levenshtein as _ops
+from ..ops.cuda import default_device
+from ..ops.cuda import pair_kernel as _pair
 from ..ops.cuda import wlev_kernel as _wk
 from ..utils import codec as _codec
 from . import _int_metric
@@ -166,9 +172,20 @@ def _scalar(s1, s2, weights: WeightTable,
     if _c.scalar_backend() == "device":
         ins, dele, sub = weights.costs()
         if ins == dele == sub and ins > 0 and u1.size * u2.size > 1_000_000:
-            raise NotImplementedError(
-                "the device route for one long pair (pair_kernel) is not "
-                "ported yet (ROADMAP.md queue 1, item 17)")
+            # long uniform pairs: the banded pair kernel K11 on the card
+            # (ops/cuda/pair_kernel; the levenshtein.rs:769-1019 route)
+            # instead of a padded one-pair batch scan
+            dev = default_device()
+            cut_u = None if cutoff is None else cutoff // ins
+            hint_u = None if hint is None else max(hint // ins, 1)
+            try:
+                d = _pair.lev_pair(u1, u2, score_cutoff=cut_u,
+                                   score_hint=hint_u, device=dev)
+                dist = (ins * d if d is not None
+                        else cutoff + 1)        # certified above the cutoff
+            except _pair.BandLimit:   # distance past the device band
+                dist = _raw_distance(u1, u2, weights, cutoff, hint)
+            return dist, mx
         c1, l1, c2, l2 = _codec.encode_pair_batch([u1], [u2])
         return int(_raw_distance_batch(c1, l1, c2, l2, weights)[0]), mx
     return _raw_distance(u1, u2, weights, cutoff, hint), mx

@@ -55,7 +55,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: ``dam_band`` and ``dam_band_long`` (``_kernel_sqband_stream``).  K10
 #: (``partial_ratio``'s window sweep) counts as ``partial_scan`` at every
 #: bucket: it replaces ``partial_kernel._run`` (``_kernel_q`` and
-#: ``_kernel``), which the TPU ran only up to 1024 chars.
+#: ``_kernel``), which the TPU ran only up to 1024 chars.  K11 (one long
+#: pair's band) counts as ``lev_pair``, once per rung of the hint ladder
+#: (``pair_kernel._run``).
 LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "lev_band_rt": 0, "lev_band_long": 0, "lev_scan_long": 0,
             "lcs_scan": 0, "lcs_scan_nq": 0, "lcs_scan_long": 0,
@@ -63,7 +65,8 @@ LAUNCHES = {"lev_scan": 0, "lev_scan_nq": 0, "remap_pack": 0, "lev_band": 0,
             "osa_scan_nq": 0, "osa_scan_long": 0, "wlev_scan": 0,
             "wlev_scan_long": 0, "jaro_scan": 0, "jaro_scan_nq": 0,
             "jaro_scan_long": 0, "dam_scan": 0, "dam_scan_long": 0,
-            "dam_band": 0, "dam_band_long": 0, "partial_scan": 0}
+            "dam_band": 0, "dam_band_long": 0, "partial_scan": 0,
+            "lev_pair": 0}
 
 #: elements under which a PyTorch CPU op runs on one thread (its grain
 #: size); the plain versions' CPU steps stay under it
@@ -106,6 +109,8 @@ _SIGNATURES = {
     # pm, la, cand, lb, out, scratch, B, b0, nb, lb4, W, stream
     "rf_partial_scan": [_P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I,
                         _P],
+    # pm, nwt, text, la, lb, K, R, out, stream
+    "rf_lev_pair": [_P, _I, _P, _I, _I, _I, _I, _P, _P],
 }
 
 

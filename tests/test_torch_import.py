@@ -34,6 +34,8 @@ def test_port_imports_without_jax():
         "import rapidfuzz_tpu_torch.ops.cuda.osa_kernel\n"
         "from rapidfuzz_tpu_torch.ops.cuda import wlev_kernel\n"
         "from rapidfuzz_tpu_torch.ops.cuda import jaro_kernel\n"
+        "from rapidfuzz_tpu_torch.ops.cuda import pair_kernel\n"
+        "assert pair_kernel.max_cutoff(pair_kernel.ROWS) == 16383\n"
         "from rapidfuzz_tpu_torch.distance import jaro, jaro_winkler\n"
         "import rapidfuzz_tpu_torch.ops.osa\n"
         "import rapidfuzz_tpu_torch.ops.jaro\n"

@@ -129,17 +129,18 @@ def test_one_vs_many_scan_route(monkeypatch):
 
 
 def test_unported_parts_raise(monkeypatch):
-    """editops (item 13) and the device scalar route for one long pair
-    (item 17) raise; general weights on a one-vs-many scan, once
-    unported, return what the JAX module returns; with no ``device`` the
-    batch entry points want the card."""
+    """editops (item 13) raise; the device scalar route for one long pair
+    (item 17, the pair kernel) wants the card and, with none, raises
+    rather than run the plain version; general weights on a one-vs-many
+    scan, once unported, return what the JAX module returns; with no
+    ``device`` the batch entry points want the card."""
     for fn in (lev.editops, lev.opcodes):
         with pytest.raises(NotImplementedError, match="item 13"):
             fn("kitten", "sitting")
     with pytest.raises(NotImplementedError, match="item 13"):
         lev.editops_many("kitten", ["sitting"])
     monkeypatch.setenv("RAPIDFUZZ_TPU_SCALAR_BACKEND", "device")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         lev.distance("a" * 1001, "b" * 1001)
     monkeypatch.delenv("RAPIDFUZZ_TPU_SCALAR_BACKEND")
     monkeypatch.setattr(_int_metric, "SCAN_MIN", 4)
