@@ -34,11 +34,14 @@ Phases, each printing one JSON line before the next starts:
    over several chunks of a small scratch budget), at 262,144 candidates
    in byte and local mode, 16 queries per launch, and over 2048-, 8192-
    and 16,400-char buckets, over near copies with adjacent swaps planted;
-   K9 (Damerau-Levenshtein) in its register form (up to 32 chars) and its
-   scratch form (33-4,001 chars, also over several chunks of a small
-   scratch budget) over buckets of 32-16,400 chars, byte and local mode,
-   and its band at radius 3, 7 and 15 (equal to the plain full distances
-   within the radius, above it elsewhere); K10 (partial_ratio's window
+   K9 (Damerau-Levenshtein) in its full form at queries of 0-4,001 chars
+   (a tile of 32 query columns a lane: 1, 2, 4, 5, 10 and 32 lanes a
+   candidate, and strips of 1,024 columns at 1,025, 2,100 and 4,001
+   chars, also over several chunks of a small edge-buffer budget) over
+   buckets of 32-16,400 chars, with adjacent swaps planted across tiles,
+   strips and packed rows, byte and local mode, and its band at radius 3,
+   7 and 15 (equal to the plain full distances within the radius, above
+   it elsewhere); K10 (partial_ratio's window
    sweep) at queries of 1-300 chars in its register form and 520 in its
    scratch form (also over several chunks of a small scratch budget),
    over buckets of 64, 1,024 and 8,192 chars, byte and local mode, with
@@ -148,8 +151,9 @@ Phases, each printing one JSON line before the next starts:
    launched over chunks of the 1 GiB scratch plan), its plain version on
    a slice of the candidates where the whole shape would take it over
    10 s; K8 also at 300 and 4,001 chars over the long corpus; K9 also at
-   32 chars (its register form) and at radius 3 and 15 over the serve
-   corpus and at 300 chars over the long corpus; K10 with a 12-char query
+   32 chars (one lane a candidate) and at radius 3 and 15 over the serve
+   corpus and at 300 chars over the long corpus, its full form's layout
+   (hand-offs, ramps, padded columns) beside its bound; K10 with a 12-char query
    over the serve corpus, and a 64-char one over the serve and the long
    corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8, its plain version
    on the first 4,096 text chars at R = 4;
@@ -226,13 +230,16 @@ LONG_SHORTEST = 2048
 HUGE_LB = 16400
 N_HUGE = 256
 #: the Damerau phase's full ~4,000-char scan runs over the last DAM_ODD of
-#: the bucket-6000 texts (the near copies of the query among them): the
-#: whole 16,384 take the scratch form ~4 s; and the timing phase holds
+#: the bucket-6000 texts (the near copies of the query among them); and
+#: the timing phase holds
 #: K9's full scans on every DAM_SLICE-th candidate against its plain
 #: version, the band over the long corpus on every DAM_BAND_SLICE-th
 DAM_ODD = 4096
 DAM_SLICE = 8
 DAM_BAND_SLICE = 16
+#: the timing phase holds K9's ~4,000-char scan of the long corpus on its
+#: DAM_SHORTEST shortest texts
+DAM_SHORTEST = 64
 #: the Jaro service's prefix weight (the default) and the library's
 JARO_PW = 0.1
 JARO_LIB_PW = 0.2
@@ -295,17 +302,40 @@ LCS_BAND_STEP_OPS = 1
 #: unrolled row bodies take for it, counted in the SASS of the built
 #: library (the build line's sass row_blocks: the non-IMAD instructions of
 #: the largest branch-free blocks; IMADs issue on the FMA lanes and do not
-#: bind).  The full form: 995 per two text rows of 32 cells in
-#: dam_scan_reg<1>.  The band, per radius (its shared-memory form
-#: dam_band_kernel<k,1>): (the unmasked rows, the first k + 1 rows, which
-#: also mask the column-0 edge) per cell: 190 and 224 per two rows of 7
-#: cells at k = 3, 437 and 577 of 15 at 7, 935 and 1,194 of 31 at 15.
-#: The bound charges each band cell the unmasked rate; the edge rows' extra
-#: goes beside it (*_edge_bound_ms).  The cells are those this run's data
-#: needs: lb * la per candidate for the full form, lb * (2k + 1) for the
-#: band's candidates within k of the query's length (the others return
-#: without a row)
-DAM_CELL_OPS = 15.55
+#: bind; alu_blocks: the same without VIADD either, nor the uniform
+#: datapath's, memory and shuffle instructions).  The full form: the tile
+#: row of dam_scan_tile<1,1>, 351 alu_blocks instructions per 32 cells.
+#: Its VIADDs (95 a row; IMADs and VIADDs trade places between builds of
+#: one body: 139 and 95 there, 83 and 159 in dam_scan_tile<0,1>) issue
+#: off the INT32 lanes: counted on them, as the row_blocks rule counts
+#: (450 a row, 14.06 a cell), the full form's scan of the long corpus
+#: with a 64-char query would take 32.5 ms at the INT32 lanes' rate, and
+#: it ran in 30.9 ms on an H100 (700 W).
+#: The band, per radius (its shared-memory form dam_band_kernel<k,1>,
+#: still under the row_blocks rule): (the unmasked rows, the first k + 1
+#: rows, which also mask the column-0 edge) per cell: 190 and 224 per two
+#: rows of 7 cells at k = 3, 437 and 577 of 15 at 7, 935 and 1,194 of 31
+#: at 15.  The bound charges each band cell the unmasked rate; the edge
+#: rows' extra goes beside it (*_edge_bound_ms).  The cells are those this
+#: run's data needs: lb * la per candidate for the full form,
+#: lb * (2k + 1) for the band's candidates within k of the query's length
+#: (the others return without a row)
+DAM_CELL_OPS = 351 / 32
+#: What K9's full form issues beyond the bound's cells goes beside it
+#: (dam_scan*_layout_bound_ms).  A warp of 32 / G candidates runs, per
+#: strip of up to 1,024 query columns, nmax + G' - 1 steps (G lanes a
+#: candidate, one per tile of 32 query columns, at most 32; nmax its
+#: longest candidate, G' the strip's tiles), and each step issues for all
+#: 32 lanes the tile row's 32 cells at DAM_CELL_OPS and the step's own
+#: INT32-lane instructions (alu_blocks' rule), DAM_STEP_OPS[G > 1] a lane:
+#: the step loop's other instructions, every path counted (the row test,
+#: lane 0's char and strip-edge reads, the edge stores), half of the
+#: two-step loop's: 43 / 2 in dam_scan_tile<1,1>; at G = 1 the row blocks
+#: hold 33 and 46 more than the tile row, and 41 lie outside them.  The
+#: layout bound is that issue less the bound's la * lb cells: the
+#: hand-offs, the ramp steps, the cells past column la, the lanes that
+#: 32 / G groups leave idle and the warp's wait for its longest candidate
+DAM_STEP_OPS = ((33 + 46 + 41) / 2, 43 / 2)
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
 #: K10's bound charges every window step the function needs, per query
 #: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
@@ -458,13 +488,23 @@ def ptxas_summary(report: dict) -> dict:
     return out
 
 
+#: SASS opcodes (besides IMAD and the uniform datapath's U*) that do not
+#: issue on the INT32 lanes: VIADD (it trades places with IMAD between
+#: builds of one body), memory, shuffles, moves and control
+SASS_OFF_ALU = frozenset(("VIADD", "LDG", "LDS", "LDC", "STG", "STS", "SHFL",
+                          "MOV", "S2R", "S2UR", "CS2R", "NOP", "BAR",
+                          "WARPSYNC"))
+
+
 def sass_histogram(kc, kernel: str):
     """For each kernel of the built library whose name holds ``kernel``:
     its SASS instruction count, its ten commonest opcodes and the
     instructions other than IMAD (which issue on the FMA lanes) in each of
     its four largest branch-free blocks, the bodies of an unrolled loop
-    (``row_blocks``, largest first; ``cuobjdump -sass``, beside nvcc);
-    None where the toolkit has no cuobjdump."""
+    (``row_blocks``, largest first; ``cuobjdump -sass``, beside nvcc), and
+    in the same blocks those that issue on the INT32 lanes
+    (``alu_blocks``: neither IMAD nor SASS_OFF_ALU nor the uniform
+    datapath's); None where the toolkit has no cuobjdump."""
     dump = os.path.join(os.path.dirname(kc._nvcc()), "cuobjdump")
     if not os.path.exists(dump):
         return None
@@ -482,17 +522,20 @@ def sass_histogram(kc, kernel: str):
                if m else name)
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)|(\.L_x_\d+:)", body)
-        blocks, run = [], 0
+        blocks, run = [], [0, 0]
         for op, label in ops:
             if label or op in ("BRA", "BSYNC", "BSSY", "EXIT", "RET"):
                 blocks.append(run)
-                run = 0
+                run = [0, 0]
             elif op != "IMAD":
-                run += 1
+                run[0] += 1
+                run[1] += op not in SASS_OFF_ALU and op[0] != "U"
         ops = [op for op, _ in ops if op]
+        blocks = sorted(blocks + [run])[:-5:-1]
         out[key] = {"instructions": len(ops),
                     "top": dict(collections.Counter(ops).most_common(10)),
-                    "row_blocks": sorted(blocks + [run])[:-5:-1]}
+                    "row_blocks": [b[0] for b in blocks],
+                    "alu_blocks": [b[1] for b in blocks]}
     return out
 
 
@@ -1072,22 +1115,28 @@ class Smoke:
 
     def dam_kernel_cases(self, rng, alph, salt):
         """K9 against its plain versions over near copies of the query with
-        adjacent swaps planted (across query words and packed 4-char
-        rows): the full form bit for bit, the band of radius 3, 7 or 15
-        equal to the plain full distances within the radius and above it
-        elsewhere.  ``dam_scan`` over N_KERNEL candidates of buckets 32, 64
-        and 128 (queries of 0, 1 and 31 chars in the register form, 33 and
-        64 in the scratch form, byte and local mode; 300 chars, longer
-        than every text, over N_KERNEL // 4), the scratch form once more
-        over chunks of a scratch budget a quarter of the candidates';
+        adjacent swaps planted (across query tiles, strips and packed
+        4-char rows): the full form bit for bit, the band of radius 3, 7
+        or 15 equal to the plain full distances within the radius and
+        above it elsewhere.  ``dam_scan`` over N_KERNEL candidates of
+        buckets 32, 64 and 128 (queries of 0, 1 and 31 chars, one lane a
+        candidate; 33 and 64, two lanes; 100, four lanes, the last tile
+        partly past the query; byte and local mode; 300 chars, ten lanes,
+        longer than every text, over N_KERNEL // 4);
         ``dam_scan_long`` and ``dam_band_long`` over N_KERNEL_LONG
-        candidates of buckets 160, 1,024 and 8,192 (33-300 chars), a
-        4,001-char query over 64 texts of about its length at bucket
-        8,192, and a 33-char query over N_HUGE candidates of HUGE_LB chars
-        (past the JAX package's 8,192-char cap)."""
+        candidates of buckets 160, 1,024, 1,056 and 8,192 (33-1,025 chars:
+        1,024 fills a warp's strip, 1,025 takes a second strip), a
+        2,100-char query over N_KERNEL_LONG // 4 texts of about its length
+        (three strips, the PM table past shared memory), a 4,001-char query
+        over 64 texts of about its length at bucket 8,192, the 1,025-char
+        one once more over chunks of an edge-buffer budget a quarter of
+        the candidates', and a 33-char query over N_HUGE candidates of
+        HUGE_LB chars (past the JAX package's 8,192-char cap)."""
         torch, lk, dk, kc = self.torch, self.lk, self.dk, self.kc
-        if dk.MAX_REG_W != 1:
-            raise AssertionError("K9's forms moved: update these cases")
+        if dk.TILE != 32 or dk.STRIP != 1024:
+            raise AssertionError("K9's tiles moved: update these cases")
+        # swaps across packed rows, tiles and strips
+        edges = (31, 3, 7, 63, 1023, 2047)
 
         def case(name, q, mode, cand, lb, what, bands=()):
             _, tabs = lk.stage_query(q, mode, self.dev)
@@ -1108,48 +1157,59 @@ class Smoke:
                 (64, 33, "byte", N_KERNEL, (3, 15)),
                 (64, 64, "local", N_KERNEL, (7, 15)),
                 (128, 64, "byte", N_KERNEL, (15,)),
+                (128, 100, "byte", N_KERNEL, (7,)),
                 (128, 300, "byte", N_KERNEL // 4, ())):
             salt += 1
             a = alph[mode]
             q = rng.choice(a, la)
-            cand, lb = self.mutants(self.gen(salt), q, a, B, LBs, swaps=True)
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBs, swaps=True,
+                                    at=edges[:4])
             case("dam_scan", q, mode, cand, lb, f"LB={LBs} la={la} {mode}",
                  bands)
-            if la == 64:
-                budget = 16 * la * (N_KERNEL // 4)
-                chunk = budget // (16 * la) // dk.BLOCK * dk.BLOCK
-                before = kc.LAUNCHES["dam_scan"]
-                plan = dk.SCRATCH_BYTES
-                dk.SCRATCH_BYTES = budget
-                try:
-                    case("dam_scan", q, mode, cand, lb,
-                         f"la={la} over chunks of {chunk}")
-                finally:
-                    dk.SCRATCH_BYTES = plan
-                if kc.LAUNCHES["dam_scan"] - before != -(-N_KERNEL // chunk):
-                    raise AssertionError("K9 scratch: wrong number of "
-                                         "chunk launches")
         a = alph["byte"]
         for LBl, la, B, bands in ((160, 33, N_KERNEL_LONG, (3, 7)),
                                   (160, 160, N_KERNEL_LONG, (15,)),
                                   (1024, 300, N_KERNEL_LONG, (15,)),
+                                  (1056, 1024, N_KERNEL_LONG, (15,)),
+                                  (1056, 1025, N_KERNEL_LONG, (7,)),
+                                  (2144, 2100, N_KERNEL_LONG // 4, ()),
                                   (LONG_LB, 64, N_KERNEL_LONG, ()),
                                   (8192, 4001, 64, (15,)),
                                   (HUGE_LB, 33, N_HUGE, ())):
             salt += 1
             q = rng.choice(a, la)
-            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl, swaps=True)
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl, swaps=True,
+                                    at=edges)
             if la < 4001:
                 lb[:8] = LBl                  # the bucket's last rows
             if bands:
-                # the query with swaps across a packed row and a query
-                # word: within every band, however few random copies are
+                # the query with swaps across a packed row, a tile and a
+                # strip: within every band, however few random copies are
                 row = q.copy()
-                row[[3, 4, 31, 32]] = row[[4, 3, 32, 31]]
+                for p in (3, 31, 1023):
+                    if p + 1 < la:
+                        row[[p, p + 1]] = row[[p + 1, p]]
                 self.plant_rows(cand, lb, torch.from_numpy(row).to(self.dev),
                                 4)
             case("dam_scan_long", q, "byte", cand, lb, f"LB={LBl} la={la}",
                  bands)
+            if la == 1025:
+                # the edge buffer over chunks of a quarter of the candidates
+                chunk = B // 4
+                before = kc.LAUNCHES["dam_scan_long"]
+                plan = dk.SCRATCH_BYTES
+                dk.SCRATCH_BYTES = dk.EDGE_INTS * 4 * LBl * chunk
+                try:
+                    if dk.edge_chunk(LBl, B) != chunk:
+                        raise AssertionError("K9 edge plan: chunk of "
+                                             f"{dk.edge_chunk(LBl, B)}")
+                    case("dam_scan_long", q, "byte", cand, lb,
+                         f"la={la} over chunks of {chunk}")
+                finally:
+                    dk.SCRATCH_BYTES = plan
+                if kc.LAUNCHES["dam_scan_long"] - before != 4:
+                    raise AssertionError("K9 edge buffer: wrong number of "
+                                         "chunk launches")
         return salt
 
     def partial_corpus(self, g, q, alphabet, B, lb_max):
@@ -1326,11 +1386,14 @@ class Smoke:
         cand[:, -n:] = packed
         lb[-n:] = row.numel()
 
-    def mutants(self, g, q, alphabet, B, lb_max, swaps: bool = False):
+    def mutants(self, g, q, alphabet, B, lb_max, swaps: bool = False,
+                at=(31, 3, 7)):
         """Packed near-copies of ``q``: random substitutions and length
         changes, so distances spread across the band cutoffs; with
-        ``swaps``, one adjacent swap per row, at text chars 31/32 (across
-        query words), 3/4 or 7/8 (across packed rows) or at random."""
+        ``swaps``, one adjacent swap per row, at text chars ``at[k]`` /
+        ``at[k] + 1`` (31/32: across query words; 3/4 or 7/8: across
+        packed rows), in turn, or at random every ``len(at) + 1``-th
+        row."""
         torch = self.torch
         a = torch.from_numpy(alphabet).to(self.dev)
         base = torch.full((lb_max,), int(alphabet[0]), device=self.dev,
@@ -1346,10 +1409,10 @@ class Smoke:
         if swaps:
             p = torch.randint(0, lb_max - 1, (B,), generator=g,
                               device=self.dev)
-            fixed = torch.tensor([31, 3, 7], device=self.dev).clamp(
-                max=lb_max - 2)
-            r = torch.arange(B, device=self.dev) % 4
-            p = torch.where(r < 3, fixed[r.clamp(max=2)], p)[:, None]
+            fixed = torch.tensor(at, device=self.dev).clamp(max=lb_max - 2)
+            r = torch.arange(B, device=self.dev) % (len(at) + 1)
+            p = torch.where(r < len(at), fixed[r.clamp(max=len(at) - 1)],
+                            p)[:, None]
             a, b = chars.gather(1, p), chars.gather(1, p + 1)
             chars = chars.scatter(1, p, b).scatter(1, p + 1, a)
         lens = (q.size + torch.randint(-30, 31, (B,), generator=g,
@@ -2695,8 +2758,9 @@ class Smoke:
         bucket-6000 texts (top-k, whole slice).  Whole-corpus checks
         compute the oracle only on rows that can lie within the bound
         (:meth:`window_truth`).  The full ~4,000-char query over the whole
-        long corpus (~2.4e12 cells, minutes of the scratch form) is left
-        out."""
+        long corpus (~2.4e12 cells) runs in the timing phase, held against
+        the plain version on its shortest texts, not against the
+        oracle."""
         from rapidfuzz_tpu_torch.distance import damerau_levenshtein as dl
         from rapidfuzz_tpu_torch.parallel import CorpusScanner
         from rapidfuzz_tpu_torch.serve import ScanService
@@ -3397,8 +3461,8 @@ class Smoke:
               jaro_work(long_sc.lb, 2, 1, st, "jaro_scan_long"), warm=False,
               every=every)
         del sl_cand, sl_lb, st
-        # K9: the full form with the len-64 query at the serve corpus (its
-        # scratch form) and over the long corpus, the band at radius 7
+        # K9: the full form with the len-64 query at the serve corpus (two
+        # lanes a candidate) and over the long corpus, the band at radius 7
         # (cutoff 7) at the serve corpus and at radius 15 with the
         # ~4,000-char query over the long corpus (cutoff 15), the main
         # paths' shapes; the full forms' plain versions on every
@@ -3428,8 +3492,28 @@ class Smoke:
                 (edge - body) * edge_cells / int_ops_s * 1e3
             return nbytes, body * width * int(walk.sum())
 
+        def dam_layout(lbv, la, row):
+            """``extra[row + "_layout_bound_ms"]``: K9's full form's issue
+            beyond its bound's cells (DAM_STEP_OPS) over this run's data,
+            a warp holding 32 / G consecutive candidates."""
+            G = min(32, -(-la // dk.TILE))
+            l64 = lbv.to(torch.int64)
+            per = 32 // G
+            nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % per)])
+            nmax = nmax.view(-1, per).max(1).values
+            steps = 0
+            for cs in range(0, la, dk.STRIP):
+                glive = min(G, -(-(la - cs) // dk.TILE))
+                steps += int(torch.where(nmax > 0, nmax + glive - 1,
+                                         0).sum())
+            issued = steps * 32 * (dk.TILE * DAM_CELL_OPS
+                                   + DAM_STEP_OPS[G > 1])
+            layout = issued - DAM_CELL_OPS * la * int(l64.sum())
+            extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
+
         sl_cand = cand[:, ::DAM_SLICE].contiguous()
         sl_lb = lb[::DAM_SLICE].contiguous()
+        dam_layout(lb, q.size, "dam_scan")
         timed("dam_scan",
               lambda: dk.dam_1v_many(q, cand, lb, staged=(las, tabs)),
               lambda: dk.dam_scan_plain(q.size, tabs, sl_cand, sl_lb), 5,
@@ -3448,6 +3532,7 @@ class Smoke:
         nb, ops = dam_work(lb, 32)
         extra["dam_scan_la32_bound_ms"] = max(nb / HBM_BYTES_S,
                                               ops / int_ops_s) * 1e3
+        dam_layout(lb, 32, "dam_scan_la32")
         for kb in (3, 15):
             extra[f"dam_band_k{kb}_ms"] = cuda_ms(
                 torch, lambda: dk.dam_band_1v_many(q, cand, lb, kband=kb,
@@ -3457,6 +3542,7 @@ class Smoke:
                                                     ops / int_ops_s) * 1e3
         sl_cand = long_sc.cand[:, ::DAM_SLICE].contiguous()
         sl_lb = long_sc.lb[::DAM_SLICE].contiguous()
+        dam_layout(long_sc.lb, q64.size, "dam_scan_long")
         timed("dam_scan_long",
               lambda: dk.dam_1v_many(q64, long_sc.cand, long_sc.lb,
                                      staged=l64),
@@ -3480,6 +3566,24 @@ class Smoke:
         nb, ops = dam_work(long_sc.lb, enc["q300"].size)
         extra["dam_scan_long_q300_bound_ms"] = max(nb / HBM_BYTES_S,
                                                    ops / int_ops_s) * 1e3
+        dam_layout(long_sc.lb, enc["q300"].size, "dam_scan_long_q300")
+        # the ~4,000-char query in full over the long corpus: strips of
+        # 1,024 columns, the edge buffer over chunks of the 1 GiB plan,
+        # held against the plain version on the DAM_SHORTEST shortest texts
+        cols = slice(0, DAM_SHORTEST)
+        sl_cand = long_sc.cand[:, cols].contiguous()
+        sl_lb = long_sc.lb[cols].contiguous()
+        before = self.kc.LAUNCHES["dam_scan_long"]
+        timed("dam_scan_long",
+              lambda: dk.dam_1v_many(q4k, long_sc.cand, long_sc.lb,
+                                     staged=l4k),
+              lambda: dk.dam_scan_plain(q4k.size, l4k[1], sl_cand, sl_lb), 1,
+              dam_work(long_sc.lb, q4k.size), warm=False, kwarm=False,
+              cols=cols, row="dam_scan_long_q4k")
+        extra["dam_scan_long_q4k_launches"] = \
+            self.kc.LAUNCHES["dam_scan_long"] - before
+        dam_layout(long_sc.lb, q4k.size, "dam_scan_long_q4k")
+        del sl_cand, sl_lb
         # K1 and K4 over the long corpus with the 300-char query (K1's
         # scratch form, K4's registers), held against their plain versions
         # on the LONG_SHORTEST shortest texts (the plain versions walk as

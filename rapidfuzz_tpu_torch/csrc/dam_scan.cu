@@ -9,10 +9,9 @@
 //   (_run_lp) compute the same function at the same shapes), and
 //   _kernel_long (_run_long) and _kernel_long_stream (_run_long_stream),
 //   the 129-8,192-char buckets.  The TPU split the work five ways by its
-//   VMEM budget, its lane layout and its missing int16 compares; a CUDA
-//   thread walks its own candidate at any length, so one kernel serves
-//   every bucket (the wrapper counts launches over 128-char buckets apart,
-//   dam_scan_long) and every query length;
+//   VMEM budget, its lane layout and its missing int16 compares; here one
+//   kernel serves every bucket (the wrapper counts launches over 128-char
+//   buckets apart, dam_scan_long) and every query length;
 // * banded form: _kernel_sqband (_run_sqband, buckets <= 128) and
 //   _kernel_sqband_stream (_run_sqband_stream, the same band over 512-char
 //   text chunks), radius kband in {3, 7, 15}: exact where the distance is
@@ -42,40 +41,62 @@
 //   D[i][j] = e ? cand : min(cand, tr)
 //   at a match: X[j] = D[i-1][j-2] - i, rt = D[i-2][j-1] - j
 // with rt = D[i-2][l-1] - l of the row's last match l (BIG before one).
-// The state of a candidate is D[i-1], D[i-2] and X, three ints per query
-// column.
+// The state of a column is D[i-1][j], D[i-2][j] and X[j], three ints;
+// what a row carries from column to column is D[i][j], D[i-1][j],
+// D[i-2][j], D[i-1][j-1], rt and eq(i, j).
 //
-// What bounds it on an H100: integer issue.  A cell is 15.6 INT32-lane
-// instructions in the SASS of the full form's unrolled register form
-// (the bit tests, the mins and a DPX add-min for cand, the adds and
-// selects of the transposition and of the match's updates), 13.6-15.1 in
-// the band's at radius 3-15, 16-19.3 in its first kband + 1 rows, which
-// also mask the column-0 edge: la cells per text row for the full form,
-// 2*kband + 1 for the band (chip_smoke.DAM_CELL_OPS, DAM_BAND_OPS).
-// The corpus is read once, a byte per char.  The scratch form adds a
-// 4-byte load and a 4-byte store per cell, and those bytes bound it
-// instead.
+// What bounds it on an H100: integer issue.  A cell of the full form's
+// unrolled tile row is 11.0 instructions on the INT32 lanes in its SASS
+// (the bit tests, the mins and a DPX add-min for cand, the selects of the
+// transposition and of the match's updates; its adds issue as IMAD and
+// VIADD, off those lanes), a band cell 13.6-15.1 non-IMAD instructions at
+// radius 3-15, 16-19.3 in its first kband + 1 rows, which also mask the
+// column-0 edge: la cells per text row for the full form, 2*kband + 1
+// for the band (chip_smoke.DAM_CELL_OPS, DAM_BAND_OPS).  The corpus is
+// read once, a byte per char.  No cell's state goes through device
+// memory.  What the full form's layout adds beside the cells
+// (chip_smoke's dam_scan*_layout_bound_ms): the hand-off between lanes
+// each step, the cells of a last tile past column la, the idle lanes of
+// a warp that 32 / G groups do not fill, the G - 1 steps of a group's
+// ramp in which its lanes wait for their first or after their last row,
+// and a warp's wait for its longest candidate; past 1,024 query columns,
+// 12 bytes per text row at each strip edge.
 //
-// Design:
-// * one thread per candidate, over the chunk [b0, b0 + nb) of the corpus
-//   (the wrapper bounds the scratch by launching over chunks); the packed
-//   corpus is K1's [LB/4, B] u32, a coalesced load per 4 text rows, the
-//   next word loaded while the current one's rows run; each thread stops
-//   at its own length, so pad bytes are never compared;
-// * register form (la <= 32 * kMaxRegW = 32; at 64 columns ptxas spills):
-//   the PM table in shared memory, the three arrays in registers over a
-//   compile-time width of 32*W columns (template on W), a row stopped
-//   after the word that holds column la by a uniform branch; rows run in
-//   pairs so that the two D buffers (each row overwriting the older)
-//   swap at compile time, not by copying;
-// * scratch form (la > 32 * kMaxRegW): three D rows (row i in plane
-//   i % 3, so that D[i-2] outlives row i) and X in a [4, la, nb] int32
-//   scratch, coalesced by candidate.  Each word of 32 columns loads its 32
-//   D[i-1] values, D[i-2][j-1] only where the row's char matches column j
-//   and X[j] only where it matches column j - 1 (predicated loads), all
-//   before its cells run, so a thread keeps its loads in flight and moves
-//   8 bytes a cell, not 16; the PM table in shared memory up to 48 KB
-//   (W <= 48), through the read-only cache past that;
+// Design of the full form:
+// * a lane owns a tile of 32 query columns: its two DP rows and X in
+//   registers (96 ints, the state one thread held for a whole 32-char
+//   query before) and the PM words of its row's char and of the previous
+//   row's; the PM table in shared memory up to 48 KB (W <= 48), through
+//   the read-only cache past that;
+// * a group of G lanes works one candidate, G the query's tiles (at most
+//   32), 32 / G groups a warp, its other 32 % G lanes idle.  Lane t
+//   runs text row s - t at step s (a wavefront): after each row it hands
+//   lane t + 1, by __shfl_up_sync, D[i][c0] and D[i][c0 - 1] of that
+//   lane's left edge c0, the row's rt and the row's char with
+//   eq(i, c0); the values received one and two steps before are
+//   D[i-1][c0], D[i-2][c0] and D[i-1][c0-1].  Only lane 0 reads the
+//   packed corpus (K1's [LB/4, B] u32, a word every 4 rows, loaded a word
+//   ahead).  A group runs lb + G - 1 steps per strip (G the strip's
+//   tiles), and a warp runs to its longest candidate: every lane stays in
+//   the loop (the shuffles need the whole warp) and leaves its state as it
+//   is at rows outside [1, lb];
+// * steps run in pairs, so that the two row buffers (each row overwriting
+//   the older) swap at compile time: odd steps write A, even ones D, and
+//   a lane starts with row 0 in the buffer that its first row, at step
+//   t + 1, reads;
+// * queries over 1,024 chars: the warp sweeps the query in strips of
+//   1,024 columns.  Per text row, lane 31 writes D[i][c], D[i][c - 1] and
+//   rt at the strip's right edge c (12 bytes) to the candidate's edge
+//   buffer [3, LB], and lane 0 of the next strip reads them back a row
+//   ahead of its use; the buffer is reused in place (a row is read 31
+//   steps before lane 31 writes it again).  X is per column, so it stays
+//   in the strip's registers.  The wrapper launches over chunks of
+//   candidates whose edge buffers fit its memory plan
+//   (damerau_kernel.SCRATCH_BYTES);
+// * the corpus comes sorted by length, and block b works the candidates
+//   of block nblocks - 1 - b, so the longest texts start first;
+// * blocks of 128 threads: at ~170 registers a thread, 3 of them fit an
+//   SM where a 256-thread block fits once;
 // * banded form: position p = 0..2k of row i holds column i - k + p
 //   (_kernel_sqband's band-relative layout, damerau_kernel.py:899-1030),
 //   the row's 2k + 1 equality bits one funnel shift of two PM words, the
@@ -88,19 +109,23 @@
 //   A candidate whose length differs from the query's by more than k
 //   cannot be within k, so it returns BIG without a row;
 // * la == 0 gives lb; lb == 0 gives la;
-// * every offset into the corpus, the output and the scratch is 64-bit.
+// * every offset into the corpus, the output and the edge buffer is
+//   64-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;      // PM entries: every byte value
-constexpr int kBig = 1 << 28;   // "no path"; every sum stays far below 2^31
-constexpr int kMaxRegW = 1;     // register form up to 32 * kMaxRegW columns
-                                // (W = 2 spills: 255 registers)
-constexpr int kSmemWords = 48;  // PM table in shared memory up to 48 KB
+constexpr int kThreads = 256;      // the band's block
+constexpr int kTileThreads = 128;  // the full form's block
+constexpr int kRows = 256;         // PM entries: every byte value
+constexpr int kBig = 1 << 28;      // "no path"; every sum stays far below
+                                   // 2^31
+constexpr int kTile = 32;          // query columns a lane holds
+constexpr int kStrip = 32 * kTile; // query columns a warp sweeps at once
+constexpr int kSmemWords = 48;     // PM table in shared memory up to 48 KB
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <bool SMEM>
 __device__ __forceinline__ uint32_t pm_word(const uint32_t* pm, int w,
@@ -118,205 +143,202 @@ __device__ __forceinline__ int cell(int up, int diag, int left, int xo,
     return e ? cand : min(cand, tr);
 }
 
-// One text row of the register form over columns 1..32W: cur holds
-// D[i-2] and receives D[i]; prv holds D[i-1].  pmc / pmp: the PM words of
-// this row's char and of the previous row's (zero before row 1).
-template <int W>
-__device__ __forceinline__ void row_reg(const uint32_t (&pmc)[W],
-                                        const uint32_t (&pmp)[W],
-                                        int (&cur)[32 * W],
-                                        const int (&prv)[32 * W],
-                                        int (&X)[32 * W], int i, int la) {
-    int left = i, diag = i - 1, dprev = kBig;
-    int d2l = i >= 2 ? i - 2 : kBig;
-    int rt = kBig;
+// One text row i over a tile of query columns c0 + 1 .. c0 + 32: cur
+// holds D[i-2] and receives D[i]; prv holds D[i-1].  ew / pew: the tile's
+// PM words of this row's char and of the previous row's (zero before row
+// 1); e1 = eq(i, c0).  From the left edge: left = D[i][c0], diag =
+// D[i-1][c0], d2l = D[i-2][c0], dprev = D[i-1][c0-1], and the row's rt
+// relative to the tile (rt + p + 1 is rt + j at column j = c0 + p + 1).
+// Returns the rt past the tile's last column, relative to c0.
+__device__ __forceinline__ int row_tile(uint32_t ew, uint32_t pew,
+                                        uint32_t e1, int (&cur)[kTile],
+                                        const int (&prv)[kTile],
+                                        int (&X)[kTile], int i, int left,
+                                        int diag, int d2l, int dprev,
+                                        int rt) {
+    const uint32_t e1w = (ew << 1) | e1;
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-        if (32 * w >= la) break;
-        const uint32_t ew = pmc[w];
-        const uint32_t e1w = (ew << 1) | (w ? pmc[w > 0 ? w - 1 : 0] >> 31
-                                            : 0u);
-        const uint32_t pew = pmp[w];
-#pragma unroll
-        for (int b = 0; b < 32; ++b) {
-            const int p = 32 * w + b;           // column j = p + 1
-            const int up = prv[p];
-            const int d2 = cur[p];
-            const bool e = (ew >> b) & 1u;
-            const int nv = cell(up, diag, left, X[p], rt + p + 1, i, e,
-                                (e1w >> b) & 1u, (pew >> b) & 1u);
-            if (e) {
-                X[p] = dprev - i;
-                rt = d2l - (p + 1);
-            }
-            cur[p] = nv;
-            left = nv;
-            dprev = diag;
-            diag = up;
-            d2l = d2;
+    for (int p = 0; p < kTile; ++p) {
+        const int up = prv[p];
+        const int d2 = cur[p];
+        const bool e = (ew >> p) & 1u;
+        const int nv = cell(up, diag, left, X[p], rt + p + 1, i, e,
+                            (e1w >> p) & 1u, (pew >> p) & 1u);
+        if (e) {
+            X[p] = dprev - i;
+            rt = d2l - (p + 1);
         }
+        cur[p] = nv;
+        left = nv;
+        dprev = diag;
+        diag = up;
+        d2l = d2;
     }
+    return rt;
 }
 
-template <int W>
-__device__ __forceinline__ void load_pm(const uint32_t* pm, uint32_t c,
-                                        uint32_t (&out)[W]) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) out[w] = pm[w * kRows + c];
-}
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-dam_scan_reg(const uint32_t* __restrict__ pm_g, int la,
-             const uint32_t* __restrict__ cand,
-             const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-             int64_t B, int64_t b0, int64_t nb, int lb4) {
-    constexpr int LA = 32 * W;
-    __shared__ uint32_t pm[W * kRows];
-    for (int t = threadIdx.x; t < W * kRows; t += kThreads) pm[t] = pm_g[t];
-    __syncthreads();
-
-    const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (k >= nb) return;
-    const int64_t b = b0 + k;
-    if (la == 0) { out[b] = lb[b]; return; }
-    const int n = min(lb[b], 4 * lb4);
-
-    // rows 1, 3, 5, ... write A over D[i-2]; rows 2, 4, ... write D
-    int A[LA], D[LA], X[LA];
-#pragma unroll
-    for (int p = 0; p < LA; ++p) {
-        A[p] = kBig;          // D[-1]
-        D[p] = p + 1;         // D[0]
-        X[p] = kBig;          // FR = BIG, K = 0
-    }
-    uint32_t pmp[W], pmc[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) pmp[w] = 0u;
-    const uint32_t* col = cand + b;
-    const int rows = (n + 3) >> 2;
-    uint32_t next = rows ? col[0] : 0u;
-    int i = 0;
-#pragma unroll 1
-    for (int r = 0; r < rows; ++r) {
-        const uint32_t word = next;
-        if (r + 1 < rows) next = col[(size_t)(r + 1) * B];
-        const int m = min(4, n - 4 * r);
-#pragma unroll 1
-        for (int u = 0; u < m; u += 2) {
-            load_pm<W>(pm, (word >> (8 * u)) & 0xFFu, pmc);
-            row_reg<W>(pmc, pmp, A, D, X, ++i, la);
-#pragma unroll
-            for (int w = 0; w < W; ++w) pmp[w] = pmc[w];
-            if (u + 1 < m) {
-                load_pm<W>(pm, (word >> (8 * u + 8)) & 0xFFu, pmc);
-                row_reg<W>(pmc, pmp, D, A, X, ++i, la);
-#pragma unroll
-                for (int w = 0; w < W; ++w) pmp[w] = pmc[w];
-            }
-        }
-    }
-    // row n sits in A when n is odd, in D when it is even (n == 0: D[0])
-    const bool odd = n & 1;
-    int dist = la;
-#pragma unroll
-    for (int p = 0; p < LA; ++p)
-        dist = (p + 1 == la) ? (odd ? A[p] : D[p]) : dist;
-    out[b] = dist;
-}
-
-template <bool SMEM>
-__global__ void __launch_bounds__(kThreads)
-dam_scan_scratch(const uint32_t* __restrict__ pm_g, int la,
-                 const uint32_t* __restrict__ cand,
-                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                 int32_t* __restrict__ scratch, int64_t B, int64_t b0,
-                 int64_t nb, int lb4) {
+// The full form over candidates [b0, b0 + nb): G lanes a candidate
+// (MULTI: G > 1), a tile of 32 query columns each (the header's design).
+// edge: [nb, 3, LB] int32, LB = 4 * lb4, read and written only when
+// la > kStrip.
+template <bool MULTI, bool SMEM>
+__global__ void __launch_bounds__(kTileThreads)
+dam_scan_tile(const uint32_t* __restrict__ pm_g, int la, int G,
+              const uint32_t* __restrict__ cand,
+              const int32_t* __restrict__ lb, int32_t* __restrict__ out,
+              int32_t* __restrict__ edge, int64_t B, int64_t b0,
+              int64_t nb, int lb4) {
     extern __shared__ uint32_t pm_s[];
-    const int W = (la + 31) >> 5;
     if (SMEM) {
-        for (int t = threadIdx.x; t < W * kRows; t += kThreads)
-            pm_s[t] = pm_g[t];
+        const int ws = (la + 31) >> 5;
+        for (int q = threadIdx.x; q < ws * kRows; q += kTileThreads)
+            pm_s[q] = pm_g[q];
         __syncthreads();
     }
-    const uint32_t* pm = SMEM ? pm_s : pm_g;
-    const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (k >= nb) return;
-    const int64_t b = b0 + k;
-    const int n = min(lb[b], 4 * lb4);
-    // planes of this chunk's scratch: three D rows, row i in plane i % 3,
-    // then X; column j of a plane at row (j - 1) * nb
-    const size_t plane = (size_t)la * nb;
-    int32_t* const base = scratch + k;
-    int32_t* const xs = base + 3 * plane;
-    for (int p = 0; p < la; ++p) {
-        base[(size_t)p * nb] = p + 1;              // D[0]
-        base[2 * plane + (size_t)p * nb] = kBig;   // D[-1]
-        xs[(size_t)p * nb] = kBig;
+    const uint32_t* const pm = SMEM ? pm_s : pm_g;
+    // a warp holds 32 / G groups; its lanes past them idle
+    const int lane = threadIdx.x & 31;
+    const int per = MULTI ? 32 / G : 32;
+    const int grp = MULTI ? lane / G : lane;
+    const int t = MULTI ? lane - grp * G : 0;    // the lane's tile
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        ((int64_t)(gridDim.x - 1 - blockIdx.x) * (kTileThreads / 32)
+         + threadIdx.x / 32) * per + grp;
+    const bool real = grp < per && k < nb;
+    const int64_t b = b0 + (real ? k : 0);
+    if (la == 0) {
+        if (real && t == 0) out[b] = lb[b];
+        return;
     }
-    int dist = la;
-    const uint32_t* col = cand + b;
-    uint32_t word = 0u, cprev = 0u;
-    int pc = 1, pp = 0, p2 = 2;                    // planes of i, i-1, i-2
-    for (int j = 0; j < n; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-        const int i = j + 1;
-        int32_t* const cur = base + pc * plane;
-        const int32_t* const prv = base + pp * plane;
-        const int32_t* const pr2 = base + p2 * plane;
-        int left = i, diag = i - 1, dprev = kBig;
-        const int d2_0 = i >= 2 ? i - 2 : kBig;    // D[i-2][0]
-        int rt = kBig;
-        uint32_t carry = 0u;                       // bit 31 of the last word
-        for (int w = 0; w < W; ++w) {
-            const uint32_t ew = pm_word<SMEM>(pm, w, c);
-            const uint32_t pew = j ? pm_word<SMEM>(pm, w, cprev) : 0u;
-            const uint32_t e1w = (ew << 1) | carry;
-            carry = ew >> 31;
-            const int m = min(32, la - 32 * w);
-            // D[i-2][j-1] is read only where this row's char matches
-            // column j, and X[j] only where it matches column j - 1: the
-            // loads of a word go out together, before its cells run
-            int up[32], d2[32], xv[32];
+    const int LB = 4 * lb4;
+    const int n = real ? min(lb[b], LB) : 0;
+    const int nmax = __reduce_max_sync(kFull, n);
+    const uint32_t* const col = cand + b;
+    const int rows = (n + 3) >> 2;
+    int32_t* const eg = edge != nullptr
+                            ? edge + (size_t)(real ? k : 0) * 3 * LB
+                            : nullptr;
+    const int nstrip = (la + kStrip - 1) / kStrip;
+    // the tile that holds column la, in the last strip
+    const int tla = (la - 1 - (nstrip - 1) * kStrip) / kTile;
+    int dist = la;                            // lb == 0: D[0][la]
+    for (int st = 0; st < nstrip; ++st) {
+        const int cs = st * kStrip;           // the strip's left edge
+        const int c0 = cs + kTile * t;        // the tile's left edge
+        const bool live = c0 < la;
+        const int glive = min(G, (la - cs + kTile - 1) / kTile);
+        const int steps = nmax > 0 ? nmax + glive - 1 : 0;
+        const bool more = st + 1 < nstrip;
+        // the tile's PM word and, for lane 0 past the first strip, the
+        // word that holds column cs: indices, not pointers, and plain
+        // loads (with pointers or __ldg ptxas spilled 12 bytes in the form
+        // that reads the table from device memory)
+        const int wt = live ? c0 / kTile : 0;
+        const int we = cs > 0 ? cs / kTile - 1 : 0;
+        // row 0 in the buffer that the lane's first row (step t + 1)
+        // reads, row -1 (BIG) in the one it writes: odd steps write A
+        int A[kTile], D[kTile], X[kTile];
+        const bool even = (t & 1) == 0;
 #pragma unroll
-            for (int t = 0; t < 32; ++t) {
-                if (t < m) {
-                    const int q = 32 * w + t;          // column q + 1
-                    up[t] = prv[(size_t)q * nb];
-                    d2[t] = ((ew >> t) & 1u)
-                                ? (q ? pr2[(size_t)(q - 1) * nb] : d2_0)
-                                : 0;
-                    xv[t] = ((e1w >> t) & 1u) ? xs[(size_t)q * nb] : kBig;
-                }
-            }
-#pragma unroll
-            for (int t = 0; t < 32; ++t) {
-                if (t < m) {
-                    const int q = 32 * w + t;
-                    const bool e = (ew >> t) & 1u;
-                    const int nv = cell(up[t], diag, left, xv[t], rt + q + 1,
-                                        i, e, (e1w >> t) & 1u,
-                                        (pew >> t) & 1u);
-                    if (e) {
-                        xs[(size_t)q * nb] = dprev - i;
-                        rt = d2[t] - (q + 1);
-                    }
-                    cur[(size_t)q * nb] = nv;
-                    left = nv;
-                    dprev = diag;
-                    diag = up[t];
-                }
+        for (int p = 0; p < kTile; ++p) {
+            A[p] = even ? kBig : c0 + p + 1;
+            D[p] = even ? c0 + p + 1 : kBig;
+            X[p] = kBig;
+        }
+        // the next row's D[i-1][c0], D[i-2][c0] and D[i-1][c0-1]
+        int h1 = c0, h2 = kBig, hm = c0 > 0 ? c0 - 1 : kBig;
+        uint32_t pew = 0u;
+        // what the last row hands on: D[i][c0 + 32], D[i][c0 + 31], rt
+        // relative to c0 + 32, and the row's char | eq(i, c0 + 32) << 8
+        int oL = 0, oM = 0, oR = 0;
+        uint32_t oC = 0u;
+        // lane 0: the packed word after the current one and, past the
+        // first strip, the edge values of its next row
+        uint32_t word = 0u, next = 0u;
+        int eL = 0, eM = 0, eR = 0;
+        if (t == 0 && n > 0) {
+            next = col[0];
+            if (cs > 0) {
+                eL = eg[0];
+                eM = eg[LB];
+                eR = eg[2 * LB];
             }
         }
-        dist = left;                               // D[i][la]
-        cprev = c;
-        const int t3 = p2;
-        p2 = pp;
-        pp = pc;
-        pc = t3;
+        auto step = [&](int s, int (&cur)[kTile], int (&prv)[kTile]) {
+            const int i = s - t;
+            int iL = oL, iM = oM, iR = oR;
+            uint32_t iC = oC;
+            if (MULTI) {
+                // lane t - 1's last row; a group's lane 0 ignores its
+                iL = __shfl_up_sync(kFull, oL, 1);
+                iM = __shfl_up_sync(kFull, oM, 1);
+                iR = __shfl_up_sync(kFull, oR, 1);
+                iC = __shfl_up_sync(kFull, oC, 1);
+            }
+            const bool act = live && i >= 1 && i <= n;
+            if (t == 0 && act) {
+                const int j = i - 1;
+                if ((j & 3) == 0) {
+                    word = next;
+                    if ((j >> 2) + 1 < rows)
+                        next = col[(size_t)((j >> 2) + 1) * B];
+                }
+                const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
+                if (cs == 0) {
+                    iL = i;
+                    iM = kBig;
+                    iR = kBig;
+                    iC = c;
+                } else {
+                    iL = eL;
+                    iM = eM;
+                    iR = eR;
+                    iC = c | ((pm[we * kRows + c] >> 31) << 8);
+                    if (i < n) {
+                        eL = eg[i];
+                        eM = eg[LB + i];
+                        eR = eg[2 * LB + i];
+                    }
+                }
+            }
+            if (act) {
+                const uint32_t c = iC & 0xFFu;
+                const uint32_t ew = pm[wt * kRows + c];
+                const int rt = row_tile(ew, pew, iC >> 8, cur, prv, X, i,
+                                        iL, h1, h2, hm, iR);
+                oL = cur[kTile - 1];
+                oM = cur[kTile - 2];
+                oR = rt + kTile;
+                oC = c | ((ew >> 31) << 8);
+                h2 = h1;
+                h1 = iL;
+                hm = iM;
+                pew = ew;
+                if (MULTI && t == G - 1 && more) {
+                    eg[i - 1] = oL;
+                    eg[LB + i - 1] = oM;
+                    eg[2 * LB + i - 1] = oR;
+                }
+            }
+        };
+#pragma unroll 1
+        for (int s = 1; s <= steps; s += 2) {
+            step(s, A, D);
+            if (s < steps) step(s + 1, D, A);
+        }
+        if (more) {
+            __syncwarp();                     // lane 31's edge, lane 0
+        } else if (t == tla && n > 0) {
+            // row n, written at step n + t
+            const int p = (la - 1) % kTile;
+            const bool odd = (n + t) & 1;
+#pragma unroll
+            for (int q = 0; q < kTile; ++q)
+                dist = q == p ? (odd ? A[q] : D[q]) : dist;
+        }
     }
-    out[b] = dist;
+    if (real && t == tla) out[b] = dist;
 }
 
 // Bits [off, off + 32) of the query's PM row c (zero outside the table's
@@ -456,13 +478,24 @@ dam_band_kernel(const uint32_t* __restrict__ pm_g, int ws, int la,
     out[b] = dist;
 }
 
-template <int W>
-cudaError_t launch_reg(const uint32_t* pm, int la, const uint32_t* cand,
-                       const int32_t* lb, int32_t* out, int64_t B,
-                       int64_t b0, int64_t nb, int lb4, cudaStream_t stream) {
-    const unsigned grid = (unsigned)((nb + kThreads - 1) / kThreads);
-    dam_scan_reg<W><<<grid, kThreads, 0, stream>>>(pm, la, cand, lb, out, B,
-                                                   b0, nb, lb4);
+template <bool MULTI>
+cudaError_t launch_tile(const uint32_t* pm, int la, int G,
+                        const uint32_t* cand, const int32_t* lb,
+                        int32_t* out, int32_t* edge, int64_t B, int64_t b0,
+                        int64_t nb, int lb4, cudaStream_t stream) {
+    const int64_t per = (kTileThreads / 32) * (32 / G);  // per block
+    const unsigned grid = (unsigned)((nb + per - 1) / per);
+    const int ws = (la + 31) / 32;
+    if constexpr (MULTI) {
+        if (ws > kSmemWords) {
+            dam_scan_tile<true, false><<<grid, kTileThreads, 0, stream>>>(
+                pm, la, G, cand, lb, out, edge, B, b0, nb, lb4);
+            return cudaGetLastError();
+        }
+    }
+    dam_scan_tile<MULTI, true><<<grid, kTileThreads, ws * kRows * 4,
+                                 stream>>>(pm, la, G, cand, lb, out, edge, B,
+                                           b0, nb, lb4);
     return cudaGetLastError();
 }
 
@@ -486,30 +519,24 @@ cudaError_t launch_band(const uint32_t* pm, int ws, int la,
 
 // Full distances of the query (length la, PM table pm [W, 256]) to
 // candidates [b0, b0 + nb) of the packed corpus cand [lb4, B], written to
-// out[b].  Queries over 32 * kMaxRegW chars need scratch: 4 * la * nb
-// int32.
+// out[b].  Queries over kStrip = 1,024 chars need the edge buffer edge:
+// 3 * 4 * lb4 int32 per candidate, [nb, 3, 4 * lb4].
 extern "C" cudaError_t rf_dam_scan(const uint32_t* pm, int la,
                                    const uint32_t* cand, const int32_t* lb,
-                                   int32_t* out, int32_t* scratch, int64_t B,
+                                   int32_t* out, int32_t* edge, int64_t B,
                                    int64_t b0, int64_t nb, int lb4,
                                    cudaStream_t stream) {
     if (la < 0 || b0 < 0 || nb < 0 || b0 + nb > B)
         return cudaErrorInvalidValue;
     if (nb == 0) return cudaSuccess;
-    const int W = la > 0 ? (la + 31) / 32 : 1;
-    static_assert(kMaxRegW == 1, "the branch below instantiates W == 1");
-    if (W == 1)
-        return launch_reg<1>(pm, la, cand, lb, out, B, b0, nb, lb4, stream);
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    const unsigned grid = (unsigned)((nb + kThreads - 1) / kThreads);
-    if (W <= kSmemWords) {
-        dam_scan_scratch<true><<<grid, kThreads, W * kRows * 4, stream>>>(
-            pm, la, cand, lb, out, scratch, B, b0, nb, lb4);
-    } else {
-        dam_scan_scratch<false><<<grid, kThreads, 0, stream>>>(
-            pm, la, cand, lb, out, scratch, B, b0, nb, lb4);
-    }
-    return cudaGetLastError();
+    if (la > kStrip && edge == nullptr) return cudaErrorInvalidValue;
+    // a lane per tile of the query (its first strip), at most a warp
+    const int G = min(32, max(1, (la + kTile - 1) / kTile));
+    if (G == 1)
+        return launch_tile<false>(pm, la, G, cand, lb, out, edge, B, b0, nb,
+                                  lb4, stream);
+    return launch_tile<true>(pm, la, G, cand, lb, out, edge, B, b0, nb, lb4,
+                             stream);
 }
 
 // Banded distances (radius kband in {3, 7, 15}) of the query (length la,

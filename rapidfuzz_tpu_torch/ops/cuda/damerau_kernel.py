@@ -11,9 +11,9 @@ source, ``csrc/dam_scan.cu`` (K9), holds two kernels:
   (``_run_lp``) and the int16 bodies ``_kernel_sq16`` (``_run_sq16``) and
   ``_kernel_sq16m`` (``_run_sq16m``) compute the same function at the
   same shapes: ``dam_scan`` ports them too.  The TPU's split followed its
-  VMEM budget, lane layout and int16 compares; a CUDA thread walks its
-  candidate's text at any length, so one kernel serves every bucket and
-  every query length;
+  VMEM budget, lane layout and int16 compares; a group of CUDA lanes
+  walks its candidate's text at any length, so one kernel serves every
+  bucket and every query length;
 * the banded form replaces ``_kernel_sqband`` (``_run_sqband``,
   ``dam_band``) and ``_kernel_sqband_stream`` (``_run_sqband_stream``,
   ``dam_band_long``), radius ``kband`` in :data:`DAM_BAND_BUCKETS`:
@@ -25,11 +25,15 @@ The corpus and the PM table are K1's (:func:`~.lev_kernel.prepare_corpus`,
 ``tabs`` ``[W, 256]``.  The text is the DP's row axis and the query its
 column axis; the distance is symmetric.
 
-Queries of more than ``32 * MAX_REG_W`` chars keep each candidate's state
-(three DP rows and ``FR - K``, four ints per query char) in a
-``[4, la, chunk]`` int32 scratch: the wrapper launches over chunks of
-candidates whose scratch stays within :data:`SCRATCH_BYTES`, read at each
-call, one launch each.
+The full form keeps no DP cell in device memory: a CUDA lane holds a tile
+of :data:`TILE` query columns of a candidate in registers, a group of up
+to 32 lanes covers the query, and each lane hands its tile's right edge
+to the next one by shuffle after every text row.  Queries of more than
+:data:`STRIP` chars are swept in strips of that many columns; per text row
+a strip's right edge (:data:`EDGE_INTS` int32) goes to an edge buffer
+``[3, LB]`` per candidate, and the wrapper launches over chunks of
+candidates whose edge buffers stay within :data:`SCRATCH_BYTES`, read at
+each call, one launch each.
 
 The wrapper runs the kernel when handed CUDA tensors and the plain PyTorch
 version (:func:`dam_scan_plain`, :func:`dam_band_plain`) when handed CPU
@@ -49,12 +53,13 @@ from .lev_kernel import PM_ROWS, stage_query, words
 MAX_TEXT = 128           # the JAX package's Damerau split
                          # (damerau_kernel.MAX_TEXT): longer buckets count
                          # as dam_scan_long / dam_band_long
-MAX_REG_W = 1            # K9 keeps its state in registers up to this many
-                         # query words (at two, ptxas spills); longer
-                         # queries use a scratch
-SCRATCH_BYTES = 1 << 30  # bound of one launch's scratch (the scanner's
+TILE = 32                # query columns a lane of K9's full form holds
+STRIP = 32 * TILE        # query columns a warp sweeps at once; longer
+                         # queries pass strip edges through an edge buffer
+EDGE_INTS = 3            # int32 per text row at a strip edge
+SCRATCH_BYTES = 1 << 30  # bound of one launch's edge buffer (the scanner's
                          # memory plan)
-BLOCK = 256              # candidates per CUDA block
+BLOCK = 256              # chunks of candidates are whole multiples of this
 #: static band radii (damerau_kernel.py:1083-1087): a cutoff routes to
 #: the smallest radius >= it, a wider band being exact for all results
 #: <= the cutoff
@@ -110,7 +115,7 @@ def dam_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
         for j, ch in enumerate(text_steps(cand[:, s: s + step], lbs)):
             active = (j < lbs)[:, None]
             e = eq.index_select(0, ch)
-            new, nx = full_row(e, pe, d1, d2, x, j + 1)
+            new, nx, _ = full_row(e, pe, d1, d2, x, j + 1)
             d1, d2 = torch.where(active, new, d1), torch.where(active, d1, d2)
             x = torch.where(active, nx, x)
             pe = e
@@ -168,7 +173,7 @@ def dam_band_plain(la: int, kband: int, tabs: torch.Tensor,
             diag, up = prv[:, :P], prv[:, 1:]
             d2l, xo = cur[:, 1:], x[:, 1:]
             dprev = torch.cat([bigs, prv[:, : P - 1]], 1)
-            rt = last_match(e, d2l - p)
+            rt, _ = last_match(e, d2l - p)
             t = cell_targets(e, e1, pe, diag, up, xo, rt + p, i)
             if i <= K + 1:
                 jcol = i - K + p
@@ -189,10 +194,13 @@ def dam_band_plain(la: int, kband: int, tabs: torch.Tensor,
     return torch.cat(out).to(torch.int32)
 
 
-def scratch_chunk(la: int, B: int) -> int:
-    """Candidates per launch of the scratch form: ``16 * la`` bytes each,
-    whole CUDA blocks, within :data:`SCRATCH_BYTES`."""
-    return min(B, max(BLOCK, SCRATCH_BYTES // (16 * la) // BLOCK * BLOCK))
+def edge_chunk(LB: int, B: int) -> int:
+    """Candidates per launch of the full form for queries over
+    :data:`STRIP` chars: ``EDGE_INTS * 4 * LB`` bytes of edge buffer each
+    (``LB`` the bucket), whole multiples of :data:`BLOCK`, within
+    :data:`SCRATCH_BYTES`."""
+    per = EDGE_INTS * 4 * LB
+    return min(B, max(BLOCK, SCRATCH_BYTES // per // BLOCK * BLOCK))
 
 
 def _check(la, tabs, cand, lb):
@@ -218,16 +226,18 @@ def _dam_scan(la, tabs, cand, lb, name: str) -> torch.Tensor:
         return dam_scan_plain(la, tabs, cand, lb)
     B = lb.shape[0]
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    chunk, scratch = B, None
-    if la > 32 * MAX_REG_W and B:
-        # three DP rows and FR - K, [4, la, chunk] int32 coalesced by
-        # candidate, bounded by SCRATCH_BYTES: one launch per chunk
-        chunk = scratch_chunk(la, B)
-        scratch = torch.empty(4 * la * chunk, dtype=torch.int32, device=dev)
+    chunk, edge = B, None
+    if la > STRIP and B:
+        # the strips' right edges, [chunk, 3, LB] int32, bounded by
+        # SCRATCH_BYTES: one launch per chunk
+        LB = cand.shape[0] * 4
+        chunk = edge_chunk(LB, B)
+        edge = torch.empty(EDGE_INTS * LB * chunk, dtype=torch.int32,
+                           device=dev)
     for b0 in range(0, B, chunk):
         launch(name, "rf_dam_scan", dev, tabs.data_ptr(), la,
                cand.data_ptr(), lb.data_ptr(), out.data_ptr(),
-               None if scratch is None else scratch.data_ptr(), B, b0,
+               None if edge is None else edge.data_ptr(), B, b0,
                min(chunk, B - b0), cand.shape[0])
     return out
 

@@ -35,14 +35,21 @@ _OFF = 1 << 31
 _M32 = 0xFFFFFFFF
 
 
-def last_match(e: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+def last_match(e: torch.Tensor, val: torch.Tensor, carry=BIG):
     """For each column ``j``, ``val`` at the last column ``< j`` where
-    ``e`` is set, else ``BIG`` (``e``, ``val``: ``[B, L]``)."""
+    ``e`` is set, else ``carry`` (``e``, ``val``: ``[B, L]``; ``carry`` a
+    scalar or ``[B, 1]``); and ``[B, 1]``: the same past the last
+    column."""
     col = torch.arange(1, e.shape[1] + 1, device=e.device)
     key = torch.where(e, (col << 32) | (val + _OFF), 0)
     key = torch.cummax(key, 1).values
+    past = key[:, -1:]
     key = torch.cat([key.new_zeros(key.shape[0], 1), key[:, :-1]], 1)
-    return torch.where(key > 0, (key & _M32) - _OFF, BIG)
+
+    def unpack(k):
+        return torch.where(k > 0, (k & _M32) - _OFF, carry)
+
+    return unpack(key), unpack(past)
 
 
 def cell_targets(e, e1, pe, diag, up, xo, rt_j, i):
@@ -62,22 +69,44 @@ def left_scan(t: torch.Tensor, left0) -> torch.Tensor:
     return torch.minimum(torch.cummin(t - p, 1).values + p, left0 + p + 1)
 
 
-def full_row(e, pe, d1, d2, x, i: int):
-    """One DP row ``i`` over columns ``1..L``: ``e`` ``[B, L]`` bool (this
-    row's char equals column ``j``'s), ``pe`` the previous row's ``e``,
-    ``d1``/``d2`` ``[B, L + 1]`` int64 rows ``i-1`` and ``i-2`` (column 0
-    included; row -1 all ``BIG``), ``x`` ``[B, L]`` (``FR - K``).  Returns
-    row ``i`` and the new ``x``."""
+def _edge(v, like: torch.Tensor) -> torch.Tensor:
+    """A left-edge input as a ``[B, 1]`` column of ``like``'s dtype."""
+    if not isinstance(v, torch.Tensor):
+        return like.new_full((like.shape[0], 1), v)
+    return (v if v.dim() == 2 else v[:, None]).to(like.dtype)
+
+
+def full_row(e, pe, d1, d2, x, i, *, left=None, dprev=None, rt=None,
+             e1=None, c0=0):
+    """One DP row ``i`` over columns ``c0 + 1 .. c0 + L``: ``e`` ``[B, L]``
+    bool (this row's char equals column ``j``'s), ``pe`` the previous
+    row's ``e``, ``d1``/``d2`` ``[B, L + 1]`` int64 rows ``i-1`` and
+    ``i-2`` from column ``c0`` on (row -1 all ``BIG``), ``x`` ``[B, L]``
+    (``FR - K``).  ``i`` and ``c0`` are ints or ``[B, 1]`` tensors.
+
+    What the row takes from left of its columns, each a scalar or per
+    row, defaults being column 0's: ``left = D[i][c0]`` (``i``),
+    ``dprev = D[i-1][c0-1]`` (``BIG``), ``rt`` the row's
+    ``D[i-2][l-1] - l`` of its last match ``l <= c0`` (``BIG``) and
+    ``e1 = eq(i, c0)`` (false).  A query split into tiles of columns
+    passes these, with ``d1``'s and ``d2``'s column 0, from tile to tile.
+
+    Returns row ``i`` (column ``c0`` first), the new ``x``, and ``[B]``:
+    the row's ``rt`` past column ``c0 + L``."""
     B, L = e.shape
-    j = torch.arange(1, L + 1, device=e.device)
+    j = c0 + torch.arange(1, L + 1, device=e.device)
     diag, up, d2l = d1[:, :-1], d1[:, 1:], d2[:, :-1]
-    dprev = torch.cat([d1.new_full((B, 1), BIG), d1[:, :-2]], 1)
-    e1 = torch.cat([e.new_zeros(B, 1), e[:, :-1]], 1)
-    rt = last_match(e, d2l - j)
-    t = cell_targets(e, e1, pe, diag, up, x, rt + j, i)
-    new = left_scan(t, i)
+    left = _edge(i if left is None else left, d1)
+    dprev = torch.cat([_edge(BIG if dprev is None else dprev, d1),
+                       d1[:, :-2]], 1)
+    e1 = torch.cat([e.new_zeros(B, 1) if e1 is None else _edge(e1, e),
+                    e[:, :-1]], 1)
+    rt_j, rt_past = last_match(e, d2l - j,
+                               BIG if rt is None else _edge(rt, d1))
+    t = cell_targets(e, e1, pe, diag, up, x, rt_j + j, i)
+    new = left_scan(t, left)
     x = torch.where(e, dprev - i, x)
-    return torch.cat([d1.new_full((B, 1), i), new], 1), x
+    return torch.cat([left, new], 1), x, rt_past[:, 0]
 
 
 def damerau_distance(a: torch.Tensor, la: torch.Tensor,
@@ -99,7 +128,7 @@ def damerau_distance(a: torch.Tensor, la: torch.Tensor,
     for r in range(steps):
         active = (r < la_b)[:, None]
         e = a_b[:, r: r + 1] == b_b
-        new, nx = full_row(e, pe, d1, d2, x, r + 1)
+        new, nx, _ = full_row(e, pe, d1, d2, x, r + 1)
         d1, d2 = torch.where(active, new, d1), torch.where(active, d1, d2)
         x = torch.where(active, nx, x)
         pe = e

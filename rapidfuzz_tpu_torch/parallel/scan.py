@@ -124,10 +124,11 @@ class CorpusScanner:
     scratch within ``jaro_kernel.SCRATCH_BYTES``, and the host keeps 4
     chars and the length of each candidate.  A Damerau scan reads the same
     packed corpus (no second copy, where the JAX scanner stages its band's
-    own layout); queries over 32 chars keep a ``[4, la, chunk]`` int32
-    scratch (``16*la`` bytes per candidate) within
-    ``damerau_kernel.SCRATCH_BYTES``: a 64-char query over 1M strings is
-    1 GiB, one launch.  A partial_ratio scan adds K10's four int32 outputs
+    own layout) and keeps its DP state in registers; queries over 1,024
+    chars add an edge buffer of 12 bytes per text row and candidate
+    (``[3, LB, chunk]`` int32) within ``damerau_kernel.SCRATCH_BYTES``: a
+    4,001-char query over 131,072 texts of bucket 8192 is 12.9 GB of
+    edges, 13 launches.  A partial_ratio scan adds K10's four int32 outputs
     (num, den, start, end: 16 bytes per candidate) and, for queries over
     512 chars, one window's state in a ``[W, chunk]`` u32 scratch (``4*W``
     bytes per candidate) within ``partial_kernel.SCRATCH_BYTES``.

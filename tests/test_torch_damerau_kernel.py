@@ -179,8 +179,9 @@ def test_aligned_pairs_match_xla():
 
 def test_band_radius_rule_and_wrapper_checks():
     """``pick_dam_band`` is the JAX package's rule; the wrappers refuse
-    an unknown radius and a table of the wrong width, and the scratch
-    plan keeps whole blocks within ``SCRATCH_BYTES``."""
+    an unknown radius and a table of the wrong width, and the edge-buffer
+    plan of queries over ``STRIP`` chars (12 bytes per text row and
+    candidate) keeps whole blocks within ``SCRATCH_BYTES``."""
     for cut in range(0, 20):
         for lbmax in (16, 32, 48, 64, 128, 1 << 30):
             assert dk.pick_dam_band(cut, lbmax) == \
@@ -195,6 +196,6 @@ def test_band_radius_rule_and_wrapper_checks():
     _, tabs = lk.stage_query(np.arange(97, 107), "byte")
     with pytest.raises(ValueError, match="shape mismatch"):
         dk._dam_scan(40, tabs, cand, lb, "dam_scan")
-    assert dk.scratch_chunk(4001, 1 << 20) % dk.BLOCK == 0
-    assert 16 * 4001 * dk.scratch_chunk(4001, 1 << 20) <= dk.SCRATCH_BYTES
-    assert dk.scratch_chunk(65, 1000) == 1000
+    assert dk.edge_chunk(8192, 1 << 20) % dk.BLOCK == 0
+    assert 12 * 8192 * dk.edge_chunk(8192, 1 << 20) <= dk.SCRATCH_BYTES
+    assert dk.edge_chunk(64, 1000) == 1000
