@@ -1,5 +1,5 @@
 // K1: one-vs-many uniform Levenshtein (Myers/Hyyro bit-parallel), one
-// query or NQ queries per launch, at any bucket length.
+// query or NQ queries per launch, at any bucket and query length.
 //
 // Replaces the TPU kernels rapidfuzz_tpu/ops/pallas/lev_kernel.py:_kernel,
 // launched there by _run (one query) and _run_nq (multiq=True, 16
@@ -7,45 +7,81 @@
 // which serves buckets over 1024 chars by streaming 512-char text chunks
 // through a second grid axis with VP/VN carried in VMEM.  That chunking
 // existed only because a candidate block of a long bucket did not fit
-// VMEM; here a thread walks its own candidate's steps from global memory
+// VMEM; here a candidate's lanes walk its text from global memory
 // whatever the bucket, so one kernel serves every length and the wrapper
 // only counts launches at buckets > 1024 apart (lev_scan_long).
 //
-// What bounds it on an H100: integer issue.  A step costs ~17 u32 ops per
-// query word plus one shared-memory PM lookup per word; the corpus is
-// read once per query, 1 byte per char (4 chars per coalesced u32 load),
-// which at len-64 candidates is ~70 bytes per pair against ~2,000 integer
-// ops, far on the compute side of the card's balance point.
+// What bounds it on an H100: integer issue.  A step costs ~11 u32 ops per
+// query word (chip_smoke.OPS) plus one shared-memory PM lookup; the
+// corpus is read once per query (once per strip, below), 1 byte per char
+// (4 chars per u32 load).  No form moves VP/VN through device memory.
 //
-// Design:
-// * one thread per candidate, candidates along blockIdx.x; the NQ form
-//   puts the query index on blockIdx.y, so all NQ queries reuse the
-//   corpus lines the L2 already holds;
-// * the packed corpus keeps the JAX layout [LB/4, B] u32: at text step j
-//   a warp reads 32 neighbouring words of row j/4;
-// * the query's PM table ([W, 256] u32, both "byte" and "local" mode)
-//   sits in shared memory; the TPU's two 128-lane tables and their select
-//   were a gather-width artefact;
-// * VP/VN live in registers for W <= 8 (template on W); longer queries
-//   run a generic kernel that keeps VP/VN in a [NQ, 2W, B] scratch read
-//   and written coalesced by candidate, with PM read through the
-//   read-only cache, so no query length is refused;
-// * each thread runs exactly lb steps.  The TPU froze distances at
-//   j == lb because lanes share control flow; the scanner's length sort
-//   keeps the lengths inside one warp close.
-//   la == 0 gives lb, lb == 0 gives la.
-// * every offset into the corpus, the output and the scratch is 64-bit
-//   (row * B): a 131072-char bucket of 65,536 candidates is 8 GiB packed,
-//   past 2^31 bytes; only per-candidate lengths and the row count lb4 are
-//   32-bit.
+// Two forms, both with the query's PM table in shared memory:
+// * register form (W <= 8 words, template on W): one thread per
+//   candidate holds all W words of VP/VN and adds each step's delta at
+//   bit (la - 1) & 31 of word W - 1; the table [W, 256] u32, a lane's
+//   lookup at row c;
+// * tile form (W > 8, template on L = 2, 4 or 8): a lane holds L
+//   consecutive query words of VP/VN in registers, and a candidate takes
+//   G = ceil(W / L) lanes (at most a strip's S / L), 32 / G candidates a
+//   warp, its other 32 % G lanes idle.  In Hyyro's block form only two
+//   bits cross a word edge, the horizontal carries hp_c and hn_c, both
+//   from low words to high ones within one text step, so lane t runs text
+//   char s - t at step s (a wavefront): it takes (char, hp_c, hn_c) from
+//   lane t - 1's last step by one __shfl_up_sync, runs its L words, and
+//   hands (char, carries out) on.  Only a group's lane 0 reads the packed
+//   corpus (a word every 4 chars, loaded a word ahead) and starts the
+//   carries at hp_c = 1, hn_c = 0.  A group runs its candidate's n steps
+//   plus G - 1 of ramp, and a warp runs to its longest candidate: every
+//   lane stays in the step loop (the shuffles need the whole warp) and
+//   leaves its state as it is at chars outside [0, n).  No lane adds a
+//   delta per step: at the end D[la][n] = n + sum of the final column's
+//   vertical deltas, popc(VP) - popc(VN) over the query's la bits, summed
+//   over the group's lanes by a warp prefix sum;
+// * tile form's table: [256, Wp] u32 (char-major, Wp = G * L rounded up
+//   to 32 words), so lane t's L words of char c are one 8- or 16-byte
+//   load at c * Wp + t * L, and the lanes of a group, holding consecutive
+//   tiles, hit consecutive banks whatever their chars; blocks of 1,024
+//   threads (__launch_bounds__(1024, 1): 64 registers a thread), so one
+//   table serves the SM's 32 warps;
+// * strips: queries over S = min(32 * L, 128) words (the table 128 KB)
+//   go in strips of S words, each a pass over the text, the table
+//   reloaded between them.  Per text row the strip's top lane packs its
+//   carry-out (2 bits) into an edge buffer, 16 rows a u32
+//   ([NQ, ceil(LB / 16), nb] u32, coalesced by candidate), and lane 0 of
+//   the next strip reads them back a word ahead of its use; the buffer is
+//   reused in place (a word is read before the top lane, G - 1 steps
+//   behind lane 0, writes it again).  The wrapper launches over chunks of
+//   candidates whose edge buffers fit its memory plan
+//   (lev_kernel.SCRATCH_BYTES);
+// * the corpus comes sorted by length, and block b works the candidates
+//   of block nblocks - 1 - b, so the longest texts start first (both
+//   forms);
+// * the NQ form puts the query index on blockIdx.y, so all NQ queries
+//   reuse the corpus lines the L2 already holds;
+// * la == 0 gives lb (register form; a tile-form query has > 256 chars);
+//   lb == 0 gives la;
+// * every offset into the corpus, the output and the edge buffer is
+//   64-bit (row * B): a 131072-char bucket of 65,536 candidates is 8 GiB
+//   packed, past 2^31 bytes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;  // PM entries: every byte value
+constexpr int kThreads = 256;       // the register form's block
+constexpr int kTileThreads = 1024;  // the tile form's block: one an SM
+constexpr int kRows = 256;          // PM entries: every byte value
+constexpr int kMaxRegW = 8;         // register form up to this many words
+constexpr int kStripWords = 128;    // most query words a strip holds
+constexpr int kEdgeRows = 16;       // text rows per u32 of the edge buffer
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Query words of a strip for lanes of L words: a warp's tiles, at most
+// kStripWords.
+template <int L>
+constexpr int kStrip = 32 * L < kStripWords ? 32 * L : kStripWords;
 
 // One Myers/Hyyro block step of one word: updates vp/vn, hands the
 // horizontal carries (hp_c, hn_c) on to the next word, and returns the
@@ -79,21 +115,25 @@ __device__ __forceinline__ int step(const uint32_t* __restrict__ pm,
     return (int)((hp >> last) & 1u) - (int)((hn >> last) & 1u);
 }
 
+// The register form over candidates [b0, b0 + nb).
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 lev_scan_reg(const uint32_t* __restrict__ pm_all,
              const int32_t* __restrict__ las,
              const uint32_t* __restrict__ cand,
              const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-             int64_t B, int lb4) {
+             int64_t B, int64_t b0, int64_t nb, int lb4) {
     __shared__ uint32_t pm[W * kRows];
     const int q = blockIdx.y;
     const uint32_t* src = pm_all + (size_t)q * W * kRows;
     for (int i = threadIdx.x; i < W * kRows; i += kThreads) pm[i] = src[i];
     __syncthreads();
 
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (b >= B) return;
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        (int64_t)(gridDim.x - 1 - blockIdx.x) * kThreads + threadIdx.x;
+    if (k >= nb) return;
+    const int64_t b = b0 + k;
     const int la = las[q];
     const int n = min(lb[b], 4 * lb4);
     int32_t* dst = out + (size_t)q * B + b;
@@ -102,7 +142,7 @@ lev_scan_reg(const uint32_t* __restrict__ pm_all,
 
     uint32_t vp[W], vn[W];
 #pragma unroll
-    for (int w = 0; w < W; ++w) { vp[w] = 0xFFFFFFFFu; vn[w] = 0u; }
+    for (int w = 0; w < W; ++w) { vp[w] = kFull; vn[w] = 0u; }
     int dist = la;
     const int rows = n >> 2;
     const uint32_t* col = cand + b;
@@ -121,79 +161,228 @@ lev_scan_reg(const uint32_t* __restrict__ pm_all,
     *dst = dist;
 }
 
-__global__ void __launch_bounds__(kThreads)
-lev_scan_generic(const uint32_t* __restrict__ pm_all,
-                 const int32_t* __restrict__ las,
-                 const uint32_t* __restrict__ cand,
-                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                 uint32_t* __restrict__ scratch, int64_t B, int lb4,
-                 int W) {
-    const int q = blockIdx.y;
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (b >= B) return;
-    const uint32_t* pm = pm_all + (size_t)q * W * kRows;
-    const int la = las[q];
-    const int n = min(lb[b], 4 * lb4);
-    int32_t* dst = out + (size_t)q * B + b;
-    if (la == 0) { *dst = lb[b]; return; }
-    const int last = (la - 1) & 31;
-    // VP rows [0, W), VN rows [W, 2W) of this query's scratch block
-    uint32_t* st = scratch + (size_t)q * 2 * W * B + b;
-    for (int w = 0; w < W; ++w) {
-        st[(size_t)w * B] = 0xFFFFFFFFu;
-        st[(size_t)(W + w) * B] = 0u;
-    }
-    int dist = la;
-    const uint32_t* col = cand + b;
-    uint32_t word = 0u;
-    for (int j = 0; j < n; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-        uint32_t hp_c = 1u, hn_c = 0u, hp = 0u, hn = 0u;
-        for (int w = 0; w < W; ++w) {
-            uint32_t vp = st[(size_t)w * B], vn = st[(size_t)(W + w) * B];
-            myers_word(__ldg(pm + w * kRows + c), vp, vn, hp_c, hn_c, hp,
-                       hn);
-            st[(size_t)w * B] = vp;
-            st[(size_t)(W + w) * B] = vn;
+// A lane's L PM words of one char: one 8- or 16-byte shared load per 2 or
+// 4 words (p is aligned: Wp is a multiple of 32 and a lane starts at t * L).
+template <int L>
+__device__ __forceinline__ void load_tile(const uint32_t* p,
+                                          uint32_t (&w)[L]) {
+    if constexpr (L == 2) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        w[0] = v.x;
+        w[1] = v.y;
+    } else {
+#pragma unroll
+        for (int i = 0; i < L; i += 4) {
+            const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+            w[i] = v.x;
+            w[i + 1] = v.y;
+            w[i + 2] = v.z;
+            w[i + 3] = v.w;
         }
-        dist += (int)((hp >> last) & 1u) - (int)((hn >> last) & 1u);
     }
-    *dst = dist;
+}
+
+// The tile form over candidates [b0, b0 + nb) (the header's design): G
+// lanes a candidate, L query words each, the table [256, Wp] in dynamic
+// shared memory.  edge: [NQ, ceil(4 * lb4 / 16), nb] u32, read and
+// written only when W > kStrip<L>.
+template <int L>
+__global__ void __launch_bounds__(kTileThreads, 1)
+lev_scan_tile(const uint32_t* __restrict__ pm_all,
+              const int32_t* __restrict__ las,
+              const uint32_t* __restrict__ cand,
+              const int32_t* __restrict__ lb, int32_t* __restrict__ out,
+              uint32_t* __restrict__ edge, int64_t B, int64_t b0,
+              int64_t nb, int lb4, int W, int G, int Wp) {
+    constexpr int S = kStrip<L>;
+    extern __shared__ uint4 smem[];
+    uint32_t* const pm = reinterpret_cast<uint32_t*>(smem);
+    const int q = blockIdx.y;
+    const uint32_t* const pm_q = pm_all + (size_t)q * W * kRows;
+    const int la = las[q];
+    // a warp holds 32 / G groups; its lanes past them idle
+    const int lane = threadIdx.x & 31;
+    const int per = 32 / G;
+    const int grp = lane / G;
+    const int t = lane - grp * G;               // the lane's tile
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        ((int64_t)(gridDim.x - 1 - blockIdx.x) * (kTileThreads / 32)
+         + threadIdx.x / 32) * per + grp;
+    const bool real = grp < per && k < nb;
+    const int64_t b = b0 + (real ? k : 0);
+    const int LB = 4 * lb4;
+    const int n = real ? min(lb[b], LB) : 0;
+    const int nmax = __reduce_max_sync(kFull, n);
+    const uint32_t* const col = cand + b;
+    const int rows = (n + 3) >> 2;
+    const int erows = (LB + kEdgeRows - 1) / kEdgeRows;
+    uint32_t* const eg = edge != nullptr
+        ? edge + (size_t)q * erows * nb + (real ? k : 0) : nullptr;
+    const int nstrip = (W + S - 1) / S;
+    const int full = la >> 5;                   // words wholly in the query
+    int part = 0;   // the lane's share of the final column's deltas
+    for (int st = 0; st < nstrip; ++st) {
+        const int w0 = st * S;
+        const int ws = min(S, W - w0);
+        // the previous strip's table reads and edge stores are done
+        if (st > 0) __syncthreads();
+        for (int i = threadIdx.x; i < Wp * kRows; i += kTileThreads) {
+            const int w = i >> 8, c = i & (kRows - 1);
+            pm[c * Wp + w] = w < ws ? pm_q[(size_t)(w0 + w) * kRows + c]
+                                    : 0u;
+        }
+        __syncthreads();
+        const int glive = (ws + L - 1) / L;     // lanes with query words
+        const int steps = nmax > 0 ? nmax + glive - 1 : 0;
+        const bool edge_out = st + 1 < nstrip && t == G - 1;
+        const uint32_t* const tile = pm + t * L;
+        uint32_t vp[L], vn[L];
+#pragma unroll
+        for (int w = 0; w < L; ++w) {
+            vp[w] = kFull;
+            vn[w] = 0u;
+        }
+        // lane 0: the packed word after the current one and, past the
+        // first strip, the edge word after the current one; the top lane:
+        // the edge word it fills
+        uint32_t word = 0u, next = 0u, ein = 0u, enext = 0u, eacc = 0u;
+        // what the lane hands on: char | hp_c << 8 | hn_c << 9
+        uint32_t o = 0u;
+        if (t == 0 && n > 0) {
+            next = col[0];
+            if (st > 0) enext = eg[0];
+        }
+#pragma unroll 1
+        for (int s = 0; s < steps; ++s) {
+            // lane t - 1's last char; a group's lane 0 ignores it
+            const uint32_t in = __shfl_up_sync(kFull, o, 1);
+            const int j = s - t;
+            if (j >= 0 && j < n) {
+                uint32_t v = in;
+                if (t == 0) {
+                    if ((j & 3) == 0) {
+                        word = next;
+                        if ((j >> 2) + 1 < rows)
+                            next = col[(size_t)((j >> 2) + 1) * B];
+                    }
+                    v = ((word >> (8 * (j & 3))) & 0xFFu) | (1u << 8);
+                    if (st > 0) {
+                        if ((j & (kEdgeRows - 1)) == 0) {
+                            ein = enext;
+                            if ((j + kEdgeRows) < n)
+                                enext = eg[(size_t)(j / kEdgeRows + 1) * nb];
+                        }
+                        v = (v & 0xFFu)
+                            | (((ein >> (2 * (j & (kEdgeRows - 1)))) & 3u)
+                               << 8);
+                    }
+                }
+                const uint32_t c = v & 0xFFu;
+                uint32_t hp_c = (v >> 8) & 1u, hn_c = (v >> 9) & 1u;
+                uint32_t pmw[L];
+                load_tile<L>(tile + c * Wp, pmw);
+#pragma unroll
+                for (int w = 0; w < L; ++w) {
+                    uint32_t hp, hn;
+                    myers_word(pmw[w], vp[w], vn[w], hp_c, hn_c, hp, hn);
+                }
+                o = c | (hp_c << 8) | (hn_c << 9);
+                if (edge_out) {
+                    const int r = j & (kEdgeRows - 1);
+                    eacc |= (o >> 8) << (2 * r);
+                    if (r == kEdgeRows - 1 || j == n - 1) {
+                        eg[(size_t)(j / kEdgeRows) * nb] = eacc;
+                        eacc = 0u;
+                    }
+                }
+            }
+        }
+        // the query's bits among the lane's words: whole words below
+        // la / 32, the low la % 32 bits of word la / 32, none past it
+#pragma unroll
+        for (int w = 0; w < L; ++w) {
+            const int gw = w0 + t * L + w;
+            const uint32_t m = gw < full ? kFull
+                : (gw == full ? (1u << (la & 31)) - 1u : 0u);
+            part += __popc(vp[w] & m) - __popc(vn[w] & m);
+        }
+    }
+    // the group's sum: a warp prefix sum, less the lanes before the group
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kFull, part, d);
+        if (lane >= d) part += y;
+    }
+    const int hi = __shfl_sync(kFull, part, (grp * G + G - 1) & 31);
+    const int lo = __shfl_sync(kFull, part, (grp * G + 31) & 31);
+    if (real && t == 0) out[(size_t)q * B + b] = n + hi - (grp > 0 ? lo : 0);
 }
 
 template <int W>
 cudaError_t launch_reg(const uint32_t* pm, const int32_t* las,
                        const uint32_t* cand, const int32_t* lb,
-                       int32_t* out, int64_t B, int lb4, int nq,
-                       cudaStream_t stream) {
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), nq);
+                       int32_t* out, int64_t B, int64_t b0, int64_t nb,
+                       int lb4, int nq, cudaStream_t stream) {
+    const dim3 grid((unsigned)((nb + kThreads - 1) / kThreads), nq);
     lev_scan_reg<W><<<grid, kThreads, 0, stream>>>(pm, las, cand, lb, out,
-                                                   B, lb4);
+                                                   B, b0, nb, lb4);
+    return cudaGetLastError();
+}
+
+template <int L>
+cudaError_t launch_tile(const uint32_t* pm, const int32_t* las,
+                        const uint32_t* cand, const int32_t* lb,
+                        int32_t* out, uint32_t* edge, int64_t B, int64_t b0,
+                        int64_t nb, int lb4, int W, int nq,
+                        cudaStream_t stream) {
+    constexpr int S = kStrip<L>;
+    if (W > S && edge == nullptr) return cudaErrorInvalidValue;
+    const int G = min((W + L - 1) / L, S / L);
+    const int Wp = (G * L + 31) / 32 * 32;
+    const int bytes = Wp * kRows * 4;
+    cudaError_t err = cudaFuncSetAttribute(
+        lev_scan_tile<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return err;
+    const int64_t per = (kTileThreads / 32) * (32 / G);  // per block
+    const dim3 grid((unsigned)((nb + per - 1) / per), nq);
+    lev_scan_tile<L><<<grid, kTileThreads, bytes, stream>>>(
+        pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, G, Wp);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// Distances of NQ queries (lengths las [NQ], PM tables pm [NQ, W, 256])
+// to candidates [b0, b0 + nb) of the packed corpus cand [lb4, B], written
+// to out[q * B + b].  W <= 8 takes the register form (L ignored); past
+// that the tile form with L words a lane (2, 4 or 8), and queries over
+// min(32 * L, 128) words need the edge buffer edge:
+// [NQ, ceil(4 * lb4 / 16), nb] u32.
 extern "C" cudaError_t rf_lev_scan(const uint32_t* pm, const int32_t* las,
                                    const uint32_t* cand, const int32_t* lb,
-                                   int32_t* out, uint32_t* scratch,
-                                   int64_t B, int lb4, int W, int nq,
-                                   cudaStream_t stream) {
-    switch (W) {
-        case 1: return launch_reg<1>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 2: return launch_reg<2>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 3: return launch_reg<3>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 4: return launch_reg<4>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 5: return launch_reg<5>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 6: return launch_reg<6>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 7: return launch_reg<7>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 8: return launch_reg<8>(pm, las, cand, lb, out, B, lb4, nq, stream);
+                                   int32_t* out, uint32_t* edge, int64_t B,
+                                   int64_t b0, int64_t nb, int lb4, int W,
+                                   int nq, int L, cudaStream_t stream) {
+    if (W < 1 || nq < 1 || b0 < 0 || nb < 0 || b0 + nb > B)
+        return cudaErrorInvalidValue;
+    if (nb == 0) return cudaSuccess;
+    if (W <= kMaxRegW) switch (W) {
+        case 1: return launch_reg<1>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 2: return launch_reg<2>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 3: return launch_reg<3>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 4: return launch_reg<4>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 5: return launch_reg<5>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 6: return launch_reg<6>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 7: return launch_reg<7>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 8: return launch_reg<8>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
         default: break;
     }
-    if (W < 1 || scratch == nullptr) return cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), nq);
-    lev_scan_generic<<<grid, kThreads, 0, stream>>>(pm, las, cand, lb, out,
-                                                    scratch, B, lb4, W);
-    return cudaGetLastError();
+    switch (L) {
+        case 2: return launch_tile<2>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
+        case 4: return launch_tile<4>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
+        case 8: return launch_tile<8>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
+        default: return cudaErrorInvalidValue;
+    }
 }

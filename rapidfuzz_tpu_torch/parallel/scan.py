@@ -110,7 +110,8 @@ class CorpusScanner:
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
     per query), 4 for its length.  Per query a scan adds an int32 output,
-    for queries over 256 chars K1's ``[2W, B]`` int32 carry scratch, and
+    for queries over 4,096 chars K1's edge buffer of 2 bits per text row
+    (``lev_kernel.edge_chunk``), and
     for a hint scan its stragglers, compacted in chunks of at most an
     eighth of the corpus, so no scan stages a second corpus-sized copy;
     the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch,
