@@ -11,12 +11,19 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``) and, for K7-K11, each
-   kernel's SASS instruction count and commonest opcodes (``cuobjdump``);
+   registers and spills (``ptxas -v``; K1's per kernel instance) and,
+   for K1 and K7-K11, each kernel's SASS instruction count and commonest
+   opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
-   card, bit for bit: the short-text routes at 262,144 candidates, the
-   long routes (K1 and K4 over 2048- and 8192-char buckets, their
-   scratch forms over 2048 only, the run-time band, the streamed bands
+   card, bit for bit: K1 at W = 1, 2, 3 and 8 (registers), its tile
+   form at W = 9, 10, 33, 126 and 129 (one word past a strip, also over
+   two chunks of a smaller edge-buffer budget) in byte and local mode
+   over buckets 64, 1,056 and 8,192 (the plain version on the texts of
+   up to 64 chars, the 32 longest of the long buckets against the
+   oracle), 16 queries per launch at W = 1, 2 and 10; the short-text
+   routes at 262,144 candidates, the
+   long routes (K1 and K4 over 2048- and 8192-char buckets, K4's
+   scratch form over 2048 only, the run-time band, the streamed bands
    over 2048) at 2,048 candidates, where the plain
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first scratch width), 16 queries per
@@ -146,7 +153,11 @@ Phases, each printing one JSON line before the next starts:
    (the short-text kernels at 1,048,576 candidates of the serve corpus,
    the LCS band at the mid corpus, the long ones at the long phase's
    corpora), with each kernel's bound, the output of each timed launch
-   held against the plain version; K7 also at 32-129 chars over the serve
+   held against the plain version; K1 also at 300 and 4,001 chars over
+   the long corpus (its tile form), each with its launches, its plain
+   version on the shortest texts, and, as for its register rows, the
+   instructions its layout adds to the bound (ramps, idle lanes, the
+   wait for a warp's longest text); K7 also at 32-129 chars over the serve
    corpus and at 299 and 4,001 chars over the long corpus (the second
    launched over chunks of the 1 GiB scratch plan), its plain version on
    a slice of the candidates where the whole shape would take it over
@@ -163,7 +174,10 @@ Phases, each printing one JSON line before the next starts:
 Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
 8, 9, 10, 11, 12, 13 and 14 and read after each, so the counts are those
-of the nine main paths alone; every kernel must have launched in them.  Each
+of the nine main paths alone; every kernel must have launched in them.
+The done line also counts the main paths' K1, K4 and K6 launches and
+their candidates by query words (``launches_by_words``: [launches,
+candidates] per W).  Each
 phase's line gives its seconds and those of its oracle checks
 (``oracle_s``), the kernels phase's also per family of cases and the wlev,
 jaro, dam and partial phases' per part.
@@ -240,6 +254,20 @@ DAM_BAND_SLICE = 16
 #: the timing phase holds K9's ~4,000-char scan of the long corpus on its
 #: DAM_SHORTEST shortest texts
 DAM_SHORTEST = 64
+#: K1's tile form in the kernel cases: the query widths (129: one word
+#: past a strip), the text length up to which the plain version holds the
+#: long buckets' texts, and the longest texts held against the oracle
+TILE_WS = (9, 10, 33, 126, 129)
+TILE_PLAIN = 64
+TILE_ORACLE = 32
+#: the timing phase holds K1's ~4,000-char scan of the long corpus on its
+#: LEV_SHORTEST shortest texts
+LEV_SHORTEST = 64
+#: the scans whose launches the main paths also count by query words: the
+#: positions of W and of the launch's candidate count among each C entry
+#: point's arguments
+WORDS_ARG = {"rf_lev_scan": (10, 8), "rf_lcs_scan": (7, 5),
+             "rf_osa_scan": (8, 6)}
 #: the Jaro service's prefix weight (the default) and the library's
 JARO_PW = 0.1
 JARO_LIB_PW = 0.2
@@ -336,6 +364,16 @@ DAM_CELL_OPS = 351 / 32
 #: hand-offs, the ramp steps, the cells past column la, the lanes that
 #: 32 / G groups leave idle and the warp's wait for its longest candidate
 DAM_STEP_OPS = ((33 + 46 + 41) / 2, 43 / 2)
+#: What K1 runs beside its bound's OPS per query word and text step goes
+#: beside it (lev_scan*_layout_bound_ms), counted in the SASS of the built
+#: library under alu_blocks' rule: the register form's INT32-lane
+#: instructions per thread and text step (lev_scan_reg<2>: 105 in its
+#: unrolled 4-char loop, 88 of them the two words' 4 steps), and the tile
+#: form's per lane and step (lev_scan_tile's loop when the query fits one
+#: strip: 120 over every path, of them 88 its 8 words, 10 the strip edge's
+#: store, not run then, and 5 the corpus load, run every 4th step)
+LEV_REG_STEP_OPS = {2: 105 / 4}
+LEV_TILE_STEP_OPS = 120 - 10 - 5 * 3 / 4
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
 #: K10's bound charges every window step the function needs, per query
 #: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
@@ -488,6 +526,35 @@ def ptxas_summary(report: dict) -> dict:
     return out
 
 
+def kernel_key(name: str, kernel: str) -> str:
+    """A mangled kernel name as its template's name and arguments, e.g.
+    ``dam_band_kernel<15,1>``, or as its plain name (``lev_scan_tile``);
+    the mangled name where neither holds ``kernel``."""
+    m = re.search(r"\d(%s\w*?)I((?:L[ib]\d+E)+)E" % kernel, name)
+    if m:
+        return f"{m[1]}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>"
+    m = re.search(r"\d(%s\w*?)E" % kernel, name)
+    return m[1] if m else name
+
+
+def ptxas_kernels(log: str, kernel: str) -> dict:
+    """From one source's ``ptxas -v`` log: registers and spill bytes of
+    each kernel whose name starts with ``kernel``, keyed by
+    ``kernel_key``."""
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        if not re.search(r"\d" + kernel, name):
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        out[kernel_key(name, kernel)] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_bytes": sum(map(int, spill.groups())) if spill else None}
+    return out
+
+
 #: SASS opcodes (besides IMAD and the uniform datapath's U*) that do not
 #: issue on the INT32 lanes: VIADD (it trades places with IMAD between
 #: builds of one body), memory, shuffles, moves and control
@@ -497,7 +564,7 @@ SASS_OFF_ALU = frozenset(("VIADD", "LDG", "LDS", "LDC", "STG", "STS", "SHFL",
 
 
 def sass_histogram(kc, kernel: str):
-    """For each kernel of the built library whose name holds ``kernel``:
+    """For each kernel of the built library whose name starts with ``kernel``:
     its SASS instruction count, its ten commonest opcodes and the
     instructions other than IMAD (which issue on the FMA lanes) in each of
     its four largest branch-free blocks, the bodies of an unrolled loop
@@ -514,12 +581,9 @@ def sass_histogram(kc, kernel: str):
     out = {}
     for body in re.split(r"\n\s*Function : ", sass)[1:]:
         name = body.split("\n", 1)[0].strip()
-        if kernel not in name:
+        if not re.search(r"\d" + kernel, name):
             continue
-        # the template's name and arguments: dam_band_kernel<15,1>
-        m = re.search(r"\d(%s\w*?)I((?:L[ib]\d+E)+)E" % kernel, name)
-        key = (f"{m.group(1)}<{','.join(re.findall(r'L[ib](\d+)E', m[2]))}>"
-               if m else name)
+        key = kernel_key(name, kernel)
         ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)|(\.L_x_\d+:)", body)
         blocks, run = [], [0, 0]
@@ -597,11 +661,37 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.err = {name: 0 for name in kc.LAUNCHES}
         self.cases = {name: 0 for name in kc.LAUNCHES}
+        #: the main paths' launches and their candidates by query words:
+        #: name -> {W: [launches, candidates]}
+        self.words = collections.defaultdict(
+            lambda: collections.defaultdict(lambda: [0, 0]))
         #: seconds spent in the oracle, in all and at the last phase's end
         self.oracle_s, self.oracle_mark, self.in_oracle = 0.0, 0.0, False
 
     def sync(self) -> None:
         self.torch.cuda.synchronize()
+
+    def count_words(self, on: bool) -> None:
+        """Count K1's, K4's and K6's launches and their candidates also
+        by query words (``self.words``) while ``on``: the launch function
+        their modules call is wrapped, and restored when ``on`` is
+        false."""
+        for mod in (self.lk, self.ck, self.ok):
+            inner = getattr(mod.launch, "inner", mod.launch)
+            if not on:
+                mod.launch = inner
+                continue
+
+            def launch(name, entry, dev, *args, _inner=inner):
+                _inner(name, entry, dev, *args)
+                if entry in WORDS_ARG:
+                    w, nb = WORDS_ARG[entry]
+                    tally = self.words[name][args[w]]
+                    tally[0] += 1
+                    tally[1] += args[nb]
+
+            launch.inner = inner
+            mod.launch = launch
 
     def emit_phase(self, obj) -> None:
         """A phase's JSON line, with the seconds its oracle checks took."""
@@ -664,9 +754,9 @@ class Smoke:
             "local": np.unique(np.r_[0, 127, rng.choice(128, 10)]),
         }
         salt = 0
-        # K1, one query: W = 1, 2, 3 (registers), 8 (largest register
-        # form) and 9 (scratch form), in both PM modes
-        for W in (1, 2, 3, 8, 9):
+        # K1, one query: W = 1, 2, 3 and 8 (the largest register form), in
+        # both PM modes; its tile form in lev_tile_cases
+        for W in (1, 2, 3, 8):
             for mode in ("byte", "local"):
                 salt += 1
                 a = alph[mode]
@@ -743,6 +833,7 @@ class Smoke:
         # the seconds of each family of cases, for the phase's budget
         family_s = {"short": time.perf_counter() - t_start}
         for fam, run in (
+                ("tile", lambda s: self.lev_tile_cases(rng, alph, s)),
                 ("long", lambda s: self.long_kernel_cases(rng, alph["byte"],
                                                           s)),
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
@@ -763,6 +854,112 @@ class Smoke:
                          "cases": self.cases, "max_abs_err": self.err,
                          "family_s": family_s,
                          "seconds": time.perf_counter() - t_start})
+
+    def lev_tile_cases(self, rng, alph, salt):
+        """K1's tile form (queries over 8 words) against its plain version:
+        W = 9, 10, 33, 126 and 129 (one word past a strip), the byte and
+        the local PM table, over buckets 64 (N_KERNEL candidates, the
+        plain version on all), 1,056 and 8,192 (N_KERNEL_LONG, the plain
+        version on those of at most TILE_PLAIN chars, half of them; the
+        other half spread to the bucket's end, 8 at it, held against the
+        oracle on TILE_ORACLE of the longest in byte mode); W = 129 at
+        1,056 once more over two chunks of a smaller edge-buffer budget;
+        ``lev_scan_nq`` at W = 10, 16 queries.  The texts are copies of
+        windows of the query with up to 30 % of their chars substituted,
+        so their alignments cross the query's word, tile and strip edges
+        (``lk.tile_plan``).  The plain version takes both tables in one
+        call (its cost is its steps times W, whatever the candidates)."""
+        torch, lk, kc = self.torch, self.lk, self.kc
+        a = alph["byte"]
+        at = torch.from_numpy(a).to(self.dev)
+        for LBk in (LB, 1056, LONG_LB):
+            B = N_KERNEL if LBk == LB else N_KERNEL_LONG
+            name = "lev_scan" if LBk <= lk.LONG_LB else "lev_scan_long"
+            for W in TILE_WS:
+                salt += 1
+                g = self.gen(salt)
+                la = 32 * (W - 1) + 1 + int(rng.integers(0, 32))
+                q = rng.choice(a, la)
+                qt = torch.from_numpy(q).to(self.dev)
+                lens = torch.randint(0, LBk + 1, (B,), generator=g,
+                                     device=self.dev)
+                if LBk > LB:
+                    lens[: B // 2] = torch.randint(
+                        0, TILE_PLAIN + 1, (B // 2,), generator=g,
+                        device=self.dev)
+                    lens[-8:] = LBk
+                pos = torch.arange(LBk, device=self.dev)[None, :]
+                s0 = (torch.rand(B, generator=g, device=self.dev)
+                      * (la - lens).clamp(min=0)).long()[:, None]
+                win = qt[(s0 + pos).clamp(max=la - 1)]
+                rate = torch.rand((B, 1), generator=g, device=self.dev) * 0.3
+                rnd = at[torch.randint(0, at.numel(), (B, LBk), generator=g,
+                                       device=self.dev)]
+                sub = (torch.rand((B, LBk), generator=g, device=self.dev)
+                       < rate) | (s0 + pos >= la)
+                chars = torch.where(pos < lens[:, None],
+                                    torch.where(sub, rnd, win), -1)
+                cand, lb = lk.prepare_corpus(chars.to(torch.int32), lens)
+                got = [lk.lev_1v_many(q, cand, lb, mode=m)
+                       for m in ("byte", "local")]
+                short = (lens <= TILE_PLAIN).nonzero()[:, 0]
+                st = [lk.stage_query(q, m, self.dev) for m in ("byte",
+                                                               "local")]
+                las2 = torch.cat([st[0][0], st[1][0]])
+                tabs2 = torch.stack([st[0][1], st[1][1]])
+                cs = cand[:, short].contiguous()
+                ref = lk.lev_scan_plain(las2, tabs2, cs, lb[short])
+                what = f"LB={LBk} W={W} plan={lk.tile_plan(W)}"
+                for i, m in enumerate(("byte", "local")):
+                    self.compare(name, got[i][short], ref[i], f"{what} {m}")
+                if LBk > LB:
+                    far = torch.argsort(lens, descending=True)[:TILE_ORACLE]
+                    rows = chars[far].cpu().numpy()
+                    nl = lens[far].cpu().numpy()
+                    truth = self.oracle_lev(q, [r[: k] for r, k in
+                                                zip(rows, nl)])
+                    if not np.array_equal(got[0][far].cpu().numpy(), truth):
+                        raise AssertionError(f"{name} {what}: kernel != "
+                                             "oracle on the longest texts")
+                if LBk == 1056 and W == TILE_WS[-1]:
+                    # the edge buffer over two chunks of candidates
+                    plan = lk.SCRATCH_BYTES
+                    lk.SCRATCH_BYTES = 4 * -(-LBk // lk.EDGE_ROWS) * (B // 2)
+                    before = kc.LAUNCHES[name]
+                    try:
+                        if lk.edge_chunk(LBk, B) != B // 2:
+                            raise AssertionError(
+                                f"K1 edge plan: chunk of "
+                                f"{lk.edge_chunk(LBk, B)}")
+                        chunked = lk.lev_1v_many(q, cand, lb)
+                    finally:
+                        lk.SCRATCH_BYTES = plan
+                    if kc.LAUNCHES[name] - before != 2:
+                        raise AssertionError("K1 edge buffer: wrong number "
+                                             "of chunk launches")
+                    self.compare(name, chunked[short], ref[0],
+                                 f"{what} over chunks of {B // 2}")
+                    if not torch.equal(chunked, got[0]):
+                        raise AssertionError(f"{name} {what}: chunked "
+                                             "launches != one launch")
+                if LBk == LB and W == 10:
+                    # 16 queries of W = 10 per launch over the same texts
+                    qs = [rng.choice(a, int(rng.integers(289, 321)))
+                          for _ in range(16)]
+                    got = lk.lev_nq_many(qs, cand, lb)
+                    ref = lk.lev_scan_plain(*lk.stage_queries(qs, "byte",
+                                                              self.dev),
+                                            cand, lb)
+                    self.compare("lev_scan_nq", got, ref, "16 queries W=10")
+                del chars, cand, lb, win, rnd, sub
+        return salt
+
+    @oracle_time
+    def oracle_lev(self, q, texts) -> np.ndarray:
+        """Oracle Levenshtein distances of int array ``q`` to each of the
+        int arrays ``texts``."""
+        return np.array([self.oracle.levenshtein_uniform(q, t)
+                         for t in texts], np.int64)
 
     def long_kernel_cases(self, rng, a, salt):
         """The long routes against their plain versions at
@@ -3192,7 +3389,7 @@ class Smoke:
                     for _ in range(15)]
         lasq, tabsq = lk.stage_queries(qs, "local", self.dev)
         ws = bk.table_words(q.size, LB)
-        rows, bounds, plain_n = {}, {}, {}
+        rows, bounds, plain_n, extra = {}, {}, {}, {}
         int_ops_s = INT32_LANES * clock_mhz * 1e6
 
         def timed(name, kernel, plain, reps, work, warm=True, every=1,
@@ -3235,6 +3432,35 @@ class Smoke:
                       + nq * (table_words or words) * 1024)
             return nbytes, OPS[name] * words * nq * steps
 
+        def lev_layout(lbv, W, row, nq=1):
+            """``extra[row + "_layout_bound_ms"]``: the instructions K1
+            runs beyond its bound's OPS per query word and text step, over
+            this run's data: the register form (LEV_REG_STEP_OPS a thread
+            and step) runs a warp of 32 consecutive candidates to its
+            longest; the tile form (LEV_TILE_STEP_OPS a lane and step) a
+            warp of 32 // G candidates, per strip, nmax + G' - 1 steps of
+            all 32 lanes (G' the strip's lanes with query words).  That is
+            the per-step work beside the words, the words past the query,
+            the ramps, the idle lanes and the wait for a warp's longest
+            text."""
+            l64 = lbv.to(torch.int64)
+            if W <= lk.MAX_REG_W:
+                per, ops, ramps = 32, LEV_REG_STEP_OPS[W], [0]
+            else:
+                L, G, S = lk.tile_plan(W)
+                per, ops = 32 // G, LEV_TILE_STEP_OPS
+                ramps = [-(-min(S, W - w0) // L) - 1
+                         for w0 in range(0, W, S)]
+            nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % per)])
+            nmax = nmax.view(-1, per).max(1).values
+            steps = sum(int(torch.where(nmax > 0, nmax + r, 0).sum())
+                        for r in ramps)
+            layout = nq * (steps * 32 * ops
+                           - OPS["lev_scan"] * W * int(l64.sum()))
+            extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
+
+        lev_layout(lb, lk.words(q.size), "lev_scan")
+        lev_layout(lb, 2, "lev_scan_nq", nq=16)
         timed("lev_scan",
               lambda: lk.lev_1v_many(q, cand, lb, staged=(las, tabs)),
               lambda: lk.lev_scan_plain(las, tabs[None], cand, lb)[0], 20,
@@ -3267,6 +3493,7 @@ class Smoke:
         l4k = lk.stage_query(q4k, "local", self.dev)
         ws_long = bk.table_words(q4k.size, LONG_LB)
         ws_odd = bk.table_words(q4k.size, ODD_LB)
+        lev_layout(long_sc.lb, 2, "lev_scan_long")
         timed("lev_scan_long",
               lambda: lk.lev_1v_many(q64, long_sc.cand, long_sc.lb,
                                      staged=l64),
@@ -3375,7 +3602,6 @@ class Smoke:
                                              *WLEV_SERVE), 5,
                   scan_work("wlev_scan", lb, la, table_words=lk.words(la)),
                   every=WLEV_SLICE, row=f"wlev_scan_la{la}")
-        extra = {}
         # over the long corpus: the len-64 query (the kernels line's row),
         # then the scratch form at 299 chars and at 4,001 (2.1 GB of rows:
         # launched over chunks under the scanner's 1 GiB plan, once, with
@@ -3593,6 +3819,7 @@ class Smoke:
         sl_cand = long_sc.cand[:, cols].contiguous()
         sl_lb = long_sc.lb[cols].contiguous()
         w300 = lk.words(enc["q300"].size)
+        before = self.kc.LAUNCHES["lev_scan_long"]
         timed("lev_scan_long",
               lambda: lk.lev_1v_many(enc["q300"], long_sc.cand, long_sc.lb,
                                      staged=s300),
@@ -3600,6 +3827,9 @@ class Smoke:
                                         sl_lb)[0], 2,
               scan_work("lev_scan_long", long_sc.lb, w300), warm=False,
               cols=cols, row="lev_scan_long_q300")
+        extra["lev_scan_long_q300_launches"] = \
+            (self.kc.LAUNCHES["lev_scan_long"] - before) // 3
+        lev_layout(long_sc.lb, w300, "lev_scan_long_q300")
         timed("lcs_scan_long",
               lambda: ck.lcs_1v_many(enc["q300"], long_sc.cand, long_sc.lb,
                                      staged=s300),
@@ -3607,8 +3837,28 @@ class Smoke:
               scan_work("lcs_scan_long", long_sc.lb, w300), warm=False,
               cols=cols, row="lcs_scan_long_q300")
         del sl_cand, sl_lb
-        # K1, K4, K6 and K8 over the long corpus at the other query widths
-        # of the long phase: 300 chars (K6's and K8's scratch forms) and
+        # K1's tile form with the ~4,000-char query over the long corpus
+        # (126 words: one strip), held against the plain version on the
+        # LEV_SHORTEST shortest texts (~1,030 steps of 126 words)
+        cols = slice(0, LEV_SHORTEST)
+        sl_cand = long_sc.cand[:, cols].contiguous()
+        sl_lb = long_sc.lb[cols].contiguous()
+        w4k = lk.words(q4k.size)
+        before = self.kc.LAUNCHES["lev_scan_long"]
+        timed("lev_scan_long",
+              lambda: lk.lev_1v_many(q4k, long_sc.cand, long_sc.lb,
+                                     staged=l4k),
+              lambda: lk.lev_scan_plain(l4k[0], l4k[1][None], sl_cand,
+                                        sl_lb)[0], 2,
+              scan_work("lev_scan_long", long_sc.lb, w4k), warm=False,
+              cols=cols, row="lev_scan_long_q4k")
+        extra["lev_scan_long_q4k_launches"] = \
+            (self.kc.LAUNCHES["lev_scan_long"] - before) // 3
+        lev_layout(long_sc.lb, w4k, "lev_scan_long_q4k")
+        extra["lev_scan_long_steps"] = int(long_sc.lb.to(torch.int64).sum())
+        del sl_cand, sl_lb
+        # K4, K6 and K8 over the long corpus at the other query widths of
+        # the long phase: 300 chars (K6's and K8's scratch forms) and
         # ~4,000 (every scratch form), kernel times only
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
@@ -3616,9 +3866,6 @@ class Smoke:
                 torch, lambda: jk.jaro_1v_many(enc[key], long_sc.cand,
                                                long_sc.lb, staged=st), 2)
             if key == "q4k":
-                extra[f"lev_scan_long_{key}_ms"] = cuda_ms(
-                    torch, lambda: lk.lev_1v_many(enc[key], long_sc.cand,
-                                                  long_sc.lb, staged=st), 2)
                 extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
                     torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
                                                   long_sc.lb, staged=st), 2)
@@ -3870,12 +4117,16 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
+          "ptxas_lev_scan": ptxas_kernels(
+              kc.ptxas_report.get("lev_scan.cu", ""), "lev_scan"),
+          "sass_lev_scan": sass_histogram(kc, "lev_scan"),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
           "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
           "sass_dam_scan": sass_histogram(kc, "dam_"),
           "sass_partial_scan": sass_histogram(kc, "partial_scan"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
     smoke.phase_kernels()
+    smoke.count_words(True)
     # the main paths, each counted from zero: the serving path over
     # short texts, the LCS family's, the long texts', OSA's, the weighted
     # one's, the Jaro family's, Damerau-Levenshtein's, partial_ratio's,
@@ -3887,7 +4138,10 @@ def main(argv=None) -> int:
     for name in SHORT_PATH:
         if launches[name] == 0:
             raise AssertionError(f"serving path never launched {name}")
+    # the library's launches are not a main path's
+    smoke.count_words(False)
     smoke.phase_library()
+    smoke.count_words(True)
     kc.reset_launches()
     smoke.phase_lcs()
     lcs_launches = dict(kc.LAUNCHES)
@@ -3943,10 +4197,13 @@ def main(argv=None) -> int:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"main path never launched {name}")
+    smoke.count_words(False)
     clock = float(nvidia_smi("clocks.max.sm").split()[0])
     smoke.phase_timing(clock)
     smoke.phase_rate(card)
-    emit({"phase": "done", "seconds": time.perf_counter() - t_all})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_all,
+          "launches_by_words": {k: dict(sorted(v.items()))
+                                for k, v in sorted(smoke.words.items())}})
     print(card, flush=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],

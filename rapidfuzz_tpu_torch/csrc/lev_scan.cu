@@ -11,8 +11,8 @@
 // whatever the bucket, so one kernel serves every length and the wrapper
 // only counts launches at buckets > 1024 apart (lev_scan_long).
 //
-// What bounds it on an H100: integer issue.  A step costs ~11 u32 ops per
-// query word (chip_smoke.OPS) plus one shared-memory PM lookup; the
+// What bounds it on an H100: integer throughput.  A step costs ~11 u32 ops
+// per query word (chip_smoke.OPS) plus one shared-memory PM lookup; the
 // corpus is read once per query (once per strip, below), 1 byte per char
 // (4 chars per u32 load).  No form moves VP/VN through device memory.
 //
@@ -21,15 +21,18 @@
 //   candidate holds all W words of VP/VN and adds each step's delta at
 //   bit (la - 1) & 31 of word W - 1; the table [W, 256] u32, a lane's
 //   lookup at row c;
-// * tile form (W > 8, template on L = 2, 4 or 8): a lane holds L
-//   consecutive query words of VP/VN in registers, and a candidate takes
-//   G = ceil(W / L) lanes (at most a strip's S / L), 32 / G candidates a
-//   warp, its other 32 % G lanes idle.  In Hyyro's block form only two
-//   bits cross a word edge, the horizontal carries hp_c and hn_c, both
-//   from low words to high ones within one text step, so lane t runs text
-//   char s - t at step s (a wavefront): it takes (char, hp_c, hn_c) from
-//   lane t - 1's last step by one __shfl_up_sync, runs its L words, and
-//   hands (char, carries out) on.  Only a group's lane 0 reads the packed
+// * tile form (W > 8): a lane holds L = 8 consecutive query words of
+//   VP/VN in registers, and a candidate takes G = ceil(W / 8) lanes (at
+//   most a strip's 16), 32 / G candidates a warp, its other 32 % G lanes
+//   idle.  L = 8 ran fastest of 2, 4 and 8 at 10 and 126 words (a step's
+//   own work, the hand-off and the char, weighs ~3 words a lane; fewer
+//   lanes a candidate also idle fewer); it fits the 64-register cap.  In
+//   Hyyro's block form only two bits cross a word edge, the horizontal
+//   carries hp_c and hn_c, both from low words to high ones within one
+//   text step, so lane t runs text char s - t at step s (a wavefront):
+//   it takes (char, hp_c, hn_c) from lane t - 1's last step by one
+//   __shfl_up_sync, runs its L words, and hands (char, carries out) on.
+//   Only a group's lane 0 reads the packed
 //   corpus (a word every 4 chars, loaded a word ahead) and starts the
 //   carries at hp_c = 1, hn_c = 0.  A group runs its candidate's n steps
 //   plus G - 1 of ramp, and a warp runs to its longest candidate: every
@@ -38,13 +41,13 @@
 //   delta per step: at the end D[la][n] = n + sum of the final column's
 //   vertical deltas, popc(VP) - popc(VN) over the query's la bits, summed
 //   over the group's lanes by a warp prefix sum;
-// * tile form's table: [256, Wp] u32 (char-major, Wp = G * L rounded up
-//   to 32 words), so lane t's L words of char c are one 8- or 16-byte
-//   load at c * Wp + t * L, and the lanes of a group, holding consecutive
-//   tiles, hit consecutive banks whatever their chars; blocks of 1,024
+// * tile form's table: [256, Wp] u32 (char-major, Wp = G * 8 rounded up
+//   to 32 words), so lane t's 8 words of char c are two 16-byte loads at
+//   c * Wp + 8t, and the lanes of a group, holding consecutive tiles, hit
+//   consecutive bank groups whatever their chars; blocks of 1,024
 //   threads (__launch_bounds__(1024, 1): 64 registers a thread), so one
 //   table serves the SM's 32 warps;
-// * strips: queries over S = min(32 * L, 128) words (the table 128 KB)
+// * strips: queries over S = 128 words (4,096 chars; the table 128 KB)
 //   go in strips of S words, each a pass over the text, the table
 //   reloaded between them.  Per text row the strip's top lane packs its
 //   carry-out (2 bits) into an edge buffer, 16 rows a u32
@@ -74,14 +77,10 @@ constexpr int kThreads = 256;       // the register form's block
 constexpr int kTileThreads = 1024;  // the tile form's block: one an SM
 constexpr int kRows = 256;          // PM entries: every byte value
 constexpr int kMaxRegW = 8;         // register form up to this many words
-constexpr int kStripWords = 128;    // most query words a strip holds
+constexpr int kTileWords = 8;       // query words a lane of the tile form
+constexpr int kStripWords = 128;    // query words a strip holds
 constexpr int kEdgeRows = 16;       // text rows per u32 of the edge buffer
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// Query words of a strip for lanes of L words: a warp's tiles, at most
-// kStripWords.
-template <int L>
-constexpr int kStrip = 32 * L < kStripWords ? 32 * L : kStripWords;
 
 // One Myers/Hyyro block step of one word: updates vp/vn, hands the
 // horizontal carries (hp_c, hn_c) on to the next word, and returns the
@@ -161,32 +160,24 @@ lev_scan_reg(const uint32_t* __restrict__ pm_all,
     *dst = dist;
 }
 
-// A lane's L PM words of one char: one 8- or 16-byte shared load per 2 or
-// 4 words (p is aligned: Wp is a multiple of 32 and a lane starts at t * L).
-template <int L>
+// A lane's 8 PM words of one char: two 16-byte shared loads (p is
+// aligned: Wp is a multiple of 32 and a lane starts at 8t).
 __device__ __forceinline__ void load_tile(const uint32_t* p,
-                                          uint32_t (&w)[L]) {
-    if constexpr (L == 2) {
-        const uint2 v = *reinterpret_cast<const uint2*>(p);
-        w[0] = v.x;
-        w[1] = v.y;
-    } else {
+                                          uint32_t (&w)[kTileWords]) {
 #pragma unroll
-        for (int i = 0; i < L; i += 4) {
-            const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-            w[i] = v.x;
-            w[i + 1] = v.y;
-            w[i + 2] = v.z;
-            w[i + 3] = v.w;
-        }
+    for (int i = 0; i < kTileWords; i += 4) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+        w[i] = v.x;
+        w[i + 1] = v.y;
+        w[i + 2] = v.z;
+        w[i + 3] = v.w;
     }
 }
 
 // The tile form over candidates [b0, b0 + nb) (the header's design): G
-// lanes a candidate, L query words each, the table [256, Wp] in dynamic
+// lanes a candidate, 8 query words each, the table [256, Wp] in dynamic
 // shared memory.  edge: [NQ, ceil(4 * lb4 / 16), nb] u32, read and
-// written only when W > kStrip<L>.
-template <int L>
+// written only when W > kStripWords.
 __global__ void __launch_bounds__(kTileThreads, 1)
 lev_scan_tile(const uint32_t* __restrict__ pm_all,
               const int32_t* __restrict__ las,
@@ -194,7 +185,7 @@ lev_scan_tile(const uint32_t* __restrict__ pm_all,
               const int32_t* __restrict__ lb, int32_t* __restrict__ out,
               uint32_t* __restrict__ edge, int64_t B, int64_t b0,
               int64_t nb, int lb4, int W, int G, int Wp) {
-    constexpr int S = kStrip<L>;
+    constexpr int L = kTileWords, S = kStripWords;
     extern __shared__ uint4 smem[];
     uint32_t* const pm = reinterpret_cast<uint32_t*>(smem);
     const int q = blockIdx.y;
@@ -281,7 +272,7 @@ lev_scan_tile(const uint32_t* __restrict__ pm_all,
                 const uint32_t c = v & 0xFFu;
                 uint32_t hp_c = (v >> 8) & 1u, hn_c = (v >> 9) & 1u;
                 uint32_t pmw[L];
-                load_tile<L>(tile + c * Wp, pmw);
+                load_tile(tile + c * Wp, pmw);
 #pragma unroll
                 for (int w = 0; w < L; ++w) {
                     uint32_t hp, hn;
@@ -330,24 +321,22 @@ cudaError_t launch_reg(const uint32_t* pm, const int32_t* las,
     return cudaGetLastError();
 }
 
-template <int L>
 cudaError_t launch_tile(const uint32_t* pm, const int32_t* las,
                         const uint32_t* cand, const int32_t* lb,
                         int32_t* out, uint32_t* edge, int64_t B, int64_t b0,
                         int64_t nb, int lb4, int W, int nq,
                         cudaStream_t stream) {
-    constexpr int S = kStrip<L>;
-    if (W > S && edge == nullptr) return cudaErrorInvalidValue;
-    const int G = min((W + L - 1) / L, S / L);
-    const int Wp = (G * L + 31) / 32 * 32;
+    if (W > kStripWords && edge == nullptr) return cudaErrorInvalidValue;
+    const int G = min((W + kTileWords - 1) / kTileWords,
+                      kStripWords / kTileWords);
+    const int Wp = (G * kTileWords + 31) / 32 * 32;
     const int bytes = Wp * kRows * 4;
     cudaError_t err = cudaFuncSetAttribute(
-        lev_scan_tile<L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        lev_scan_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     const int64_t per = (kTileThreads / 32) * (32 / G);  // per block
     const dim3 grid((unsigned)((nb + per - 1) / per), nq);
-    lev_scan_tile<L><<<grid, kTileThreads, bytes, stream>>>(
+    lev_scan_tile<<<grid, kTileThreads, bytes, stream>>>(
         pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, G, Wp);
     return cudaGetLastError();
 }
@@ -356,15 +345,14 @@ cudaError_t launch_tile(const uint32_t* pm, const int32_t* las,
 
 // Distances of NQ queries (lengths las [NQ], PM tables pm [NQ, W, 256])
 // to candidates [b0, b0 + nb) of the packed corpus cand [lb4, B], written
-// to out[q * B + b].  W <= 8 takes the register form (L ignored); past
-// that the tile form with L words a lane (2, 4 or 8), and queries over
-// min(32 * L, 128) words need the edge buffer edge:
+// to out[q * B + b].  W <= 8 takes the register form, past that the tile
+// form; queries over 128 words need the edge buffer edge:
 // [NQ, ceil(4 * lb4 / 16), nb] u32.
 extern "C" cudaError_t rf_lev_scan(const uint32_t* pm, const int32_t* las,
                                    const uint32_t* cand, const int32_t* lb,
                                    int32_t* out, uint32_t* edge, int64_t B,
                                    int64_t b0, int64_t nb, int lb4, int W,
-                                   int nq, int L, cudaStream_t stream) {
+                                   int nq, cudaStream_t stream) {
     if (W < 1 || nq < 1 || b0 < 0 || nb < 0 || b0 + nb > B)
         return cudaErrorInvalidValue;
     if (nb == 0) return cudaSuccess;
@@ -379,10 +367,6 @@ extern "C" cudaError_t rf_lev_scan(const uint32_t* pm, const int32_t* las,
         case 8: return launch_reg<8>(pm, las, cand, lb, out, B, b0, nb, lb4, nq, stream);
         default: break;
     }
-    switch (L) {
-        case 2: return launch_tile<2>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
-        case 4: return launch_tile<4>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
-        case 8: return launch_tile<8>(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream);
-        default: return cudaErrorInvalidValue;
-    }
+    return launch_tile(pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq,
+                       stream);
 }

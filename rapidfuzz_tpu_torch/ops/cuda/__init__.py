@@ -84,9 +84,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _SIGNATURES = {
-    # pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, L, stream
+    # pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
     "rf_lev_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
-                    _I, _P],
+                    _P],
     # chars_t, vocab, out, B, lb4, stream
     "rf_remap_pack": [_P, _P, _P, _I64, _I, _P],
     # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, stream

@@ -12,9 +12,10 @@ Counterpart of ``rapidfuzz_tpu/ops/pallas/lev_kernel.py``.  Kernels:
   bucket.  One-query launches over buckets longer than :data:`LONG_LB`
   count as ``lev_scan_long``.  Queries up to :data:`MAX_REG_W` words run
   one thread a candidate; longer ones run the tile form
-  (:func:`tile_plan`): ``L`` query words a lane, ``G`` lanes a candidate
-  passing the HP/HN carries by shuffle, strips of ``S`` words passing
-  them through an edge buffer of 2 bits a text row (:func:`edge_chunk`);
+  (:func:`tile_plan`): :data:`TILE_WORDS` query words a lane, ``G`` lanes
+  a candidate passing the HP/HN carries by shuffle, strips of
+  :data:`STRIP_WORDS` passing them through an edge buffer of 2 bits a
+  text row (:func:`edge_chunk`);
 * ``csrc/remap_pack.cu`` (K2) replaces ``lev_kernel._remap_kernel``
   (``remap_pack``).
 
@@ -50,16 +51,14 @@ LANE = 128       # the JAX package's lane width (layout mapping, pick_mode)
 PM_ROWS = 256    # PM table entries: every byte value
 MAX_REG_W = 8    # K1's register form (a thread a candidate) up to this
                  # many words; its tile form past it
-STRIP_WORDS = 128  # most query words a strip of K1's tile form holds (its
+TILE_WORDS = 8   # query words a lane of K1's tile form holds
+STRIP_WORDS = 128  # query words a strip of the tile form holds (its
                    # shared PM table: 1 KB a word)
 EDGE_ROWS = 16   # text rows a u32 of the strip edge buffer packs (2 bits
                  # each: hp_c, hn_c)
 SCRATCH_BYTES = 1 << 30  # bound of one launch's edge buffer (the
                          # scanner's memory plan)
 BLOCK = 1024     # the tile form's block; chunks are whole multiples of it
-TILE_LS = (2, 4, 8)  # query words a lane of the tile form holds
-TILE_STEP_WORDS = 2  # a tile step's own issue (hand-off, char, edge) in
-                     # query words' worth, for tile_plan's choice of L
 LONG_LB = 1024   # longest bucket of the TPU's lev_kernel; longer buckets
                  # were stream_kernel's (the lev_scan_long count)
 MISS_ID = 127    # query-local id for "not in query": PM row 127 is zero
@@ -261,19 +260,9 @@ def lev_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
 def tile_plan(W: int):
     """``(L, G, S)`` of K1's tile form for a query of ``W`` words (past
     :data:`MAX_REG_W`): ``L`` query words a lane, ``G`` lanes a candidate
-    (``32 // G`` candidates a warp), strips of ``S`` words.  ``L`` is the
-    one of :data:`TILE_LS` whose text step issues least per candidate:
-    ``32 / (32 // G)`` lanes of a warp, each running ``L`` words and the
-    step's own work (:data:`TILE_STEP_WORDS`), once per strip; ties go to
-    the larger ``L``."""
-    best = None
-    for L in TILE_LS:
-        S = min(32 * L, STRIP_WORDS)
-        G = min(-(-W // L), S // L)
-        cost = -(-W // S) * 32 / (32 // G) * (L + TILE_STEP_WORDS)
-        if best is None or cost <= best[0]:
-            best = (cost, L, G, S)
-    return best[1:]
+    (``32 // G`` candidates a warp), strips of ``S`` words."""
+    L, S = TILE_WORDS, STRIP_WORDS
+    return L, min(-(-W // L), S // L), S
 
 
 def edge_chunk(LB: int, B: int, NQ: int = 1) -> int:
@@ -304,23 +293,21 @@ def _lev_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((NQ, B), dtype=torch.int32, device=dev)
-    L, chunk, edge = 0, B, None
-    if W > MAX_REG_W:
-        L, _, S = tile_plan(W)
-        if W > S:
-            # strips pass 2 bits a text row through the edge buffer: one
-            # launch per chunk of candidates under SCRATCH_BYTES
-            LB = cand.shape[0] * 4
-            chunk = edge_chunk(LB, B, NQ)
-            edge = torch.empty(NQ * -(-LB // EDGE_ROWS) * chunk,
-                               dtype=torch.int32, device=dev)
+    chunk, edge = B, None
+    if W > STRIP_WORDS:
+        # strips pass 2 bits a text row through the edge buffer: one launch
+        # per chunk of candidates under SCRATCH_BYTES
+        LB = cand.shape[0] * 4
+        chunk = edge_chunk(LB, B, NQ)
+        edge = torch.empty(NQ * -(-LB // EDGE_ROWS) * chunk,
+                           dtype=torch.int32, device=dev)
     if B and NQ:
         for b0 in range(0, B, chunk):
             launch(name, "rf_lev_scan", dev, tabs.data_ptr(),
                    las.data_ptr(), cand.data_ptr(), lb.data_ptr(),
                    out.data_ptr(),
                    None if edge is None else edge.data_ptr(), B, b0,
-                   min(chunk, B - b0), cand.shape[0], W, NQ, L)
+                   min(chunk, B - b0), cand.shape[0], W, NQ)
     return out
 
 

@@ -30,6 +30,9 @@ from rapidfuzz_tpu_torch.utils import codec
 
 from test_torch_long import Spy
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 PAIRS = [("CA", "ABC"), ("CA", "AC"), ("kitten", "sitting"), ("", "abc"),
          ("abc", ""), ("", ""), ("Иванко", "Петрунко"),
          ("ab" * 16 + "cd", "ab" * 15 + "ba" + "dc"), (b"bytes", b"btyes"),

@@ -31,6 +31,9 @@ from rapidfuzz_tpu_torch.ops import damerau as dops
 from rapidfuzz_tpu_torch.ops.cuda import damerau_kernel as dk
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 #: the XLA reference's one shape: rows, query pad, candidate pad
 ROWS, QPAD, CPAD = 256, 72, 160
 _XLA = jax.jit(jdam.damerau_distance)

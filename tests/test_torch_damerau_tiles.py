@@ -27,6 +27,9 @@ from rapidfuzz_tpu_torch.ops.cuda import damerau_kernel as dk
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 from rapidfuzz_tpu_torch.ops.damerau import BIG, full_row
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 TILE = dk.TILE
 
 

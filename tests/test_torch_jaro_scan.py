@@ -48,6 +48,9 @@ from rapidfuzz_tpu_torch.utils import codec
 
 from test_torch_long import Spy
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 ALPHA = np.r_[0, 97, 98, 99, 200, 255]     # NUL and two Latin-1 bytes
 #: the scanner-level corpus (and the XLA kernel-level one): bucket 260
 N_SCAN, LB_SCAN = 512, 260

@@ -27,6 +27,9 @@ from rapidfuzz_tpu_torch.ops.cuda import lcs_band_kernel as cbk
 from rapidfuzz_tpu_torch.ops.cuda import lcs_kernel as ck
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 B = 4096   # one JAX grid cell (32 x 128)
 #: the bucket of ``test_torch_lcs_scan.py``'s corpus, which pads to the
 #: same 4096 rows, so that in one process the two files share the JAX

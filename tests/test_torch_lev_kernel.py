@@ -20,6 +20,9 @@ from rapidfuzz_tpu_torch.ops import cuda as kc
 from rapidfuzz_tpu_torch.ops.cuda import band_kernel as bk
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 B = 4096   # one JAX grid cell (32 x 128)
 #: candidate bucket: not a multiple of 16, so the JAX kernels in interpret
 #: mode unroll their text loops by 4 rather than 16 and compile in about a

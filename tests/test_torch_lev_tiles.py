@@ -26,9 +26,12 @@ import torch
 from rapidfuzz_tpu_torch import oracle
 from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 M32 = lk.M32
 ROWS = lk.EDGE_ROWS
-TAIL = 150   # query chars the texts copy
+WIN = 32     # query chars a text copies on either side of an edge
 
 
 def _popc(x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +79,7 @@ def _tiled(q, texts, L, S, mode="byte"):
             if st == 0:
                 v0 = c0 | (1 << 8)
             else:
-                if s % ROWS == 0:
+                if s % ROWS == 0 and s < LB:
                     ein = torch.where(s < n, edge[:, s // ROWS], ein)
                 v0 = c0 | (((ein >> (2 * (s % ROWS))) & 3) << 8)
             v[:, 0] = v0
@@ -124,23 +127,24 @@ def _tiled(q, texts, L, S, mode="byte"):
     return n + part
 
 
-def _near(rng, q, count, alph, start, L, S):
-    """``count`` texts: near copies of ``q[start:]`` with a substitution,
-    deletion or insertion planted beside a tile or strip edge of the query
-    (a multiple of ``32 * L`` or ``32 * S`` chars) and two beside word
-    edges (multiples of 32), a few random edits elsewhere, a random text
-    and an empty one."""
-    m = q.size - start
-    texts = [np.empty(0, np.int64), rng.choice(alph, m + 3)]
-    words = [p - start for p in range(32, q.size, 32)
-             if 1 <= p - start < m]
-    tiles = [p for p in words
-             if (p + start) % (32 * L) == 0 or (p + start) % (32 * S) == 0]
+def _near(rng, q, count, alph, L, S):
+    """``count`` texts around the query's tile and strip edges (multiples
+    of ``32 * L`` and ``32 * S`` chars): copies of the WIN chars on either
+    side of one such edge, in turn, with a substitution, deletion or
+    insertion planted beside the edge and beside a word edge (a multiple
+    of 32) in the window, and a few random edits; a random text and an
+    empty one."""
+    la = q.size
+    edges = sorted({p for p in range(32 * L, la, 32 * L)}
+                   | {p for p in range(32 * S, la, 32 * S)})
+    texts = [np.empty(0, np.int64), rng.choice(alph, 2 * WIN)]
     for r in range(2, count):
-        s = list(q[start:])
-        at = {tiles[r % len(tiles)]} | set(rng.choice(words, 2).tolist())
-        for p in sorted(at, reverse=True):
-            p += int(rng.integers(-1, 1))
+        e = edges[r % len(edges)]
+        lo = max(0, e - WIN)
+        s = list(q[lo: e + WIN])
+        word = lo + 32 * int(rng.integers(0, len(s) // 32 + 1))
+        for p in sorted({e - lo, min(word - lo, len(s) - 1)}, reverse=True):
+            p = max(0, p + int(rng.integers(-1, 1)))
             kind = (r + p) % 3
             if kind == 0:
                 s[p] = int(rng.choice(alph))
@@ -154,12 +158,14 @@ def _near(rng, q, count, alph, start, L, S):
     return texts
 
 
-# (la, L, S): the kernel's plans (tile_plan) and smaller strips of the same
-# hand-off; 4,095 fills a warp's 32 tiles of 4 words, 4,097 is one char
-# past that strip
-CASES = [(257, L, min(32 * L, lk.STRIP_WORDS)) for L in lk.TILE_LS] + [
-    (300, 4, 128), (300, 2, 4), (300, 4, 8),
-    (4095, 4, 128), (4097, 4, 128), (4097, *lk.tile_plan(129)[::2])]
+# (la, L, S): the kernel's tiles and strips (lk.tile_plan), and strips of
+# 16 words for the same hand-off over a 600-char query (two strips of two
+# lanes); 8,191 and 8,193 are a whole warp's tiles (32 x 8 words, two
+# strips) less and more one char, the latter one past a strip
+PLAN = lk.tile_plan(lk.MAX_REG_W + 1)
+CASES = [(257, PLAN[0], PLAN[2]), (300, PLAN[0], PLAN[2]),
+         (600, PLAN[0], 16), (8191, PLAN[0], PLAN[2]),
+         (8193, PLAN[0], PLAN[2])]
 
 
 @pytest.mark.parametrize("la,L,S", CASES)
@@ -167,17 +173,12 @@ CASES = [(257, L, min(32 * L, lk.STRIP_WORDS)) for L in lk.TILE_LS] + [
 def test_tiles_and_strips_match_unsplit(la, L, S):
     rng = np.random.default_rng(la * 10 + L + S)
     alph = np.arange(97, 123)
-    # the texts copy the query's last TAIL chars, where its last tile and
-    # strip edges lie; a long query's others are of symbols no text
-    # holds (every alignment deletes them; whole copies would walk ~4,100
-    # steps, seconds here)
-    start = la - TAIL
-    head = np.arange(200, 208) if la > 1000 else alph
-    q = np.r_[rng.choice(head, start), rng.choice(alph, TAIL)]
-    texts = _near(rng, q, 12, alph, start, L, S)
+    q = rng.choice(alph, la)
+    texts = _near(rng, q, 12, alph, L, S)
     truth = np.array([oracle.levenshtein_uniform(q, t) for t in texts])
     np.testing.assert_array_equal(_tiled(q, texts, L, S).numpy(), truth)
-    if la < 1000:
+    if la == 300:
+        # the unsplit plain version too (its steps cost W times a lane's)
         lens = torch.tensor([t.size for t in texts], dtype=torch.int32)
         LB = -(-int(lens.max()) // 4) * 4
         chars = torch.full((len(texts), LB), -1, dtype=torch.int32)
@@ -189,15 +190,14 @@ def test_tiles_and_strips_match_unsplit(la, L, S):
 
 
 def test_tile_plan_and_edge_chunk():
-    """Every query past the register form gets a tile width the kernel
-    has, at most a warp of lanes, and a strip only past the warp's or the
-    table's words; the edge buffer's chunks are whole blocks within the
-    budget, one chunk when it fits."""
+    """Every query past the register form gets at most a strip's lanes,
+    enough for its words or a strip's, and a strip only past 128 words;
+    the edge buffer's chunks are whole blocks within the budget, one chunk
+    when it fits."""
     for W in range(lk.MAX_REG_W + 1, 400):
         L, G, S = lk.tile_plan(W)
-        assert L in lk.TILE_LS and S == min(32 * L, lk.STRIP_WORDS)
-        assert 2 <= G <= 32 and G * L >= min(W, S) > (G - 1) * L
-    assert lk.tile_plan(126)[0] * lk.tile_plan(126)[1] >= 126
+        assert (L, S) == (lk.TILE_WORDS, lk.STRIP_WORDS) and S % L == 0
+        assert 2 <= G <= S // L and G * L >= min(W, S) > (G - 1) * L
     assert lk.edge_chunk(8192, 131072) == 131072
     c = lk.edge_chunk(8192, 10**7, 16)
     assert c % lk.BLOCK == 0

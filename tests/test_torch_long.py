@@ -34,6 +34,9 @@ from rapidfuzz_tpu_torch.parallel import CorpusScanner
 from rapidfuzz_tpu_torch.serve import ScanService
 from rapidfuzz_tpu_torch.utils import codec
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 ALPHA = np.arange(97, 103)          # 'a'..'f': near copies stay near
 
 

@@ -41,6 +41,9 @@ from rapidfuzz_tpu_torch.utils import codec
 
 from test_torch_long import Spy
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 B = 4096   # one JAX grid cell (32 x 128); the scanner's corpus pads to it
 LB = 260   # not a multiple of 8, so the JAX kernels unroll by 4
 #: candidates the 16-query comparison runs the port on (the first ones:

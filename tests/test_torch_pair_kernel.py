@@ -27,6 +27,9 @@ from rapidfuzz_tpu_torch.distance import levenshtein as lev
 from rapidfuzz_tpu_torch.ops import cuda as kc
 from rapidfuzz_tpu_torch.ops.cuda import pair_kernel as pk
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

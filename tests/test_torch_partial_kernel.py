@@ -31,6 +31,9 @@ from rapidfuzz_tpu_torch.ops.cuda import lev_kernel as lk
 from rapidfuzz_tpu_torch.ops.cuda import partial_kernel as pk
 from rapidfuzz_tpu_torch.utils import codec
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 JAX_B = 4096    # one grid cell of the JAX kernel
 PORT_B = 1024   # the port's plain version on the first PORT_B of them
 

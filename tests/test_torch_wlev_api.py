@@ -46,6 +46,9 @@ from rapidfuzz_tpu_torch.utils import codec
 
 from test_torch_long import Spy
 
+# one intra-op thread: the test workers share the machine's cores
+torch.set_num_threads(1)
+
 W = (1, 2, 3)
 CORPUS = ["sitting", "mitten", "kitten", "", "kittenkitten", "sitt",
           "a" * 70, "kitchen", "Иванко", "k", "nettik"]
