@@ -32,11 +32,13 @@ Phases, each printing one JSON line before the next starts:
    and 16 queries per launch over near copies with adjacent swaps planted
    across query words and packed 4-char rows, and over 2048- and
    8192-char buckets; K7 (weighted Levenshtein) under the tables
-   (1, 2, 3), (3, 2, 1) and (2, 2, 3) in its register form at one and two
-   words, its scratch form at the first scratch width (also launched over
-   several chunks of a small scratch budget) and for the empty query, at
-   262,144 candidates in byte and local mode, and over 2048- and 8192-char
-   buckets; K8 (the Jaro components) in its register form at one and two
+   (1, 2, 3), (3, 2, 1) and (2, 2, 3) in its register form at one to four
+   words and for the empty query, its tile form (a tile of 32 query
+   positions a lane) at 129-160 and 280-320 chars, at 262,144 candidates
+   in byte and local mode, and over buckets of 1,056-8,192 chars at
+   993-1,024 (a full strip), 1,025-1,100 (also over several chunks of a
+   small edge-buffer budget) and ~2,100 chars (three strips); K8 (the
+   Jaro components) in its register form at one and two
    words and its scratch form at the first scratch width (also launched
    over several chunks of a small scratch budget), at 262,144 candidates
    in byte and local mode, 16 queries per launch, and over 2048-, 8192-
@@ -103,7 +105,7 @@ Phases, each printing one JSON line before the next starts:
    plain and under a cutoff, ``/batch`` of 20 queries), weighted
    ``CorpusScanner``s under (1, 2, 3) over the long corpus for the 64- and
    300-char queries, over the bucket-6000 texts for the ~4,000-char query
-   (the scratch form) and over the Cyrillic corpus, and
+   (the tile form, four strips) and over the Cyrillic corpus, and
    ``levenshtein.distance_many`` with a cutoff and
    ``BatchComparator.normalized_similarities`` over 65,536 strings, all
    held against the oracle (whole-corpus windows: a weighted distance is
@@ -158,10 +160,11 @@ Phases, each printing one JSON line before the next starts:
    version on the shortest texts, and, as for its register rows, the
    instructions its layout adds to the bound (ramps, idle lanes, the
    wait for a warp's longest text); K7 also at 32-129 chars over the serve
-   corpus and at 299 and 4,001 chars over the long corpus (the second
-   launched over chunks of the 1 GiB scratch plan), its plain version on
-   a slice of the candidates where the whole shape would take it over
-   10 s; K8 also at 300 and 4,001 chars over the long corpus; K9 also at
+   corpus and at 299 and 4,001 chars over the long corpus (its tile form,
+   the second launched over chunks of the 1 GiB edge-buffer plan), its
+   plain version on a slice of the candidates where the whole shape would
+   take it over 10 s, each with its layout beside the bound as K1's; K8
+   also at 300 and 4,001 chars over the long corpus; K9 also at
    32 chars (one lane a candidate) and at radius 3 and 15 over the serve
    corpus and at 300 chars over the long corpus, its full form's layout
    (hand-offs, ramps, padded columns) beside its bound; K10 with a 12-char query
@@ -294,19 +297,35 @@ INT32_LANES = 132 * 64
 #: once per text step for the accumulator; K6 per query word and text step
 #: (K1's 11, plus the and-not t = ~d0_prev & pm, the funnel shift of t
 #: with the lower word's t, and the and with pm_prev; the or into d0 folds
-#: into K1's 3-input or); K7 per query position and text step on the
-#: INT32 lanes, counted from the SASS of its unrolled row: two DPX
-#: add-mins (VIADDMNMX: min(old + ins, diagonal + cost) and
-#: min(left + del, that)) and, for the PM bit test and the cost's select,
-#: about half a SEL, a quarter of an ISETP and an eighth of an R2P, 2.9 in
-#: all, rounded up; the add of the cost and the moves issue as IMADs on
-#: the FMA lanes, twice as many, so they do not bind)
+#: into K1's 3-input or); K7 per query position and text step
+#: WLEV_CELL_OPS)
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
        "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
        "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
        "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
-       "wlev_scan": 3, "wlev_scan_long": 3}
+       "wlev_scan": 100 / 32, "wlev_scan_long": 100 / 32}
+#: K7's bound charges every DP cell the INT32-lane instructions of the
+#: tile form's unrolled row, counted in the SASS of the built library
+#: (wlev_scan_tile's row block: 64 VIADDMNMX, the DPX add-mins
+#: min(old + ins, diagonal + cost) and min(left + del, that), 32 SEL of
+#: the cost and 4 R2P moving 8 PM bits at a time to predicates, 100 for
+#: 32 cells; the cost's add and the moves issue as IMADs on the FMA lanes
+#: and do not bind).  The register form's rows take the same count (its
+#: step loop holds 3.4 a position with the step's own work).
+WLEV_CELL_OPS = OPS["wlev_scan"]
+#: What K7 issues beside its bound's cells goes beside it
+#: (wlev_scan*_layout_bound_ms), counted in the same SASS under
+#: alu_blocks' rule: the register form's INT32-lane instructions per
+#: thread and text step (the step loop of wlev_scan_reg<W>, every word up
+#: to la's, and its packed-word loop's 12 or 14 a 4 steps), and the tile
+#: form's per lane and step beyond its 32 cells (the step loop of its
+#: first strip: 122 over every path, of them 100 the cells, 1 the strip
+#: edge's store, run only before a later strip, and 3 the corpus load,
+#: run every 4th step)
+WLEV_REG_STEP_OPS = {1: 110 + 12 / 4, 2: 218 + 14 / 4, 3: 328 + 14 / 4,
+                     4: 436 + 14 / 4}
+WLEV_TILE_STEP_OPS = 122 - 100 - 1 - 3 * 3 / 4
 #: K8's bound counts the work the function needs, the flagging once:
 #: pass 1 per text step, (INT32-lane operations per query word, per
 #: step), counted from the SASS of the pass-1 loops of jaro_scan_reg<1>
@@ -1174,17 +1193,24 @@ class Smoke:
         """K7 against its plain version over near copies of the query,
         under each of WLEV_TABLES: ``wlev_scan`` in its register form at
         one, two and three or four words (1-32, 33-64 and 65-128 chars),
-        its scratch form at the first scratch width (129-160 chars) and
-        for the empty query, over
-        N_KERNEL candidates, in byte mode and, under the first table, in
-        local mode; the scratch form once more over chunks of a scratch
-        budget a quarter of the candidates' (several launches, each at
-        its own candidate offset); ``wlev_scan_long`` at two words over
-        2048- and 8192-char buckets and in scratch form over 2048, at
-        N_KERNEL_LONG candidates."""
+        its tile form (a lane a tile of 32 query positions) at 129-160
+        chars (five lanes a candidate) and at 280-320 (nine or ten), and
+        for the empty query, over N_KERNEL candidates (the 300-char
+        query over a quarter of them), in byte and local mode, with
+        adjacent swaps planted across tiles and packed rows;
+        ``wlev_scan_long`` at two words over 2048- and 8192-char buckets,
+        in tile form at 993-1,024 chars (a warp's full strip), at
+        1,025-1,100 (one strip and a part, also launched over chunks of
+        an edge-buffer budget a quarter of the candidates', at its own
+        candidate offsets), at N_KERNEL_LONG candidates, and at
+        2,080-2,120 chars (three strips) over N_KERNEL_LONG // 4 texts of
+        the 2,048-char bucket and 64 of the 8,192-char one, their last
+        rows the buckets' longest."""
         torch, lk, wk, kc = self.torch, self.lk, self.wk, self.kc
-        if wk.MAX_REG_LA != 128:
+        if (wk.MAX_REG_LA, wk.TILE, wk.STRIP) != (128, 32, 1024):
             raise AssertionError("K7's forms moved: update these cases")
+        # swaps across packed rows, tiles and strips
+        edges = (31, 3, 63, 1023, 2047)
 
         def case(name, q, mode, cand, lb, w, what):
             _, tabs = lk.stage_query(q, mode, self.dev)
@@ -1193,8 +1219,11 @@ class Smoke:
             self.compare(name, got, wk.wlev_scan_plain(q.size, tabs, cand,
                                                        lb, *w), what)
 
-        for lo, hi, lbm in ((1, 32, LB), (33, 64, LB), (65, 128, 192),
-                            (129, 160, 320), (0, 0, LB)):
+        for lo, hi, lbm, B in ((1, 32, LB, N_KERNEL), (33, 64, LB, N_KERNEL),
+                               (65, 128, 192, N_KERNEL),
+                               (129, 160, 192, N_KERNEL),
+                               (280, 320, 352, N_KERNEL // 4),
+                               (0, 0, LB, N_KERNEL)):
             la = int(rng.integers(lo, hi + 1))
             for w in WLEV_TABLES:
                 modes = ("byte", "local") if w == WLEV_TABLES[0] else \
@@ -1203,35 +1232,43 @@ class Smoke:
                     salt += 1
                     a = alph[mode]
                     q = rng.choice(a, la)
-                    cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL,
-                                            lbm)
+                    cand, lb = self.mutants(self.gen(salt), q, a, B, lbm,
+                                            swaps=la > 0, at=edges[:3])
                     case("wlev_scan", q, mode, cand, lb, w,
                          f"la={la} {w} {mode}")
-                    if la > wk.MAX_REG_LA and mode == "local":
-                        budget = 4 * la * (N_KERNEL // 4)
-                        chunk = budget // (4 * la) // wk.BLOCK * wk.BLOCK
-                        before = kc.LAUNCHES["wlev_scan"]
-                        plan = wk.SCRATCH_BYTES
-                        wk.SCRATCH_BYTES = budget
-                        try:
-                            case("wlev_scan", q, mode, cand, lb, w,
-                                 f"la={la} {w} over chunks of {chunk}")
-                        finally:
-                            wk.SCRATCH_BYTES = plan
-                        if kc.LAUNCHES["wlev_scan"] - before != \
-                                -(-N_KERNEL // chunk):
-                            raise AssertionError("K7 scratch: wrong number "
-                                                 "of chunk launches")
-        for k, (LBl, lo, hi) in enumerate(((2048, 33, 64), (2048, 129, 160),
-                                           (LONG_LB, 33, 64))):
+        for k, (LBl, lo, hi, B) in enumerate((
+                (2048, 33, 64, N_KERNEL_LONG),
+                (1056, 993, 1024, N_KERNEL_LONG),
+                (1152, 1025, 1100, N_KERNEL_LONG),
+                (LONG_LB, 33, 64, N_KERNEL_LONG),
+                (2048, 2080, 2120, N_KERNEL_LONG // 4),
+                (LONG_LB, 2080, 2120, 64))):
             salt += 1
             a = alph["byte"]
             q = rng.choice(a, int(rng.integers(lo, hi + 1)))
-            cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL_LONG, LBl)
+            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl,
+                                    swaps=True, at=edges)
             lb[:8] = LBl                      # the bucket's last rows
-            w = WLEV_TABLES[k]
+            w = WLEV_TABLES[k % len(WLEV_TABLES)]
             case("wlev_scan_long", q, "byte", cand, lb, w,
                  f"LB={LBl} la={q.size} {w}")
+            if lo == 1025:
+                # the edge buffer over chunks of a quarter of the candidates
+                chunk = B // 4
+                before = kc.LAUNCHES["wlev_scan_long"]
+                plan = wk.SCRATCH_BYTES
+                wk.SCRATCH_BYTES = 4 * LBl * chunk
+                try:
+                    if wk.edge_chunk(LBl, B) != chunk:
+                        raise AssertionError("K7 edge plan: chunk of "
+                                             f"{wk.edge_chunk(LBl, B)}")
+                    case("wlev_scan_long", q, "byte", cand, lb, w,
+                         f"la={q.size} {w} over chunks of {chunk}")
+                finally:
+                    wk.SCRATCH_BYTES = plan
+                if kc.LAUNCHES["wlev_scan_long"] - before != 4:
+                    raise AssertionError("K7 edge buffer: wrong number of "
+                                         "chunk launches")
         return salt
 
     def jaro_kernel_cases(self, rng, alph, salt):
@@ -2507,7 +2544,7 @@ class Smoke:
         queries (N_BATCH_SAMPLE sampled rows each); ``CorpusScanner``s under
         WLEV_SCAN over the long corpus for the 64- and 300-char queries
         (top-k, whole corpus), over the bucket-6000 texts for the
-        ~4,000-char query (the scratch form; top-k and cutoff 40, whole
+        ~4,000-char query (the tile form; top-k and cutoff 40, whole
         corpus) and over the Cyrillic corpus (the remap route; sampled
         rows); ``levenshtein.distance_many`` with a cutoff (whole corpus)
         and ``BatchComparator.normalized_similarities`` (sampled rows) over
@@ -2576,8 +2613,8 @@ class Smoke:
         t_part = time.perf_counter()
         parts = {"serve": t_part - t_start}
         # the long texts: K7 over buckets > 1024 in register form (64
-        # chars) and scratch form (300), then the ~4,000-char query over
-        # the bucket-6000 texts (scratch form)
+        # chars) and tile form (300), then the ~4,000-char query over the
+        # bucket-6000 texts (tile form, four strips)
         w = WLEV_SCAN
         qs = self.long_queries
         t0 = time.perf_counter()
@@ -3583,37 +3620,73 @@ class Smoke:
             return wk.wlev_1v_many(qq, c, lbv, ins=w[0], dele=w[1],
                                    sub_cost=w[2], staged=staged)
 
+        def wlev_layout(lbv, la, row):
+            """``extra[row + "_layout_bound_ms"]``: the INT32-lane
+            instructions K7 issues beyond its bound's OPS per query
+            position and text step, over this run's data.  The register
+            form (la <= MAX_REG_LA): a warp of 32 consecutive candidates
+            runs to its longest text, each step WLEV_REG_STEP_OPS[W] a
+            thread over the whole words up to la's.  The tile form: a warp
+            of 32 // G candidates runs, per strip, nmax + G' - 1 steps of
+            all 32 lanes (G' the strip's lanes with query positions), each
+            TILE cells at OPS and WLEV_TILE_STEP_OPS for the step.  That
+            is the hand-off, the char and the strip edge, the positions
+            past la, the idle lanes, the ramps and the wait for a warp's
+            longest text."""
+            l64 = lbv.to(torch.int64)
+            if la <= wk.MAX_REG_LA:
+                per, ramps = 32, [0]
+                ops = WLEV_REG_STEP_OPS[lk.words(la)]
+            else:
+                G = min(32, -(-la // wk.TILE))
+                per = 32 // G
+                ops = wk.TILE * WLEV_CELL_OPS + WLEV_TILE_STEP_OPS
+                ramps = [min(G, -(-(la - cs) // wk.TILE)) - 1
+                         for cs in range(0, la, wk.STRIP)]
+            nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % per)])
+            nmax = nmax.view(-1, per).max(1).values
+            steps = sum(int(torch.where(nmax > 0, nmax + r, 0).sum())
+                        for r in ramps)
+            layout = steps * 32 * ops - WLEV_CELL_OPS * la * int(l64.sum())
+            extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
+
         timed("wlev_scan",
               lambda: wlev(q, cand, lb, WLEV_SERVE, (las, tabs)),
               lambda: wk.wlev_scan_plain(q.size, tabs, cand, lb,
                                          *WLEV_SERVE), 5,
               scan_work("wlev_scan", lb, q.size,
                         table_words=lk.words(q.size)))
-        # the register form at one, three and four words and the first
-        # scratch width, at the same candidates, each held on every
-        # WLEV_SLICE-th of them
+        # the register form at one, three and four words and the tile
+        # form's first width (five lanes a candidate), at the same
+        # candidates, each held on every WLEV_SLICE-th of them
         sl_cand = cand[:, ::WLEV_SLICE].contiguous()
         sl_lb = lb[::WLEV_SLICE].contiguous()
+        wlev_layout(lb, q.size, "wlev_scan")
         for la in (32, 96, 128, 129):
             qw = rng.integers(97, 123, la)
             sw = lk.stage_query(qw, "local", self.dev)
+            wlev_layout(lb, la, f"wlev_scan_la{la}")
             timed("wlev_scan", lambda: wlev(qw, cand, lb, WLEV_SERVE, sw),
                   lambda: wk.wlev_scan_plain(la, sw[1], sl_cand, sl_lb,
                                              *WLEV_SERVE), 5,
                   scan_work("wlev_scan", lb, la, table_words=lk.words(la)),
                   every=WLEV_SLICE, row=f"wlev_scan_la{la}")
         # over the long corpus: the len-64 query (the kernels line's row),
-        # then the scratch form at 299 chars and at 4,001 (2.1 GB of rows:
-        # launched over chunks under the scanner's 1 GiB plan, once, with
-        # no warm-up), each timed output held against the plain version on
-        # every LONG_SLICE[key]-th text (lengths as spread; the whole
-        # corpus takes the plain version over 10 s)
+        # then the tile form at 299 chars (ten lanes a candidate) and at
+        # 4,001 (four strips of a warp: 4 GiB of edge buffer, launched over
+        # chunks under the scanner's 1 GiB plan, once, with no warm-up),
+        # each timed output held against the plain version on every
+        # LONG_SLICE[key]-th text (lengths as spread; the whole corpus
+        # takes the plain version over 10 s)
         for key, reps in (("q64", 3), ("q300", 2), ("q4k", 1)):
             qk = enc[key]
             st = lk.stage_query(qk, "local", self.dev)
             every = LONG_SLICE[key]
             sl_cand = long_sc.cand[:, ::every].contiguous()
             sl_lb = long_sc.lb[::every].contiguous()
+            row = "wlev_scan_long" if key == "q64" else \
+                f"wlev_scan_long_{key}"
+            wlev_layout(long_sc.lb, qk.size, row)
             before = self.kc.LAUNCHES["wlev_scan_long"]
             timed("wlev_scan_long",
                   lambda: wlev(qk, long_sc.cand, long_sc.lb, WLEV_SCAN, st),
@@ -3621,14 +3694,12 @@ class Smoke:
                                              *WLEV_SCAN), reps,
                   scan_work("wlev_scan_long", long_sc.lb, qk.size,
                             table_words=lk.words(qk.size)), warm=False,
-                  every=every, kwarm=reps > 1,
-                  row=None if key == "q64" else f"wlev_scan_long_{key}")
+                  every=every, kwarm=reps > 1, row=row)
             runs = reps + (reps > 1)
             scans = (self.kc.LAUNCHES["wlev_scan_long"] - before) // runs
             B = long_sc.lb.numel()
-            chunk = B if qk.size <= wk.MAX_REG_LA else min(B, max(
-                wk.BLOCK, wk.SCRATCH_BYTES // (4 * qk.size) // wk.BLOCK
-                * wk.BLOCK))
+            chunk = B if qk.size <= wk.STRIP else \
+                wk.edge_chunk(long_sc.cand.shape[0] * 4, B)
             if scans != -(-B // chunk) or (key == "q4k" and scans < 2):
                 raise AssertionError(f"wlev_scan_long {key}: {scans} "
                                      "launches per scan")
@@ -4120,6 +4191,8 @@ def main(argv=None) -> int:
           "ptxas_lev_scan": ptxas_kernels(
               kc.ptxas_report.get("lev_scan.cu", ""), "lev_scan"),
           "sass_lev_scan": sass_histogram(kc, "lev_scan"),
+          "ptxas_wlev_scan": ptxas_kernels(
+              kc.ptxas_report.get("wlev_scan.cu", ""), "wlev_scan"),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
           "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
           "sass_dam_scan": sass_histogram(kc, "dam_"),

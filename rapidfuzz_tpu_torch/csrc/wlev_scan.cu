@@ -8,11 +8,11 @@
 // which serves buckets over 1024 chars by streaming 512-char text chunks
 // through a second grid axis with the row carried in a VMEM scratch of
 // (LA+1, sub, 128) int32, and so caps queries at 256 chars
-// (WLEV_STREAM_MAX_LA).  Both limits were VMEM limits: a thread here walks
-// its own candidate's text from global memory at any length and keeps its
-// row in registers or in a device scratch of any length, so one kernel
-// serves every bucket and every query, and the wrapper counts launches
-// over 1024-char buckets apart (wlev_scan_long).
+// (WLEV_STREAM_MAX_LA).  Both limits were VMEM limits: here a candidate's
+// thread, or its lanes, walk its text from global memory at any length
+// and keep its row in registers, so one kernel serves every bucket and
+// every query, and the wrapper counts launches over 1024-char buckets
+// apart (wlev_scan_long).
 //
 // The recurrence (wlev_kernel.py:38-88; the reference's
 // levenshtein.rs:212-259): the row D[0..la] starts at D[p] = p*del; text
@@ -31,54 +31,72 @@
 // diagonal, the adds of ins and del, two mins), la cells per text step;
 // the corpus is read once, 1 byte per char.  Hopper's DPX instruction
 // __viaddmin_s32 (VIADDMNMX, min(a + b, c) in one instruction) fuses each
-// add with its min, and the compiler tests 8 PM bits per R2P and selects
-// the cost with predicated IMADs, so a cell issues ~3 instructions on the
-// INT32 lanes (2 x VIADDMNMX, and parts of a SEL, an ISETP and an R2P)
-// and ~2 IMADs on the FMA lanes, and its dependent chain through the left
-// neighbour is one instruction.  The scratch form adds a 4-byte load and
-// a 4-byte store per cell, and those bytes bound it instead (a register
-// tile of query positions passing a boundary column is the later
-// design).
+// add with its min, so a cell issues two of those, the bit test and the
+// cost's select on the INT32 lanes (chip_smoke.WLEV_CELL_OPS counts them
+// in the SASS), the add of the cost as an IMAD on the FMA lanes, and its
+// dependent chain through the left neighbour is one instruction.  No form
+// moves a cell through device memory.
 //
-// Design:
-// * one thread per candidate, candidates along blockIdx.x, over the
-//   chunk [b0, b0 + nb) of the corpus, so the wrapper can bound the
-//   scratch by launching over chunks of candidates;
-// * the packed corpus keeps the JAX layout [LB/4, B] u32, a coalesced
-//   load of 4 chars per 4 text steps;
-// * each thread walks exactly its candidate's lb steps, and positions
-//   past la only to the end of la's word in the register form (a cell
-//   never reads a later position), so the TPU's masked select of D[la]
-//   over the whole LA is not needed;
-// * register form (la <= 128): the query's PM table ([W, 256] u32) sits
-//   in shared memory and the row in registers (80-178 registers, no
-//   spills), the position loop unrolled over a compile-time LA = 32*W
-//   (template on W = 1..4) and stopped after the word holding position la
-//   by a uniform branch per word; D[la] is read by a select chain,
-//   as a register array takes compile-time indices only.  The text loop
-//   holds one copy of the step (not one per char of a packed word), so
-//   the unrolled row stays small in the instruction cache, and loads the
-//   next packed word while the current one's 4 steps run;
-// * scratch form (la > 128): the row D[1..la] lives in a [la, nb] int32
-//   scratch, coalesced by candidate, D[0] and the running diagonal and
-//   left neighbour in registers; each whole word of 32 positions is
-//   loaded into registers before its cells run and stored after, so a
-//   thread keeps 32 loads in flight; the PM table in shared memory up to
-//   48 KB (W <= 48), through the read-only cache past that;
+// Two forms, both taking the corpus longest first (it comes sorted by
+// length, and block b works the candidates of block nblocks - 1 - b):
+// * register form (la <= 128): one thread per candidate, the query's PM
+//   table ([W, 256] u32) in shared memory and the row in registers, the
+//   position loop unrolled over a compile-time LA = 32*W (template on
+//   W = 1..4) and stopped after the word holding position la by a uniform
+//   branch per word; D[la] is read by a select chain, as a register array
+//   takes compile-time indices only.  The text loop holds one copy of the
+//   step (not one per char of a packed word), so the unrolled row stays
+//   small in the instruction cache, and loads the next packed word while
+//   the current one's 4 steps run;
+// * tile form (la > 128): a lane holds a tile of kTile = 32 consecutive
+//   query positions of one candidate's row, D[c0 + 1 .. c0 + 32], in
+//   registers, and a candidate takes G = ceil(la / 32) lanes, at most a
+//   warp, 32 / G candidates a warp, its other 32 % G lanes idle.  A cell
+//   reads its left neighbour in the same row, so lane t runs text row
+//   i = s - t at step s (a wavefront): it takes from lane t - 1, by
+//   __shfl_up_sync, that lane's last row's char and D[i][c0] at its own
+//   left edge c0; the value taken one row earlier is the diagonal
+//   D[i-1][c0].  Only a group's lane 0 reads the packed corpus (K1's
+//   [LB/4, B] u32, a word every 4 rows, loaded a word ahead) and starts
+//   the row at D[i][0] = i*ins.  A group runs lb + G - 1 steps per strip,
+//   and a warp runs to its longest candidate: every lane stays in the loop
+//   (the shuffles need the whole warp) and leaves its row as it is at rows
+//   outside [1, lb].  The lane that holds position la picks D[lb][la] by a
+//   select chain; with lb == 0 its row is still row 0, la*del;
+// * tile form's table: staged per strip in shared memory as [256, 32]
+//   u32, char-major, so the lanes of a group, holding consecutive tiles,
+//   read consecutive banks whatever their char;
+// * strips: queries over kStrip = 1,024 chars are swept in strips of
+//   1,024 positions, each a pass over the text.  Per text row the strip's
+//   last lane writes D[i][c] at its right edge c to the candidate's edge
+//   buffer ([nb, LB] int32, a candidate's rows contiguous), and lane 0 of
+//   the next strip reads it back a row ahead of its use; the buffer is
+//   reused in place (a row is read 31 steps before the last lane writes it
+//   again).  The wrapper launches over chunks of candidates whose edge
+//   buffers fit its memory plan (wlev_kernel.SCRATCH_BYTES);
 // * la == 0 gives lb*ins, lb == 0 gives la*del;
-// * every offset into the corpus, the output and the scratch is 64-bit
-//   (row * B, position * nb); only per-candidate lengths, the row count
-//   lb4 and the query length are 32-bit.
+// * every offset into the corpus, the output and the edge buffer is
+//   64-bit (row * B, candidate * LB); only per-candidate lengths, the row
+//   count lb4 and the query length are 32-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;     // PM entries: every byte value
-constexpr int kMaxRegW = 4;    // row in registers up to 32*kMaxRegW chars
-constexpr int kMaxSmemW = 48;  // PM table in shared memory up to 48 KB
+constexpr int kThreads = 256;      // the register form's block
+constexpr int kTileThreads = 256;  // the tile form's block
+constexpr int kRows = 256;         // PM entries: every byte value
+constexpr int kMaxRegW = 4;        // row in registers up to 32*kMaxRegW chars
+constexpr int kTile = 32;          // query positions a lane of the tile form
+                                   // holds
+constexpr int kTileWords = kTile / 32;
+constexpr int kStrip = 32 * kTile; // query positions a warp sweeps at once
+constexpr int kStripWords = kStrip / 32;
+// blocks an SM keeps of the tile form: caps its registers at 80 (65,536
+// a SM); at 2 (88 registers, 16 warps an SM) it ran 8 % slower
+constexpr int kTileBlocks = 3;
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One Wagner-Fischer cell: the candidate's char was (hit) or was not the
 // query's char at this position.  min(D_old[p] + ins, diag + cost) does
@@ -127,7 +145,9 @@ wlev_scan_reg(const uint32_t* __restrict__ pm_g, int la, int ins, int del,
     for (int i = threadIdx.x; i < W * kRows; i += kThreads) pm[i] = pm_g[i];
     __syncthreads();
 
-    const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        (int64_t)(gridDim.x - 1 - blockIdx.x) * kThreads + threadIdx.x;
     if (k >= nb) return;
     const int64_t b = b0 + k;
     if (la == 0) { out[b] = lb[b] * ins; return; }
@@ -156,70 +176,127 @@ wlev_scan_reg(const uint32_t* __restrict__ pm_g, int la, int ins, int del,
     out[b] = dist;
 }
 
-template <bool kSmem>
-__global__ void __launch_bounds__(kThreads)
-wlev_scan_scratch(const uint32_t* __restrict__ pm_g, int la, int ins,
-                  int del, int sub, const uint32_t* __restrict__ cand,
-                  const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                  int32_t* __restrict__ scratch, int64_t B, int64_t b0,
-                  int64_t nb, int lb4) {
-    extern __shared__ uint32_t pm_s[];
+// The tile form over candidates [b0, b0 + nb) (the header's design): G
+// lanes a candidate, kTile query positions each, the strip's table
+// [256, kStripWords] in dynamic shared memory.  edge: [nb, LB] int32,
+// LB = 4 * lb4, read and written only when la > kStrip.
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+wlev_scan_tile(const uint32_t* __restrict__ pm_g, int la, int G, int ins,
+               int del, int sub, const uint32_t* __restrict__ cand,
+               const int32_t* __restrict__ lb, int32_t* __restrict__ out,
+               int32_t* __restrict__ edge, int64_t B, int64_t b0,
+               int64_t nb, int lb4) {
+    extern __shared__ uint32_t pm[];
     const int W = (la + 31) >> 5;
-    if (kSmem) {
-        for (int i = threadIdx.x; i < W * kRows; i += kThreads)
-            pm_s[i] = pm_g[i];
+    // a warp holds 32 / G groups; its lanes past them idle
+    const int lane = threadIdx.x & 31;
+    const int per = 32 / G;
+    const int grp = lane / G;
+    const int t = lane - grp * G;               // the lane's tile
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        ((int64_t)(gridDim.x - 1 - blockIdx.x) * (kTileThreads / 32)
+         + threadIdx.x / 32) * per + grp;
+    const bool real = grp < per && k < nb;
+    const int64_t b = b0 + (real ? k : 0);
+    const int LB = 4 * lb4;
+    const int n = real ? min(lb[b], LB) : 0;
+    const int nmax = __reduce_max_sync(kFull, n);
+    const uint32_t* const col = cand + b;
+    int32_t* const eg =
+        edge != nullptr ? edge + (size_t)(real ? k : 0) * LB : nullptr;
+    const int nstrip = (la + kStrip - 1) / kStrip;
+    // the lane and position that hold column la, in the last strip
+    const int tla = (la - 1 - (nstrip - 1) * kStrip) / kTile;
+    for (int st = 0; st < nstrip; ++st) {
+        const int cs = st * kStrip;             // the strip's left edge
+        const int ws = min(kStripWords, W - cs / 32);
+        // the previous strip's table reads and edge stores are done
+        if (st > 0) __syncthreads();
+        for (int q = threadIdx.x; q < kStripWords * kRows;
+             q += kTileThreads) {
+            const int w = q >> 8, c = q & (kRows - 1);
+            pm[c * kStripWords + w] =
+                w < ws ? pm_g[(size_t)(cs / 32 + w) * kRows + c] : 0u;
+        }
         __syncthreads();
-    }
-    const int64_t k = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (k >= nb) return;
-    const int64_t b = b0 + k;
-    const int n = min(lb[b], 4 * lb4);
-    // D[p] (p = 1..la) at row p - 1 of this chunk's scratch
-    int32_t* row = scratch + k;
-    for (int p = 1; p <= la; ++p) row[(size_t)(p - 1) * nb] = p * del;
-    int d0 = 0, dist = la * del;
-    const uint32_t* col = cand + b;
-    uint32_t word = 0u;
-    for (int j = 0; j < n; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-        int diag = d0;
-        d0 += ins;
-        int prev = d0;
-        for (int w = 0; w < W; ++w) {
-            const uint32_t pmw = kSmem ? pm_s[w * kRows + c]
-                                       : __ldg(pm_g + w * kRows + c);
-            int32_t* sp = row + (size_t)(32 * w) * nb;
-            const int m = la - 32 * w;
-            if (m >= 32) {
-                // a whole word: 32 loads in flight, then the cells, then
-                // 32 stores
-                int v[32];
+        const int c0 = cs + kTile * t;          // the tile's left edge
+        const int glive = min(G, (la - cs + kTile - 1) / kTile);
+        const int steps = nmax > 0 ? nmax + glive - 1 : 0;
+        const bool edge_out = st + 1 < nstrip && t == G - 1;
+        const uint32_t* const tile = pm + kTileWords * t;
+        // row 0, and D[i-1][c0] before row 1
+        int D[kTile];
 #pragma unroll
-                for (int i = 0; i < 32; ++i) v[i] = sp[(size_t)i * nb];
-#pragma unroll
-                for (int i = 0; i < 32; ++i) {
-                    const int old = v[i];
-                    prev = cell(old, diag, prev, (pmw >> i) & 1u, ins, del,
-                                sub);
-                    v[i] = prev;
-                    diag = old;
+        for (int p = 0; p < kTile; ++p) D[p] = (c0 + p + 1) * del;
+        int diag = c0 * del;
+        // what the lane's last row hands on: D[i][c0 + kTile], its char
+        int o = 0;
+        uint32_t oc = 0u;
+        // lane 0: the packed word after the current one and, past the
+        // first strip, the edge value of its next row
+        uint32_t word = 0u, next = 0u;
+        int enext = 0;
+        if (t == 0 && n > 0) {
+            next = col[0];
+            if (cs > 0) enext = eg[0];
+        }
+#pragma unroll 1
+        for (int s = 1; s <= steps; ++s) {
+            // lane t - 1's last row; a group's lane 0 replaces it
+            int left = __shfl_up_sync(kFull, o, 1);
+            uint32_t c = __shfl_up_sync(kFull, oc, 1);
+            const int i = s - t;
+            // a lane past la's (in the last strip) runs rows that no
+            // lane reads: masking it would hold a predicate that ptxas
+            // spills
+            if (i >= 1 && i <= n) {
+                if (t == 0) {
+                    const int j = i - 1;
+                    if ((j & 3) == 0) {
+                        word = next;
+                        if ((j | 3) + 1 < n)
+                            next = col[(size_t)((j >> 2) + 1) * B];
+                    }
+                    c = (word >> (8 * (j & 3))) & 0xFFu;
+                    if (cs == 0) {
+                        left = i * ins;
+                    } else {
+                        left = enext;
+                        if (i < n) enext = eg[i];
+                    }
                 }
+                const uint32_t* const row = tile + c * kStripWords;
+                int prev = left, dg = diag;
 #pragma unroll
-                for (int i = 0; i < 32; ++i) sp[(size_t)i * nb] = v[i];
-            } else {
-                for (int i = 0; i < m; ++i, sp += nb) {
-                    const int old = *sp;
-                    prev = cell(old, diag, prev, (pmw >> i) & 1u, ins, del,
-                                sub);
-                    *sp = prev;
-                    diag = old;
+                for (int w = 0; w < kTileWords; ++w) {
+                    const uint32_t pmw = row[w];
+#pragma unroll
+                    for (int u = 0; u < 32; ++u) {
+                        const int p = 32 * w + u;
+                        const int old = D[p];
+                        prev = cell(old, dg, prev, (pmw >> u) & 1u, ins,
+                                    del, sub);
+                        D[p] = prev;
+                        dg = old;
+                    }
                 }
+                diag = left;
+                o = prev;
+                oc = c;
+                if (edge_out) eg[i - 1] = prev;
             }
         }
-        dist = prev;
+        if (st + 1 == nstrip && real && t == tla) {
+            // nothing stays live across the strips for this (ptxas spilled
+            // a distance kept there)
+            const int pla = (la - 1) % kTile;
+            int dist = D[0];
+#pragma unroll
+            for (int p = 1; p < kTile; ++p) dist = (p == pla) ? D[p] : dist;
+            out[b] = dist;
+        }
     }
-    out[b] = dist;
 }
 
 template <int W>
@@ -233,15 +310,34 @@ cudaError_t launch_reg(const uint32_t* pm, int la, int ins, int del, int sub,
     return cudaGetLastError();
 }
 
+cudaError_t launch_tile(const uint32_t* pm, int la, int ins, int del,
+                        int sub, const uint32_t* cand, const int32_t* lb,
+                        int32_t* out, int32_t* edge, int64_t B, int64_t b0,
+                        int64_t nb, int lb4, cudaStream_t stream) {
+    if (la > kStrip && edge == nullptr) return cudaErrorInvalidValue;
+    // a lane per tile of the query (its first strip), at most a warp
+    const int G = min(32, (la + kTile - 1) / kTile);
+    const int bytes = kStripWords * kRows * 4;
+    cudaError_t err = cudaFuncSetAttribute(
+        wlev_scan_tile, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    const int64_t per = (kTileThreads / 32) * (32 / G);  // per block
+    const unsigned grid = (unsigned)((nb + per - 1) / per);
+    wlev_scan_tile<<<grid, kTileThreads, bytes, stream>>>(
+        pm, la, G, ins, del, sub, cand, lb, out, edge, B, b0, nb, lb4);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // Distances of the query (length la, PM table pm [W, 256]) to candidates
 // [b0, b0 + nb) of the packed corpus cand [lb4, B], written to out[b].
-// Queries over 32 * kMaxRegW chars need scratch: nb * la int32.
+// Queries over kStrip = 1,024 chars need the edge buffer edge: 4 * lb4
+// int32 per candidate, [nb, 4 * lb4].
 extern "C" cudaError_t rf_wlev_scan(const uint32_t* pm, int la, int ins,
                                     int del, int sub, const uint32_t* cand,
                                     const int32_t* lb, int32_t* out,
-                                    int32_t* scratch, int64_t B, int64_t b0,
+                                    int32_t* edge, int64_t B, int64_t b0,
                                     int64_t nb, int lb4,
                                     cudaStream_t stream) {
     if (la < 0 || b0 < 0 || nb < 0 || b0 + nb > B)
@@ -258,16 +354,8 @@ extern "C" cudaError_t rf_wlev_scan(const uint32_t* pm, int la, int ins,
                                      b0, nb, lb4, stream);
         case 4: return launch_reg<4>(pm, la, ins, del, sub, cand, lb, out, B,
                                      b0, nb, lb4, stream);
-        default: break;
+        default:
+            return launch_tile(pm, la, ins, del, sub, cand, lb, out, edge, B,
+                               b0, nb, lb4, stream);
     }
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    const unsigned grid = (unsigned)((nb + kThreads - 1) / kThreads);
-    if (W <= kMaxSmemW) {
-        wlev_scan_scratch<true><<<grid, kThreads, W * kRows * 4, stream>>>(
-            pm, la, ins, del, sub, cand, lb, out, scratch, B, b0, nb, lb4);
-    } else {
-        wlev_scan_scratch<false><<<grid, kThreads, 0, stream>>>(
-            pm, la, ins, del, sub, cand, lb, out, scratch, B, b0, nb, lb4);
-    }
-    return cudaGetLastError();
 }

@@ -97,7 +97,7 @@ _SIGNATURES = {
     "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
     # pm, las, cand, lb, out, scratch, B, lb4, W, nq, stream
     "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    # pm, la, ins, del, sub, cand, lb, out, scratch, B, b0, nb, lb4, stream
+    # pm, la, ins, del, sub, cand, lb, out, edge, B, b0, nb, lb4, stream
     "rf_wlev_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
                      _I, _P],
     # pm, las, cand, lb, out, scratch, B, b0, nb, lb4, W, nq, stream

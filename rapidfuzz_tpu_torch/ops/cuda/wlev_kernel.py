@@ -10,10 +10,10 @@ weighted part of ``stream_kernel.py``.  One kernel, ``csrc/wlev_scan.cu``
   takes for buckets over 1024 chars that are whole 512-char chunks, for
   queries of at most 256 chars: the TPU streamed such texts in chunks and
   capped the query because a candidate block and its row scratch had to
-  fit VMEM, while a CUDA thread walks its candidate's text at any length
-  and keeps its row in registers or in a device scratch, so the same
-  kernel serves every bucket and every query.  Launches over buckets
-  longer than :data:`~.lev_kernel.LONG_LB` count as ``wlev_scan_long``.
+  fit VMEM, while here a candidate's thread, or its lanes, walk its text
+  at any length with its row in registers, so the same kernel serves
+  every bucket and every query.  Launches over buckets longer than
+  :data:`~.lev_kernel.LONG_LB` count as ``wlev_scan_long``.
 
 The corpus and the PM table are K1's (:func:`~.lev_kernel.prepare_corpus`,
 :func:`~.lev_kernel.stage_query`): ``cand`` ``[LB/4, B]``, ``lb`` ``[B]``,
@@ -22,10 +22,14 @@ insertion on the candidate's, as ``levenshtein.distance(query, cand,
 weights=(ins, del, sub))``.  Cells are int32, as on the TPU, so a table
 whose cells could overflow raises ``ValueError`` (:func:`fits_int32`).
 
-Queries of more than :data:`MAX_REG_LA` chars keep each candidate's row in
-a ``[la, chunk]`` int32 scratch: the wrapper launches over chunks of
-candidates whose scratch stays within :data:`SCRATCH_BYTES`, read at each
-call, one launch each.
+Queries of more than :data:`MAX_REG_LA` chars run K7's tile form: a lane
+holds :data:`TILE` query positions of a candidate's row in registers, a
+candidate takes up to a warp's lanes, and the lanes hand their tile's
+right edge on by shuffle.  Past :data:`STRIP` chars the warp sweeps the
+query in strips, passing one int32 per text row through an edge buffer
+(``[chunk, LB]``); the wrapper launches over chunks of candidates whose
+edge buffers stay within :data:`SCRATCH_BYTES`, read at each call, one
+launch each (:func:`edge_chunk`).
 
 The wrapper runs the kernel when handed CUDA tensors and the plain PyTorch
 version (:func:`wlev_scan_plain`) when handed CPU tensors; it never falls
@@ -41,17 +45,29 @@ from . import check, launch, plain_slice
 from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import LONG_LB, PM_ROWS, stage_query, words
 
-MAX_REG_LA = 128         # K7 keeps the row in registers up to this many
-                         # query chars; longer queries use a scratch
-SCRATCH_BYTES = 1 << 30  # bound of one scan's row scratch (the scanner's
-                         # memory plan)
-BLOCK = 256              # candidates per CUDA block
+MAX_REG_LA = 128         # K7 keeps a candidate's row in one thread's
+                         # registers up to this many query chars; longer
+                         # queries take the tile form
+TILE = 32                # query positions a lane of the tile form holds
+STRIP = 32 * TILE        # query positions a warp sweeps at once; longer
+                         # queries pass an edge buffer between strips
+SCRATCH_BYTES = 1 << 30  # bound of one launch's edge buffer (the
+                         # scanner's memory plan)
+BLOCK = 256              # chunks of candidates are whole multiples of this
 
 
 def fits_int32(la: int, LB: int, ins: int, dele: int, sub: int) -> bool:
     """Whether the int32 cells of a query of ``la`` chars against a bucket
     of ``LB`` chars cannot overflow (``wlev_kernel.py:134-137``)."""
     return la * max(dele, sub, 1) + LB * max(ins, sub, 1) < 2 ** 31
+
+
+def edge_chunk(LB: int, B: int) -> int:
+    """Candidates per launch of the tile form for queries over
+    :data:`STRIP` chars: ``4 * LB`` bytes of edge buffer each (``LB`` the
+    bucket), whole multiples of :data:`BLOCK`, within
+    :data:`SCRATCH_BYTES`."""
+    return min(B, max(BLOCK, SCRATCH_BYTES // (4 * LB) // BLOCK * BLOCK))
 
 
 def wlev_scan_plain(la: int, tabs: torch.Tensor, cand: torch.Tensor,
@@ -124,17 +140,17 @@ def _wlev_scan(la, tabs, cand, lb, ins, dele, sub,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
-    chunk, scratch = B, None
-    if la > MAX_REG_LA and B:
-        # the row scratch, [la, chunk] int32 coalesced by candidate,
-        # bounded by SCRATCH_BYTES: one launch per chunk of candidates
-        chunk = min(B, max(BLOCK, SCRATCH_BYTES // (4 * la) // BLOCK
-                           * BLOCK))
-        scratch = torch.empty(la * chunk, dtype=torch.int32, device=dev)
+    chunk, edge = B, None
+    if la > STRIP and B:
+        # the strips' edge buffer, [chunk, LB] int32, bounded by
+        # SCRATCH_BYTES: one launch per chunk of candidates
+        LB = cand.shape[0] * 4
+        chunk = edge_chunk(LB, B)
+        edge = torch.empty(LB * chunk, dtype=torch.int32, device=dev)
     for b0 in range(0, B, chunk):
         launch(name, "rf_wlev_scan", dev, tabs.data_ptr(), la, ins, dele,
                sub, cand.data_ptr(), lb.data_ptr(), out.data_ptr(),
-               None if scratch is None else scratch.data_ptr(), B, b0,
+               None if edge is None else edge.data_ptr(), B, b0,
                min(chunk, B - b0), cand.shape[0])
     return out
 

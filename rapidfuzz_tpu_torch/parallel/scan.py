@@ -116,11 +116,13 @@ class CorpusScanner:
     eighth of the corpus, so no scan stages a second corpus-sized copy;
     the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch,
     the OSA kernel queries over 256 chars in a ``[3W, B]`` scratch, and a
-    weighted scan queries over 128 chars in a ``[la, chunk]`` int32 row
-    scratch (``4*la`` bytes per candidate), launched over chunks of
-    candidates so that it stays within ``wlev_kernel.SCRATCH_BYTES``
-    (1 GiB): a 300-char query over 1M strings is 1.2 GB of rows, a
-    4,001-char query over 131,072 texts 2.1 GB.  A Jaro scan adds two
+    weighted scan keeps its rows in registers (the tile form past 128
+    query chars) and, for queries over 1,024 chars, adds an edge buffer
+    of one int32 per text row and candidate (``[chunk, LB]``, ``4*LB``
+    bytes per candidate), launched over chunks of candidates so that it
+    stays within ``wlev_kernel.SCRATCH_BYTES`` (1 GiB): a 300-char query
+    over 1M strings needs none, a 4,001-char query over 131,072 texts of
+    bucket 8192 is 4 GiB of edges, 4 launches.  A Jaro scan adds two
     int32 outputs, queries over 256 chars a ``[W + LB/32, chunk]`` u32
     scratch within ``jaro_kernel.SCRATCH_BYTES``, and the host keeps 4
     chars and the length of each candidate.  A Damerau scan reads the same

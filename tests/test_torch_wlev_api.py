@@ -268,13 +268,14 @@ def cuda_device():
 @pytest.mark.parametrize("kernel,la,lb_max", [
     ("wlev_scan", 27, 260), ("wlev_scan", 60, 260), ("wlev_scan", 100, 260),
     ("wlev_scan", 0, 260), ("wlev_scan", 140, 260),
-    ("wlev_scan_long", 50, 1536)])
+    ("wlev_scan_long", 50, 1536), ("wlev_scan_long", 1100, 1536)])
 def test_wlev_kernel_matches_plain_on_card(cuda_device, monkeypatch, kernel,
                                            la, lb_max):
     """Each K7 form (registers at one, two and four words, the empty
-    query, the scratch form launched over several chunks, a long bucket)
-    equals its plain PyTorch version on the card under (1, 2, 3) and moves
-    its launch counter."""
+    query, the tile form at five lanes a candidate and past one strip,
+    the latter launched over several chunks of its edge buffer, a long
+    bucket) equals its plain PyTorch version on the card under (1, 2, 3)
+    and moves its launch counter."""
     rng = np.random.default_rng(la)
     a = np.r_[0, 97, 98, 99, 200, 255]
     q = rng.choice(a, la)
@@ -286,10 +287,13 @@ def test_wlev_kernel_matches_plain_on_card(cuda_device, monkeypatch, kernel,
                                  torch.from_numpy(lens).to(cuda_device))
     _, tabs = lk.stage_query(q, "byte", cuda_device)
     before = kc.LAUNCHES[kernel]
-    monkeypatch.setattr(wk, "SCRATCH_BYTES", 4 * max(la, 1) * 1024)
+    # edge buffers for a quarter of the candidates: four launches past a
+    # strip
+    monkeypatch.setattr(wk, "SCRATCH_BYTES", 4 * lb_max * 1024)
     got = wk.wlev_1v_many(q, cand, lb, ins=1, dele=2, sub_cost=3)
     ref = wk.wlev_scan_plain(la, tabs, cand, lb, 1, 2, 3)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
-    chunks = 4 if la > wk.MAX_REG_LA else 1
+    chunks = 4 if la > wk.STRIP else 1
+    assert wk.edge_chunk(lb_max, 4096) == 1024
     assert kc.LAUNCHES[kernel] == before + chunks
