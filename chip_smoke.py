@@ -56,8 +56,10 @@ Phases, each printing one JSON line before the next starts:
    over buckets of 64, 1,024 and 8,192 chars, byte and local mode, with
    empty candidates, candidates on both sides of the query's length and
    planted exact windows in both roles; K11 (one long pair's band) at
-   R = 1, 2, 3, 4 and 8 over texts of 3,000-5,000 chars, at the band's
-   edge, with la - lb > K, identical runs and a wide vocabulary;
+   every R = 1-8 over texts of 3,000-5,000 chars, at the band's edge,
+   with la - lb > K, identical runs (the add's carry across every lane
+   and warp), a char at every warp edge, a cutoff inside the band and a
+   wide vocabulary;
    and one K2 case whose bucket (300,000 chars) makes its blocks
    stride past 65,535 grid rows, its scan held against the oracle on a
    sampled row;
@@ -169,8 +171,9 @@ Phases, each printing one JSON line before the next starts:
    corpus and at 300 chars over the long corpus, its full form's layout
    (hand-offs, ramps, padded columns) beside its bound; K10 with a 12-char query
    over the serve corpus, and a 64-char one over the serve and the long
-   corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8, its plain version
-   on the first 4,096 text chars at R = 4;
+   corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8 (ms and ns a text
+   step), its plain version on the first 4,096 text chars at R = 4, and
+   beside its bound the one-warp and one-SM figures;
 16. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
@@ -1543,19 +1546,25 @@ class Smoke:
         return salt
 
     def pair_kernel_cases(self, rng, salt):
-        """K11 against its plain version, bit for bit, at R = 1, 2, 3, 4
-        and 8, over texts of 3,000-5,000 chars (the plain version's ~30
-        launches a step): a near copy at the band's edge K = max_cutoff(1);
-        la - lb > K at R = 2; at R = 3 (a band born of a hint) K = la - 1,
-        the band spanning the pattern; identical runs at R = 4, whose
-        add's carry crosses every lane; a wide-vocabulary pair (Cyrillic
-        and CJK) at R = 8's edge, K = 16,383, most of its steps in the
-        horizontal phase."""
+        """K11 against its plain version, bit for bit, at every R = 1-8,
+        over texts of 3,000-5,000 chars (the plain version's ~30 launches
+        a step): a near copy at the band's edge K = max_cutoff(R) at R = 1
+        and 6; la - lb > K at R = 2; at R = 3 (a band born of a hint)
+        K = la - 1, the band spanning the pattern; identical runs at R = 4
+        and 7, whose add generates a carry in every word, so that the
+        carry crosses every lane and warp edge; at R = 5 a char at the
+        first pattern position of every warp's quarter of the band, which
+        the text opens with (the carry runs through all-ones words to a
+        warp edge); a wide-vocabulary pair (Cyrillic and CJK) at R = 8's
+        edge, K = 16,383, most of its steps in the horizontal phase."""
         prk, enc = self.prk, self.codec.encode_one
         abc = np.arange(97, 101)
         wide = np.r_[np.arange(0x410, 0x450), np.arange(0x4E00, 0x4E40)]
         near = "".join(rng.choice(list("abcd"), 3000))
         near5 = "".join(rng.choice(list("abcd"), 5000))
+        near6 = "".join(rng.choice(list("abcd"), prk.max_cutoff(6) + 200))
+        edge5 = rng.choice(abc, prk.max_cutoff(5) + 300)
+        edge5[:: 5 * 1024] = 122
         cases = (
             ("near copy", enc(near), enc(self.edit(rng, near, 60)), 1,
              prk.max_cutoff(1)),
@@ -1565,6 +1574,12 @@ class Smoke:
              4999),
             ("identical runs", np.full(9000, 97), np.full(3500, 97), 4,
              prk.max_cutoff(4)),
+            ("warp edges", edge5, np.r_[122, edge5[1: 3500]], 5,
+             prk.max_cutoff(5)),
+            ("near copy", enc(near6), enc(self.edit(rng, near6[:4000], 40)),
+             6, prk.max_cutoff(6)),
+            ("identical runs", np.full(15000, 98), np.full(3000, 98), 7,
+             prk.max_cutoff(7)),
             ("wide vocab", rng.choice(wide, 17000), rng.choice(wide, 4000),
              8, prk.max_cutoff(8)))
         for what, a, b, R, K in cases:
@@ -4026,9 +4041,13 @@ class Smoke:
         extra.update({
             "lev_pair_rungs_ms": rung_ms,
             "lev_pair_plain_text_chars": PAIR_PLAIN_STEPS,
+            "lev_pair_rungs_ns_per_step": {
+                R: t * 1e6 / lbp for R, t in rung_ms.items()},
             "lev_pair_warp_bound_ms": ops / (32 * clock_mhz * 1e6) * 1e3,
+            "lev_pair_sm_bound_ms": ops / (128 * clock_mhz * 1e6) * 1e3,
             "lev_pair_layout_bound_ms": layout / int_ops_s * 1e3,
             "lev_pair_warp_layout_ms": layout / (32 * clock_mhz * 1e6) * 1e3,
+            "lev_pair_sm_layout_ms": layout / (128 * clock_mhz * 1e6) * 1e3,
             "lev_pair_ns_per_step": rung_ms[4] * 1e6 / lbp,
             "lev_pair_table_bytes": table.numel() * 4})
         del table, text, head
@@ -4197,6 +4216,8 @@ def main(argv=None) -> int:
           "sass_jaro_scan": sass_histogram(kc, "jaro_scan"),
           "sass_dam_scan": sass_histogram(kc, "dam_"),
           "sass_partial_scan": sass_histogram(kc, "partial_scan"),
+          "ptxas_lev_pair": ptxas_kernels(
+              kc.ptxas_report.get("lev_pair.cu", ""), "lev_pair"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
     smoke.phase_kernels()
     smoke.count_words(True)

@@ -220,7 +220,9 @@ def lev_pair(a, b, *, score_cutoff: int | None = None,
     ``min(score_hint, score_cutoff)`` (31 with neither), clamped to
     ``[1, la - 1]``; ``R`` doubles until the result is certified exact,
     certified above ``score_cutoff`` (``None``), or the band spans the
-    pattern.  Raises :class:`BandLimit` when it would need ``R >``
+    pattern.  A band whose cutoff is under ``la - lb`` is not launched:
+    the distance exceeds its cutoff, but its raw value need not (the JAX
+    ladder launches it and can return that value as exact).  Raises :class:`BandLimit` when it would need ``R >``
     :data:`ROWS` (a distance past ``max_cutoff(ROWS)`` = 16,383): the
     caller then takes the host route."""
     a = np.asarray(np.asarray(a), np.int64)
@@ -240,6 +242,11 @@ def lev_pair(a, b, *, score_cutoff: int | None = None,
                 f"distance exceeds the device band limit "
                 f"{max_cutoff(ROWS)}; use the host oracle path")
         K = min(max_cutoff(R), la - 1)
+        if K < la - lb:
+            # the distance is at least la - lb > K, but this band's raw
+            # value may fall under K: it certifies nothing, so skip it
+            R *= 2
+            continue
         if table is None:                  # once: every rung reads it
             _, text, table = stage_pair(a, b, device)
         dist = int(_pair(table, text, la, K, R)[0])

@@ -253,7 +253,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 2, 4, 8])
+@pytest.mark.parametrize("R", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_pair_kernel_matches_plain_on_card(cuda_device, R):
     """K11 equals its plain version on the card at every band size, at
     the band's edge, and moves its counter once a rung."""
