@@ -4,17 +4,20 @@ each checked bit for bit against ``lev_pair_plain`` first.
     python3 probes/pair_probe.py
 
 Variants, each its own library built from the same source with the form
-table (``kWarps``, ``kDepth``) replaced: ``v0`` the kernel before the
+table (``kWarps``, ``kAhead``) replaced: ``v0`` the kernel before the
 redesign (``probes/lev_pair_pr14.cu``: one warp, 4R words a lane, a
-serial carry in the lane); ``v1`` lookahead, one warp; ``v2`` lookahead,
-four warps, the window loaded one step ahead into registers; ``v3d2``,
-``v3d4``, ``v3d8`` (``v2`` with the shared-memory window ring DEPTH 2, 4
-and 8 steps ahead); ``v1d4`` (``v1`` with the ring at 4); ``v4`` and
-``v4w4`` (timing only, wrong answers: ``v1`` and ``v2`` with every window
-read from the table's first words, which stay in L1).  Prints the card,
+serial carry in the lane); ``v1`` lookahead, one warp, the window loaded
+a step ahead into registers; ``v1a2`` the same two steps ahead; ``v2``,
+``v2a2``, ``v2a3`` lookahead over four warps, one, two and three steps
+ahead; ``v4`` and ``v4w4`` (timing only, wrong answers: ``v1`` and
+``v2`` with every window read from the table's first words, which stay
+in L1); and the first four-warp form (``probes/lev_pair_ring.cu``, d0
+after the carry, a shuffle for the slide) with its window one step ahead
+from the table (``p2``) or through a shared-memory ring of 4-byte
+``cp.async`` copies four steps ahead (``p3``).  Prints the card,
 each variant's ``ptxas -v`` registers and spills per instance, and one
 JSON line of milliseconds and ns a text step (CUDA events) at R = 1, 2,
-4 and 8; writes it, and the SASS of ``v3d4``, under chiprun_out/.
+4 and 8; writes it, and the SASS of ``v2a2``, under chiprun_out/.
 """
 import ctypes
 import json
@@ -34,26 +37,38 @@ from rapidfuzz_tpu_torch.ops.cuda import pair_kernel as prk  # noqa: E402
 OUT = "chiprun_out"
 BUILD = "rapidfuzz_tpu_torch/_build/probe"
 WARPS = "constexpr int kWarps[9] = {0, 4, 4, 4, 4, 4, 4, 4, 4};"
-DEPTH = "constexpr int kDepth[9] = {0, 4, 4, 4, 4, 4, 4, 4, 4};"
-L1_ROW = (("    const uint32_t* trow = pm + (size_t)c * ws;\n"
-           "    if (w0 >= 0 && w0 + L < ws) {",
-           "    const uint32_t* trow = pm;\n    if (true) {"),
-          ("y[k] = __ldg(trow + w0 + k);\n    } else",
-           "y[k] = __ldg(trow + k);\n    } else"))
-FORMS = {"v1": (1, 0), "v2": (4, 0), "v3d2": (4, 2), "v3d4": (4, 4),
-         "v3d8": (4, 8), "v1d4": (1, 4), "v4": (1, 0), "v4w4": (4, 0)}
+AHEAD = "constexpr int kAhead[9] = {0, 2, 2, 2, 2, 2, 2, 2, 2};"
+RING_WARPS = WARPS
+RING_DEPTH = "constexpr int kDepth[9] = {0, 4, 4, 4, 4, 4, 4, 4, 4};"
+L1_ROW = (("const uint32_t* row = pm + (size_t)ts.next(lane) * ws + w0;",
+           "const uint32_t* row = pm + 0 * (size_t)ts.next(lane);"),
+          ("y[k] = ((unsigned)(w0 + k) < (unsigned)ws) ? __ldg(row + k) : 0u;",
+           "y[k] = __ldg(row + k);"))
+# name: (warps, steps ahead); the L1-row variants time only
+FORMS = {"v1": (1, 1), "v1a2": (1, 2), "v2": (4, 1), "v2a2": (4, 2),
+         "v2a3": (4, 3), "v4": (1, 1), "v4w4": (4, 1)}
+# the form before this one (probes/lev_pair_ring.cu): its window one step
+# ahead from the table (p2) or through its shared-memory ring, 4 ahead (p3)
+RING = {"p2": (4, 0), "p3": (4, 4)}
 TIMING_ONLY = ("v4", "v4w4")
+
+
+def table(line, v):
+    return line.replace("4, 4, 4, 4, 4, 4, 4, 4" if "4, 4" in line
+                        else "2, 2, 2, 2, 2, 2, 2, 2", ", ".join([str(v)] * 8))
 
 
 def variants(src):
     out = {"v0": open("probes/lev_pair_pr14.cu").read()}
-    if WARPS not in src or DEPTH not in src:
+    ring = open("probes/lev_pair_ring.cu").read()
+    if WARPS not in src or AHEAD not in src:
         raise SystemExit("the form table moved")
+    for name, (w, d) in RING.items():
+        out[name] = ring.replace(RING_WARPS, table(RING_WARPS, w)).replace(
+            RING_DEPTH, table(RING_DEPTH, d))
     for name, (w, d) in FORMS.items():
-        text = src.replace(WARPS, WARPS.replace("4, 4, 4, 4, 4, 4, 4, 4",
-                                                ", ".join([str(w)] * 8)))
-        text = text.replace(DEPTH, DEPTH.replace("4, 4, 4, 4, 4, 4, 4, 4",
-                                                 ", ".join([str(d)] * 8)))
+        text = src.replace(WARPS, table(WARPS, w)).replace(
+            AHEAD, table(AHEAD, d))
         if name in TIMING_ONLY:
             for a, b in L1_ROW:
                 if a not in text:
@@ -102,7 +117,7 @@ def build():
     dump = os.path.join(os.path.dirname(kc._nvcc()), "cuobjdump")
     if os.path.exists(dump):
         os.makedirs(OUT, exist_ok=True)
-        sass = subprocess.run([dump, "-sass", f"{BUILD}/lib_v3d4.so"],
+        sass = subprocess.run([dump, "-sass", f"{BUILD}/lib_v2a2.so"],
                               capture_output=True, text=True).stdout
         with open(f"{OUT}/lev_pair_sass.txt", "w") as f:
             f.write(sass)

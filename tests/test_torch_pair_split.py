@@ -9,9 +9,10 @@ a word generates a carry (its add carries out) or propagates one (its sum
 is all ones), and the carry into word ``i`` of a mask pair ``(G, P)`` is
 bit ``i`` of ``((G | P) + G + cin) ^ (G | P) ^ G``: over a thread's words,
 over the ballots of a warp's threads, and over the four warps' bits, which
-each warp's lane 0 publishes with bit 0 of its lowest ``x | vn``.  The
-slide bit into a warp's top word is that bit of the next warp or'ed with
-the carry into it; inside a warp the next lane's first ``d0`` word.  Here
+each warp publishes with bit 0 of its lowest ``x | vn``.  The slide bit
+into a thread's top word, bit 0 of the next thread's ``d0``, is that
+thread's bit of ``x | vn`` (a ballot, or the next warp's slot) or'ed with
+the carry into it.  Here
 that partition runs in plain PyTorch, every thread at once, and is held
 against the unsplit ``lev_pair_plain`` at R = 1 and 2; the mutants that
 drop the carry at a warp or lane edge or the slide bit at a warp edge must
@@ -62,8 +63,7 @@ def _split(table, text, la, K, R, warps=WARPS, drop=None):
     wv = torch.arange(warps)
     sh_l = torch.arange(L)
     all_l = (1 << L) - 1
-    # the top word of each warp's lane 31, whose slide bit crosses warps
-    wtop = torch.arange(1, warps + 1) * 32 * L - 1
+    top = torch.arange(1, NT + 1) * L - 1          # each thread's top word
     up = torch.zeros(NW, dtype=torch.int64)
     dist = 0
     pstart = la - K
@@ -92,9 +92,17 @@ def _split(table, text, la, K, R, warps=WARPS, drop=None):
             cw = torch.zeros_like(cw)
         if drop == "warp_slide":
             slide = torch.zeros_like(slide)
-        cl = (_lookahead(Gw, Pw, cw)[:, None] >> lane) & 1   # [warps, 32]
+        Cw = _lookahead(Gw, Pw, cw)                          # [warps]
+        cl = (Cw[:, None] >> lane) & 1                       # [warps, 32]
         if drop == "lane_carry":
             cl[:, 1:] = 0
+            Cw = Cw & 1
+        # a lane's slide bit: bit 0 of the next lane's d0, which is the
+        # carry into it or'ed with its ballot of bit 0 of x | vn; the next
+        # warp's at lane 31
+        Lw = (((x[::L] | vn[::L]) & 1).view(warps, 32) << lane).sum(1)
+        nxt = ((Cw | Lw)[:, None] >> (lane + 1)) & 1
+        nxt[:, 31] = slide
         cwd = _lookahead(G, P, cl.view(NT))
         s = (s + ((cwd[:, None] >> sh_l) & 1).view(NW)) & M32
         d0 = (s ^ vp) | x | vn
@@ -107,10 +115,10 @@ def _split(table, text, la, K, R, warps=WARPS, drop=None):
             w = hb >> 5
             dist += int((hp[w] >> (hb & 31)) & 1) \
                 - int((hn[w] >> (hb & 31)) & 1)
-        # the word above each: the thread's next word or the next lane's
-        # first (a shuffle), and at each warp's top the slide bit
+        # the word above each: the thread's next word, or at its top word
+        # the slide bit
         up[:-1] = d0[1:]
-        up[wtop] = slide
+        up[top] = nxt.view(NT)
         d0s = (d0 >> 1) | ((up & 1) << 31)
         vp = hn | (M32 ^ (d0s | hp))
         vn = d0s & hp
