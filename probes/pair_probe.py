@@ -36,44 +36,47 @@ from rapidfuzz_tpu_torch.ops.cuda import pair_kernel as prk  # noqa: E402
 
 OUT = "chiprun_out"
 BUILD = "rapidfuzz_tpu_torch/_build/probe"
-WARPS = "constexpr int kWarps[9] = {0, 4, 4, 4, 4, 4, 4, 4, 4};"
-AHEAD = "constexpr int kAhead[9] = {0, 2, 2, 2, 2, 2, 2, 2, 2};"
-RING_WARPS = WARPS
-RING_DEPTH = "constexpr int kDepth[9] = {0, 4, 4, 4, 4, 4, 4, 4, 4};"
 L1_ROW = (("const uint32_t* row = pm + (size_t)ts.next(lane) * ws + w0;",
            "const uint32_t* row = pm + 0 * (size_t)ts.next(lane);"),
           ("y[k] = ((unsigned)(w0 + k) < (unsigned)ws) ? __ldg(row + k) : 0u;",
            "y[k] = __ldg(row + k);"))
-# name: (warps, steps ahead); the L1-row variants time only
-FORMS = {"v1": (1, 1), "v1a2": (1, 2), "v2": (4, 1), "v2a2": (4, 2),
-         "v2a3": (4, 3), "v4": (1, 1), "v4w4": (4, 1)}
-# the form before this one (probes/lev_pair_ring.cu): its window one step
-# ahead from the table (p2) or through its shared-memory ring, 4 ahead (p3)
-RING = {"p2": (4, 0), "p3": (4, 4)}
+# name: (warps, steps ahead), every R; the L1-row variants time only
+FORMS = {"v1": (1, 1), "v2": (4, 1), "v2a2": (4, 2), "v4": (1, 1),
+         "v4w4": (4, 1)}
 TIMING_ONLY = ("v4", "v4w4")
 
 
-def table(line, v):
-    return line.replace("4, 4, 4, 4, 4, 4, 4, 4" if "4, 4" in line
-                        else "2, 2, 2, 2, 2, 2, 2, 2", ", ".join([str(v)] * 8))
+def form(text, w, a):
+    """``text`` with every R's warps and steps ahead set to ``w``, ``a``
+    (None: as it stands)."""
+    out = text
+    if w is not None:
+        out = re.sub(r"kWarps\[9\] = \{[^}]*\}",
+                     "kWarps[9] = {0, %s}" % ", ".join([str(w)] * 8), out)
+        out = re.sub(r"kAhead\[9\] = \{[^}]*\}",
+                     "kAhead[9] = {0, %s}" % ", ".join([str(a)] * 8), out)
+    if out == text and w is not None:
+        raise SystemExit("the form table moved")
+    return out
 
 
 def variants(src):
+    # v0: the kernel before the redesign; c3: the lookahead form of
+    # chip_smoke's run 1 (probes/lev_pair_c3.cu with the final form table)
     out = {"v0": open("probes/lev_pair_pr14.cu").read()}
-    ring = open("probes/lev_pair_ring.cu").read()
-    if WARPS not in src or AHEAD not in src:
-        raise SystemExit("the form table moved")
-    for name, (w, d) in RING.items():
-        out[name] = ring.replace(RING_WARPS, table(RING_WARPS, w)).replace(
-            RING_DEPTH, table(RING_DEPTH, d))
-    for name, (w, d) in FORMS.items():
-        text = src.replace(WARPS, table(WARPS, w)).replace(
-            AHEAD, table(AHEAD, d))
+    tab = re.search(r"constexpr int kWarps.*?kAhead\[9\] = \{[^}]*\};", src,
+                    re.S)[0]
+    c3 = open("probes/lev_pair_c3.cu").read()
+    out["c3"] = re.sub(r"constexpr int kWarps.*?kAhead\[9\] = \{[^}]*\};",
+                       lambda m: tab, c3, flags=re.S)
+    out["new"] = src
+    for name, (w, a) in FORMS.items():
+        text = form(src, w, a)
         if name in TIMING_ONLY:
-            for a, b in L1_ROW:
-                if a not in text:
+            for x, y in L1_ROW:
+                if x not in text:
                     raise SystemExit("the window load moved")
-                text = text.replace(a, b)
+                text = text.replace(x, y)
         out[name] = text
     return out
 
@@ -117,7 +120,7 @@ def build():
     dump = os.path.join(os.path.dirname(kc._nvcc()), "cuobjdump")
     if os.path.exists(dump):
         os.makedirs(OUT, exist_ok=True)
-        sass = subprocess.run([dump, "-sass", f"{BUILD}/lib_v2a2.so"],
+        sass = subprocess.run([dump, "-sass", f"{BUILD}/lib_new.so"],
                               capture_output=True, text=True).stdout
         with open(f"{OUT}/lev_pair_sass.txt", "w") as f:
             f.write(sass)
@@ -133,6 +136,10 @@ def main():
     libs, regs = build()
 
     def run(name, table, text, la, K, R):
+        if name == "v0":
+            # the kernel before the redesign loads 16-byte quads from rows
+            # of a multiple of 4 words; the bits past the pattern are 0
+            table = torch.nn.functional.pad(table, (0, -table.shape[1] % 4))
         out = torch.empty(1, dtype=torch.int32, device=dev)
         err = libs[name].rf_lev_pair(
             table.data_ptr(), table.shape[1], text.data_ptr(), la,
