@@ -424,22 +424,25 @@ PARTIAL_WIDE = 32 * 16 + 8
 PARTIAL_ODD_SAMPLE = 24
 #: K11's bound charges every band word of every text step the INT32-lane
 #: instructions that the Myers/Hyyro band step needs, counted in the SASS
-#: of lev_pair_kernel<4> (the R of the OCR pair's last rung) over its 16
-#: band words a lane: the window's funnel shift, the and with vp, the add
-#: and its carry into the next word (IADD3, IADD3.X: 16 + 15), the two
-#: LOP3s of d0, hp, hn, the slide's funnel shift, vp and vn, 175 in all.
-#: What the design adds goes beside the bound (lev_pair_layout_bound_ms),
-#: not in it: the lane's all-ones mask, the ballots and the carry into the
-#: lane and its words, the diagonal delta, the neighbour's word for the
-#: slide, the window's address, in-table test and offset switch and the
-#: char broadcast (112 non-IMAD instructions a lane and diagonal step on
-#: the in-table path, either step of the loop), and the horizontal phase's
-#: select of hp, hn (70 more a lane and step); the loads and the loop are
-#: in neither.  The one-warp figures (lev_pair_warp_bound_ms,
-#: lev_pair_warp_layout_ms) issue the same instructions at one warp's 32
-#: lanes a cycle, the floor of a design that steps one pair with one warp
+#: of the one-warp kernel of PR 11 at R = 4 over its 16 band words a lane:
+#: the window's funnel shift, the and with vp, the add and its carry into
+#: the next word (IADD3, IADD3.X: 16 + 15), the two LOP3s of d0, hp, hn,
+#: the slide's funnel shift, vp and vn, 175 in all.  The lookahead kernel
+#: keeps that core (its carry, a generate test and the carry's add, costs
+#: about what IADD3.X did) and adds around it what goes beside the bound
+#: (lev_pair_layout_bound_ms), not in it: lev_pair_kernel<4,4,2> issues
+#: LEV_PAIR_STEP_ALU INT32-lane instructions a thread between its barriers
+#: (both delta paths counted; IMADs, loads, ballots and the barrier not),
+#: 4 * LEV_PAIR_OPS of them the core's four words, the rest its masks,
+#: lookahead, d0 under both carries and the pick, the slots, the window's
+#: bounds tests and the delta, on each of its LEV_PAIR_THREADS threads
+#: every step.  The one-warp and one-SM figures (lev_pair_warp_*_ms,
+#: lev_pair_sm_*_ms) issue the same instructions at one warp's 32 lanes
+#: and at the SM's four schedulers' 128 lanes a cycle: the floors of
+#: designs that step one pair with one warp, or on one SM
 LEV_PAIR_OPS = (16 + 16 + 16 + 15 + 2 * 16 + 16 + 16 + 3 * 16) / 16
-LEV_PAIR_LAYOUT = (112, 70)
+LEV_PAIR_STEP_ALU = 148
+LEV_PAIR_THREADS = 128
 #: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
 #: levenshtein.rs:2139-2161): its distance and the cutoff that must give
 #: None; the pair past the band's ceiling (max_cutoff(8) = 16,383): two
@@ -1556,7 +1559,9 @@ class Smoke:
         first pattern position of every warp's quarter of the band, which
         the text opens with (the carry runs through all-ones words to a
         warp edge); a wide-vocabulary pair (Cyrillic and CJK) at R = 8's
-        edge, K = 16,383, most of its steps in the horizontal phase."""
+        edge, K = 16,383, most of its steps in the horizontal phase; and
+        the OCR pair's first 6,000 text chars at R = 1 and 2, most of whose
+        windows K11 loads with no bounds test."""
         prk, enc = self.prk, self.codec.encode_one
         abc = np.arange(97, 101)
         wide = np.r_[np.arange(0x410, 0x450), np.arange(0x4E00, 0x4E40)]
@@ -1588,6 +1593,17 @@ class Smoke:
             self.compare("lev_pair", got,
                          prk.lev_pair_plain(table, text, la, K, R),
                          f"{what} R={R} K={K}")
+        # the OCR pair's first 6,000 text chars at R = 1 and 2: from step
+        # B - K - 1 on every window lies in the table, where K11 loads it
+        # with no bounds test
+        fix = np.load(OCR)
+        la, text, table = prk.stage_pair(fix["ex1"], fix["ex2"], self.dev)
+        head = text[:6000].contiguous()
+        for R in (1, 2):
+            K = prk.max_cutoff(R)
+            self.compare("lev_pair", prk._pair(table, head, la, K, R),
+                         prk.lev_pair_plain(table, head, la, K, R),
+                         f"OCR head R={R} K={K}")
         return salt
 
     def stride_case(self, rng):
@@ -4030,10 +4046,9 @@ class Smoke:
                      f"timing inputs, first {PAIR_PLAIN_STEPS} text chars")
         rows["lev_pair"] = (rung_ms[4], pms)
         ops = LEV_PAIR_OPS * 4 * 128 * lbp
-        # the layout's lane-steps: every step, and the horizontal ones
-        # (j >= la - K) again for their select
-        layout = 32 * (LEV_PAIR_LAYOUT[0] * lbp
-                       + LEV_PAIR_LAYOUT[1] * max(lbp - (la - K4), 0))
+        # the design's own instructions, every thread every step
+        layout = LEV_PAIR_THREADS * (LEV_PAIR_STEP_ALU - 4 * LEV_PAIR_OPS) \
+            * lbp
         t_bytes = (table.numel() + lbp + 1) * 4 / HBM_BYTES_S * 1e3
         t_ops = ops / int_ops_s * 1e3
         bounds["lev_pair"] = (max(t_bytes, t_ops),

@@ -38,10 +38,11 @@ OUT = "chiprun_out"
 BUILD = "rapidfuzz_tpu_torch/_build/probe"
 L1_ROW = (("const uint32_t* row = pm + (size_t)ts.next(lane) * ws + w0;",
            "const uint32_t* row = pm + 0 * (size_t)ts.next(lane);"),
-          ("y[k] = ((unsigned)(w0 + k) < (unsigned)ws) ? __ldg(row + k) : 0u;",
+          ("y[k] = (!CHECK || (unsigned)(w0 + k) < (unsigned)ws)\n"
+           "                 ? __ldg(row + k) : 0u;",
            "y[k] = __ldg(row + k);"))
 # name: (warps, steps ahead), every R; the L1-row variants time only
-FORMS = {"v1": (1, 1), "v2": (4, 1), "v2a2": (4, 2), "v4": (1, 1),
+FORMS = {"w1a1": (1, 1), "w4a1": (4, 1), "w4a2": (4, 2), "w4a3": (4, 3),
          "v4w4": (4, 1)}
 TIMING_ONLY = ("v4", "v4w4")
 
@@ -192,10 +193,21 @@ def main():
                 if not torch.equal(got, want):
                     raise SystemExit(f"{name} R={R} {what}: {int(got[0])} "
                                      f"!= {int(want[0])}")
+    # the OCR pair's head, whose windows lie in the table from step
+    # B - K - 1 on (no bounds test there)
+    fix = np.load("tests/fixtures/ocr.npz")
+    la, text, table = prk.stage_pair(fix["ex1"], fix["ex2"], dev)
+    for R, n in ((1, 6000), (2, 6000), (4, 10000)):
+        head = text[:n].contiguous()
+        K = prk.max_cutoff(R)
+        want = prk.lev_pair_plain(table, head, la, K, R)
+        for name in libs:
+            if name not in TIMING_ONLY and not torch.equal(
+                    run(name, table, head, la, K, R), want):
+                raise SystemExit(f"{name} R={R} OCR head: mismatch")
     print("all variants bit exact at R = 1..8; check_s",
           round(time.perf_counter() - t0, 1), flush=True)
 
-    fix = np.load("tests/fixtures/ocr.npz")
     la, text, table = prk.stage_pair(fix["ex1"], fix["ex2"], dev)
     lb = text.numel()
     res = {"card": card, "text_steps": lb, "ms": {}, "regs": regs}
