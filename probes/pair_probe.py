@@ -38,12 +38,11 @@ OUT = "chiprun_out"
 BUILD = "rapidfuzz_tpu_torch/_build/probe"
 L1_ROW = (("const uint32_t* row = pm + (size_t)ts.next(lane) * ws + w0;",
            "const uint32_t* row = pm + 0 * (size_t)ts.next(lane);"),
-          ("y[k] = (!CHECK || (unsigned)(w0 + k) < (unsigned)ws)\n"
-           "                 ? __ldg(row + k) : 0u;",
+          ("y[k] = ((unsigned)(w0 + k) < (unsigned)ws) ? __ldg(row + k) : 0u;",
            "y[k] = __ldg(row + k);"))
 # name: (warps, steps ahead), every R; the L1-row variants time only
-FORMS = {"w1a1": (1, 1), "w4a1": (4, 1), "w4a2": (4, 2), "w4a3": (4, 3),
-         "v4w4": (4, 1)}
+FORMS = {"w1a2": (1, 2), "w1a3": (1, 3), "w1a4": (1, 4), "w4a1": (4, 1),
+         "w4a2": (4, 2), "w4a3": (4, 3), "w4a4": (4, 4)}
 TIMING_ONLY = ("v4", "v4w4")
 
 
@@ -62,14 +61,8 @@ def form(text, w, a):
 
 
 def variants(src):
-    # v0: the kernel before the redesign; c3: the lookahead form of
-    # chip_smoke's run 1 (probes/lev_pair_c3.cu with the final form table)
+    # v0: the kernel before the redesign; new: this source as it stands
     out = {"v0": open("probes/lev_pair_pr14.cu").read()}
-    tab = re.search(r"constexpr int kWarps.*?kAhead\[9\] = \{[^}]*\};", src,
-                    re.S)[0]
-    c3 = open("probes/lev_pair_c3.cu").read()
-    out["c3"] = re.sub(r"constexpr int kWarps.*?kAhead\[9\] = \{[^}]*\};",
-                       lambda m: tab, c3, flags=re.S)
     out["new"] = src
     for name, (w, a) in FORMS.items():
         text = form(src, w, a)
@@ -213,7 +206,7 @@ def main():
     res = {"card": card, "text_steps": lb, "ms": {}, "regs": regs}
     for turn in range(2):
         for name in (list(libs) if turn == 0 else list(libs)[::-1]):
-            for R in (1, 2, 4, 8):
+            for R in range(1, 9):
                 t = ms(lambda: run(name, table, text, la, prk.max_cutoff(R),
                                    R), 2)
                 res["ms"].setdefault(name, {}).setdefault(R, []).append(
