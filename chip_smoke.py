@@ -424,24 +424,25 @@ PARTIAL_WIDE = 32 * 16 + 8
 PARTIAL_ODD_SAMPLE = 24
 #: K11's bound charges every band word of every text step the INT32-lane
 #: instructions that the Myers/Hyyro band step needs, counted in the SASS
-#: of the one-warp kernel of PR 11 at R = 4 over its 16 band words a lane:
+#: of the serial-carry one-warp kernel at R = 4 over its 16 words a lane:
 #: the window's funnel shift, the and with vp, the add and its carry into
 #: the next word (IADD3, IADD3.X: 16 + 15), the two LOP3s of d0, hp, hn,
 #: the slide's funnel shift, vp and vn, 175 in all.  The lookahead kernel
 #: keeps that core (its carry, a generate test and the carry's add, costs
 #: about what IADD3.X did) and adds around it what goes beside the bound
-#: (lev_pair_layout_bound_ms), not in it: lev_pair_kernel<4,4,2> issues
-#: LEV_PAIR_STEP_ALU INT32-lane instructions a thread between its barriers
-#: (both delta paths counted; IMADs, loads, ballots and the barrier not),
-#: 4 * LEV_PAIR_OPS of them the core's four words, the rest its masks,
-#: lookahead, d0 under both carries and the pick, the slots, the window's
-#: bounds tests and the delta, on each of its LEV_PAIR_THREADS threads
-#: every step.  The one-warp and one-SM figures (lev_pair_warp_*_ms,
-#: lev_pair_sm_*_ms) issue the same instructions at one warp's 32 lanes
-#: and at the SM's four schedulers' 128 lanes a cycle: the floors of
-#: designs that step one pair with one warp, or on one SM
+#: (lev_pair_layout_bound_ms), not in it: lev_pair_kernel<4,4,3> issues
+#: LEV_PAIR_STEP_ALU INT32-lane instructions a thread from one barrier to
+#: the next, a step, in its diagonal-phase steps and in its others (the
+#: mean of a group's inner steps; IMADs, loads, ballots and the barrier
+#: not counted), 4 * LEV_PAIR_OPS of them the core's four words, the rest
+#: its masks, lookahead, d0 under both carries and the pick, the slots,
+#: the window's bounds tests and the delta, on each of its
+#: LEV_PAIR_THREADS threads.  The one-warp and one-SM figures
+#: (lev_pair_warp_*_ms, lev_pair_sm_*_ms) issue the same instructions at
+#: one warp's 32 lanes and at the SM's four schedulers' 128 lanes a cycle:
+#: the floors of designs that step one pair with one warp, or on one SM
 LEV_PAIR_OPS = (16 + 16 + 16 + 15 + 2 * 16 + 16 + 16 + 3 * 16) / 16
-LEV_PAIR_STEP_ALU = 148
+LEV_PAIR_STEP_ALU = (122, 147)
 LEV_PAIR_THREADS = 128
 #: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
 #: levenshtein.rs:2139-2161): its distance and the cutoff that must give
@@ -4046,9 +4047,12 @@ class Smoke:
                      f"timing inputs, first {PAIR_PLAIN_STEPS} text chars")
         rows["lev_pair"] = (rung_ms[4], pms)
         ops = LEV_PAIR_OPS * 4 * 128 * lbp
-        # the design's own instructions, every thread every step
-        layout = LEV_PAIR_THREADS * (LEV_PAIR_STEP_ALU - 4 * LEV_PAIR_OPS) \
-            * lbp
+        # the design's own instructions, every thread every step: the
+        # diagonal phase's and the rest's
+        diag = min(la - K4, lbp)
+        layout = LEV_PAIR_THREADS * sum(
+            (alu - 4 * LEV_PAIR_OPS) * n for alu, n in zip(
+                LEV_PAIR_STEP_ALU, (diag, lbp - diag)))
         t_bytes = (table.numel() + lbp + 1) * 4 / HBM_BYTES_S * 1e3
         t_ops = ops / int_ops_s * 1e3
         bounds["lev_pair"] = (max(t_bytes, t_ops),

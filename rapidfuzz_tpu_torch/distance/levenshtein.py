@@ -11,7 +11,8 @@ batch APIs ``*_many`` and a ``BatchComparator``.
   returns the same values.  Under ``RAPIDFUZZ_TPU_SCALAR_BACKEND=device``
   they run on the card: one long pair of uniform weights
   (``len1 * len2 > 10**6``) through the banded pair kernel
-  (``ops/cuda/pair_kernel.lev_pair``, K11) and its hint ladder, with the
+  (``ops/cuda/pair_kernel.lev_pair``, K11: one block on one SM, four
+  warps from the second rung) and its hint ladder, with the
   host oracle past its band (a distance over 16,383 edits); other pairs
   as a one-pair batch of the aligned-pair ops.
 * Batch scores run on ``device`` (default ``cuda``; ``device="cpu"`` runs

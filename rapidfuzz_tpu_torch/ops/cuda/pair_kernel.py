@@ -27,16 +27,22 @@ Not ported: the TPU's PM-window stream (``build_band_stream``), an XLA
 prepass of ``[lb, R, 128]`` u32 words (R * 512 bytes a text char, 56 MB a
 rung for the OCR pair at R = 4) that existed because the v5e's scalar
 shifts were slow.  Here the pattern's PM table is built once per pair, as
-``[V, table_words(la)]`` u32 (``ceil(la / 32)`` words rounded up to a
-multiple of 4, so that each row starts 16-byte aligned for K11's quad
-loads) over the pair's local vocabulary (``V`` distinct symbols of both
-strings; a text symbol absent from the pattern has a zero row), and every
+``[V, table_words(la)]`` u32 (``ceil(la / 32)`` words) over the pair's
+local vocabulary (``V`` distinct symbols of both strings; a text symbol
+absent from the pattern has a zero row), and every
 rung reads it: the window of band word ``k`` at step ``j`` joins table
 words ``p0 // 32 + k`` and ``+ 1`` (``p0 = j + K + 1 - B``, which may be
 negative) with one funnel shift, and a word index outside the table reads
 as 0.  The table takes about ``V * la / 8`` bytes: 1.8 MB for the OCR pair
 (137 symbols), about 67 MB for a pair of ~107,000 chars over 5,000
 symbols, which an 80 GB card holds.
+
+K11 runs one block a pair: at R = 1 one warp holding 4 band words a lane,
+from R = 2 four warps, one a scheduler of the SM, holding R words a
+thread.  The add's carry comes by lookahead (generate/propagate masks over
+a thread's words, a warp's ballots and the four warps' slots in shared
+memory, one barrier a step), and each thread loads its window one to
+four steps ahead into registers (``csrc/lev_pair.cu`` has the design).
 
 The plain version (:func:`lev_pair_plain`) runs the same recurrence on
 the same state words, one text step at a time, the add's carry taken from
@@ -79,9 +85,8 @@ def band_rows(cutoff: int) -> int:
 
 def table_words(la: int) -> int:
     """Words of a PM table row for a pattern of ``la`` chars:
-    ``ceil(la / 32)`` rounded up to a multiple of 4, so that every row
-    starts 16-byte aligned (the words past the pattern are 0)."""
-    return -(-la // 128) * 4
+    ``ceil(la / 32)`` (the bits past the pattern are 0)."""
+    return -(-la // 32)
 
 
 def stage_pair(a, b, device=None):
@@ -222,9 +227,10 @@ def lev_pair(a, b, *, score_cutoff: int | None = None,
     certified above ``score_cutoff`` (``None``), or the band spans the
     pattern.  A band whose cutoff is under ``la - lb`` is not launched:
     the distance exceeds its cutoff, but its raw value need not (the JAX
-    ladder launches it and can return that value as exact).  Raises :class:`BandLimit` when it would need ``R >``
-    :data:`ROWS` (a distance past ``max_cutoff(ROWS)`` = 16,383): the
-    caller then takes the host route."""
+    ladder launches it and can return that value as exact).  Raises
+    :class:`BandLimit` when it would need ``R >`` :data:`ROWS` (a distance
+    past ``max_cutoff(ROWS)`` = 16,383): the caller then takes the host
+    route."""
     a = np.asarray(np.asarray(a), np.int64)
     b = np.asarray(np.asarray(b), np.int64)
     la, lb = max(a.size, b.size), min(a.size, b.size)

@@ -177,6 +177,14 @@ def test_split_matches_plain(name, R):
     assert _split(table, text, la, K, R) == want
 
 
+def test_one_warp_matches_plain():
+    """K11's form at R = 1: one warp of 4 words a lane, no slots."""
+    a, b, K = _case("near copy at the edge", 1)
+    la, text, table = pk.stage_pair(a, b, CPU)
+    want = int(pk.lev_pair_plain(table, text, la, K, 1)[0])
+    assert _split(table, text, la, K, 1, warps=1) == want
+
+
 @pytest.mark.parametrize("drop", ["warp_carry", "lane_carry", "warp_slide"])
 def test_mutants_disagree(drop):
     """Each mutant of the partition differs from the plain version on a
