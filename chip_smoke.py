@@ -272,8 +272,8 @@ LEV_SHORTEST = 64
 #: the scans whose launches the main paths also count by query words: the
 #: positions of W and of the launch's candidate count among each C entry
 #: point's arguments
-WORDS_ARG = {"rf_lev_scan": (10, 8), "rf_lcs_scan": (7, 5),
-             "rf_osa_scan": (8, 6)}
+WORDS_ARG = {"rf_lev_scan": (10, 8), "rf_lcs_scan": (9, 7),
+             "rf_osa_scan": (10, 8)}
 #: the Jaro service's prefix weight (the default) and the library's
 JARO_PW = 0.1
 JARO_LIB_PW = 0.2
@@ -395,7 +395,18 @@ DAM_STEP_OPS = ((33 + 46 + 41) / 2, 43 / 2)
 #: strip: 120 over every path, of them 88 its 8 words, 10 the strip edge's
 #: store, not run then, and 5 the corpus load, run every 4th step)
 LEV_REG_STEP_OPS = {2: 105 / 4}
-LEV_TILE_STEP_OPS = 120 - 10 - 5 * 3 / 4
+#: the tile forms' INT32-lane instructions per lane and step, counted as
+#: K1's (above) in the SASS of the built library, each step loop over
+#: every path less the strip edge's load and store (not run in one strip)
+#: and 3/4 of the corpus load (run every 4th step): K1's lev_scan_tile;
+#: K6's osa_scan_tile, 173 of them 111 its 8 words (13.9 a word, OPS's 14;
+#: the add issues as an IMAD), 11 the edge's load, 9 its store, 6 the
+#: corpus load; K4's lcs_scan_tile in the loop its compiler keeps for the
+#: first strip, 101 of them 64 its 16 words (OPS's 4 a word; S - u issues
+#: as an IMAD), 8 the edge's store, 6 the corpus load
+TILE_STEP_OPS = {"lev": 120 - 10 - 5 * 3 / 4,
+                 "osa": 173 - 11 - 9 - 6 * 3 / 4,
+                 "lcs": 101 - 8 - 6 * 3 / 4}
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
 #: K10's bound charges every window step the function needs, per query
 #: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
@@ -700,9 +711,10 @@ class Smoke:
     def count_words(self, on: bool) -> None:
         """Count K1's, K4's and K6's launches and their candidates also
         by query words (``self.words``) while ``on``: the launch function
-        their modules call is wrapped, and restored when ``on`` is
+        their modules call is wrapped (K6's launches go through K4's
+        module, ``lcs_kernel.tile_launches``), and restored when ``on`` is
         false."""
-        for mod in (self.lk, self.ck, self.ok):
+        for mod in (self.lk, self.ck):
             inner = getattr(mod.launch, "inner", mod.launch)
             if not on:
                 mod.launch = inner
@@ -781,7 +793,7 @@ class Smoke:
         }
         salt = 0
         # K1, one query: W = 1, 2, 3 and 8 (the largest register form), in
-        # both PM modes; its tile form in lev_tile_cases
+        # both PM modes; its tile form in tile_cases
         for W in (1, 2, 3, 8):
             for mode in ("byte", "local"):
                 salt += 1
@@ -859,7 +871,9 @@ class Smoke:
         # the seconds of each family of cases, for the phase's budget
         family_s = {"short": time.perf_counter() - t_start}
         for fam, run in (
-                ("tile", lambda s: self.lev_tile_cases(rng, alph, s)),
+                ("tile", lambda s: self.tile_cases("lev", rng, alph, s)),
+                ("osa_tile", lambda s: self.tile_cases("osa", rng, alph, s)),
+                ("lcs_tile", lambda s: self.tile_cases("lcs", rng, alph, s)),
                 ("long", lambda s: self.long_kernel_cases(rng, alph["byte"],
                                                           s)),
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
@@ -881,27 +895,46 @@ class Smoke:
                          "family_s": family_s,
                          "seconds": time.perf_counter() - t_start})
 
-    def lev_tile_cases(self, rng, alph, salt):
-        """K1's tile form (queries over 8 words) against its plain version:
-        W = 9, 10, 33, 126 and 129 (one word past a strip), the byte and
-        the local PM table, over buckets 64 (N_KERNEL candidates, the
-        plain version on all), 1,056 and 8,192 (N_KERNEL_LONG, the plain
-        version on those of at most TILE_PLAIN chars, half of them; the
-        other half spread to the bucket's end, 8 at it, held against the
-        oracle on TILE_ORACLE of the longest in byte mode); W = 129 at
-        1,056 once more over two chunks of a smaller edge-buffer budget;
-        ``lev_scan_nq`` at W = 10, 16 queries.  The texts are copies of
-        windows of the query with up to 30 % of their chars substituted,
-        so their alignments cross the query's word, tile and strip edges
-        (``lk.tile_plan``).  The plain version takes both tables in one
-        call (its cost is its steps times W, whatever the candidates)."""
+    def tile_cases(self, kind, rng, alph, salt):
+        """A tile form (queries past its register form) against its plain
+        version: K1's (``kind`` "lev"), K6's ("osa") or K4's ("lcs"), at
+        TILE_WS words (K4: its first tile width, past MAX_REG_W, for 9; 10
+        then runs its register form; 129 is one word past a strip), the
+        byte and the local PM table, over buckets 64 (N_KERNEL candidates,
+        the plain version on all), 1,056 and 8,192 (N_KERNEL_LONG, the
+        plain version on those of at most TILE_PLAIN chars, half of them;
+        the other half spread to the bucket's end, 8 at it, held against
+        the oracle on TILE_ORACLE of the longest in byte mode); 129 words
+        at 1,056 once more over two chunks of a smaller edge-buffer budget;
+        the 16-query launch at 10 words.  The texts are copies of windows
+        of the query with up to 30 % of their chars substituted (K6's also
+        with two adjacent swaps a text, and it must beat K1 on some row of
+        every bucket), so their alignments cross the query's word, tile and
+        strip edges (the module's ``tile_plan``).  The plain version takes
+        both tables in one call (its cost is its steps times W, whatever
+        the candidates)."""
         torch, lk, kc = self.torch, self.lk, self.kc
+        mod, one, nq_many, plain, truth_of = {
+            "lev": (lk, lk.lev_1v_many, lk.lev_nq_many, lk.lev_scan_plain,
+                    self.oracle_lev),
+            "osa": (self.ok, self.ok.osa_1v_many, self.ok.osa_nq_many,
+                    self.ok.osa_scan_plain,
+                    lambda q, t: self.oracle_ints(self.oracle.osa, q, t)),
+            "lcs": (self.ck, self.ck.lcs_1v_many, self.ck.lcs_nq_many,
+                    lambda las, tabs, c, lb: self.ck.lcs_scan_plain(tabs, c,
+                                                                    lb),
+                    lambda q, t: self.oracle_ints(self.oracle.lcs_seq, q,
+                                                  t))}[kind]
+        rows = getattr(mod, "EDGE_ROWS", lk.EDGE_ROWS)
+        widths = [mod.MAX_REG_W + 1 if W == TILE_WS[0] else W
+                  for W in TILE_WS]
         a = alph["byte"]
         at = torch.from_numpy(a).to(self.dev)
         for LBk in (LB, 1056, LONG_LB):
             B = N_KERNEL if LBk == LB else N_KERNEL_LONG
-            name = "lev_scan" if LBk <= lk.LONG_LB else "lev_scan_long"
-            for W in TILE_WS:
+            name = f"{kind}_scan" if LBk <= lk.LONG_LB else f"{kind}_scan_long"
+            beat = kind != "osa"     # K6 below K1 on some row of the bucket
+            for W in widths:
                 salt += 1
                 g = self.gen(salt)
                 la = 32 * (W - 1) + 1 + int(rng.integers(0, 32))
@@ -923,46 +956,56 @@ class Smoke:
                                        device=self.dev)]
                 sub = (torch.rand((B, LBk), generator=g, device=self.dev)
                        < rate) | (s0 + pos >= la)
-                chars = torch.where(pos < lens[:, None],
-                                    torch.where(sub, rnd, win), -1)
+                chars = torch.where(sub, rnd, win)
+                if kind == "osa":
+                    for _ in range(2):
+                        p = torch.randint(0, LBk - 1, (B, 1), generator=g,
+                                          device=self.dev)
+                        c0, c1 = chars.gather(1, p), chars.gather(1, p + 1)
+                        chars = chars.scatter(1, p, c1).scatter(1, p + 1, c0)
+                chars = torch.where(pos < lens[:, None], chars, -1)
                 cand, lb = lk.prepare_corpus(chars.to(torch.int32), lens)
-                got = [lk.lev_1v_many(q, cand, lb, mode=m)
-                       for m in ("byte", "local")]
+                got = [one(q, cand, lb, mode=m) for m in ("byte", "local")]
                 short = (lens <= TILE_PLAIN).nonzero()[:, 0]
                 st = [lk.stage_query(q, m, self.dev) for m in ("byte",
                                                                "local")]
                 las2 = torch.cat([st[0][0], st[1][0]])
                 tabs2 = torch.stack([st[0][1], st[1][1]])
                 cs = cand[:, short].contiguous()
-                ref = lk.lev_scan_plain(las2, tabs2, cs, lb[short])
-                what = f"LB={LBk} W={W} plan={lk.tile_plan(W)}"
+                ref = plain(las2, tabs2, cs, lb[short])
+                what = f"LB={LBk} W={W} plan={mod.tile_plan(W)}"
                 for i, m in enumerate(("byte", "local")):
                     self.compare(name, got[i][short], ref[i], f"{what} {m}")
+                if kind == "osa":
+                    lev = lk.lev_1v_many(q, cand, lb)
+                    beat |= bool((got[0] < lev).any())
+                    if not bool((got[0] <= lev).all()):
+                        raise AssertionError(f"{name} {what}: OSA above "
+                                             "Levenshtein")
                 if LBk > LB:
                     far = torch.argsort(lens, descending=True)[:TILE_ORACLE]
-                    rows = chars[far].cpu().numpy()
+                    rws = chars[far].cpu().numpy()
                     nl = lens[far].cpu().numpy()
-                    truth = self.oracle_lev(q, [r[: k] for r, k in
-                                                zip(rows, nl)])
+                    truth = truth_of(q, [r[: k] for r, k in zip(rws, nl)])
                     if not np.array_equal(got[0][far].cpu().numpy(), truth):
                         raise AssertionError(f"{name} {what}: kernel != "
                                              "oracle on the longest texts")
-                if LBk == 1056 and W == TILE_WS[-1]:
+                if LBk == 1056 and W == widths[-1]:
                     # the edge buffer over two chunks of candidates
                     plan = lk.SCRATCH_BYTES
-                    lk.SCRATCH_BYTES = 4 * -(-LBk // lk.EDGE_ROWS) * (B // 2)
+                    lk.SCRATCH_BYTES = 4 * -(-LBk // rows) * (B // 2)
                     before = kc.LAUNCHES[name]
                     try:
-                        if lk.edge_chunk(LBk, B) != B // 2:
+                        if lk.edge_chunk(LBk, B, rows=rows) != B // 2:
                             raise AssertionError(
-                                f"K1 edge plan: chunk of "
-                                f"{lk.edge_chunk(LBk, B)}")
-                        chunked = lk.lev_1v_many(q, cand, lb)
+                                f"{kind} edge plan: chunk of "
+                                f"{lk.edge_chunk(LBk, B, rows=rows)}")
+                        chunked = one(q, cand, lb)
                     finally:
                         lk.SCRATCH_BYTES = plan
                     if kc.LAUNCHES[name] - before != 2:
-                        raise AssertionError("K1 edge buffer: wrong number "
-                                             "of chunk launches")
+                        raise AssertionError(f"{kind} edge buffer: wrong "
+                                             "number of chunk launches")
                     self.compare(name, chunked[short], ref[0],
                                  f"{what} over chunks of {B // 2}")
                     if not torch.equal(chunked, got[0]):
@@ -972,13 +1015,22 @@ class Smoke:
                     # 16 queries of W = 10 per launch over the same texts
                     qs = [rng.choice(a, int(rng.integers(289, 321)))
                           for _ in range(16)]
-                    got = lk.lev_nq_many(qs, cand, lb)
-                    ref = lk.lev_scan_plain(*lk.stage_queries(qs, "byte",
-                                                              self.dev),
-                                            cand, lb)
-                    self.compare("lev_scan_nq", got, ref, "16 queries W=10")
+                    got = nq_many(qs, cand, lb)
+                    ref = plain(*lk.stage_queries(qs, "byte", self.dev),
+                                cand, lb)
+                    self.compare(f"{kind}_scan_nq", got, ref,
+                                 "16 queries W=10")
                 del chars, cand, lb, win, rnd, sub
+            if not beat:
+                raise AssertionError(f"{name} LB={LBk}: OSA should beat "
+                                     "Levenshtein on some swapped row")
         return salt
+
+    @oracle_time
+    def oracle_ints(self, fn, q, texts) -> np.ndarray:
+        """The oracle's ``fn`` of int array ``q`` and each of the int arrays
+        ``texts``."""
+        return np.array([fn(q, t) for t in texts], np.int64)
 
     @oracle_time
     def oracle_lev(self, q, texts) -> np.ndarray:
@@ -3501,23 +3553,24 @@ class Smoke:
                       + nq * (table_words or words) * 1024)
             return nbytes, OPS[name] * words * nq * steps
 
-        def lev_layout(lbv, W, row, nq=1):
+        def lev_layout(lbv, W, row, nq=1, kind="lev"):
             """``extra[row + "_layout_bound_ms"]``: the instructions K1
-            runs beyond its bound's OPS per query word and text step, over
-            this run's data: the register form (LEV_REG_STEP_OPS a thread
-            and step) runs a warp of 32 consecutive candidates to its
-            longest; the tile form (LEV_TILE_STEP_OPS a lane and step) a
-            warp of 32 // G candidates, per strip, nmax + G' - 1 steps of
-            all 32 lanes (G' the strip's lanes with query words).  That is
-            the per-step work beside the words, the words past the query,
-            the ramps, the idle lanes and the wait for a warp's longest
-            text."""
+            (K6, K4: ``kind`` "osa", "lcs") runs beyond its bound's OPS
+            per query word and text step, over this run's data: the
+            register form (LEV_REG_STEP_OPS a thread and step) runs a warp
+            of 32 consecutive candidates to its longest; the tile form
+            (TILE_STEP_OPS a lane and step) a warp of 32 // G candidates,
+            per strip, nmax + G' - 1 steps of all 32 lanes (G' the strip's
+            lanes with query words).  That is the per-step work beside the
+            words, the words past the query, the ramps, the idle lanes and
+            the wait for a warp's longest text."""
             l64 = lbv.to(torch.int64)
-            if W <= lk.MAX_REG_W:
+            mod = {"lev": lk, "osa": self.ok, "lcs": self.ck}[kind]
+            if W <= mod.MAX_REG_W:
                 per, ops, ramps = 32, LEV_REG_STEP_OPS[W], [0]
             else:
-                L, G, S = lk.tile_plan(W)
-                per, ops = 32 // G, LEV_TILE_STEP_OPS
+                L, G, S = mod.tile_plan(W)
+                per, ops = 32 // G, TILE_STEP_OPS[kind]
                 ramps = [-(-min(S, W - w0) // L) - 1
                          for w0 in range(0, W, S)]
             nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % per)])
@@ -3525,7 +3578,7 @@ class Smoke:
             steps = sum(int(torch.where(nmax > 0, nmax + r, 0).sum())
                         for r in ramps)
             layout = nq * (steps * 32 * ops
-                           - OPS["lev_scan"] * W * int(l64.sum()))
+                           - OPS[f"{kind}_scan"] * W * int(l64.sum()))
             extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
 
         lev_layout(lb, lk.words(q.size), "lev_scan")
@@ -3914,7 +3967,7 @@ class Smoke:
         dam_layout(long_sc.lb, q4k.size, "dam_scan_long_q4k")
         del sl_cand, sl_lb
         # K1 and K4 over the long corpus with the 300-char query (K1's
-        # scratch form, K4's registers), held against their plain versions
+        # tile form, K4's registers), held against their plain versions
         # on the LONG_SHORTEST shortest texts (the plain versions walk as
         # many steps as the longest text they are given: 8,192 take K1's
         # over 20 s)
@@ -3960,21 +4013,42 @@ class Smoke:
         lev_layout(long_sc.lb, w4k, "lev_scan_long_q4k")
         extra["lev_scan_long_steps"] = int(long_sc.lb.to(torch.int64).sum())
         del sl_cand, sl_lb
-        # K4, K6 and K8 over the long corpus at the other query widths of
-        # the long phase: 300 chars (K6's and K8's scratch forms) and
-        # ~4,000 (every scratch form), kernel times only
+        # K6's tile form with the 300- and ~4,000-char queries and K4's
+        # with the ~4,000-char one over the long corpus, held against their
+        # plain versions on the LONG_SHORTEST and LEV_SHORTEST shortest
+        # texts as K1's rows are
+        for key, kind, nshort in (("q300", "osa", LONG_SHORTEST),
+                                  ("q4k", "osa", LEV_SHORTEST),
+                                  ("q4k", "lcs", LEV_SHORTEST)):
+            qk, st = enc[key], (s300 if key == "q300" else l4k)
+            cols = slice(0, nshort)
+            sl_cand = long_sc.cand[:, cols].contiguous()
+            sl_lb = long_sc.lb[cols].contiguous()
+            name, W = f"{kind}_scan_long", lk.words(qk.size)
+            if kind == "osa":
+                kern = (lambda: ok.osa_1v_many(qk, long_sc.cand, long_sc.lb,
+                                               staged=st))
+                plain = (lambda: ok.osa_scan_plain(st[0], st[1][None],
+                                                   sl_cand, sl_lb)[0])
+            else:
+                kern = (lambda: ck.lcs_1v_many(qk, long_sc.cand, long_sc.lb,
+                                               staged=st))
+                plain = (lambda: ck.lcs_scan_plain(st[1][None], sl_cand,
+                                                   sl_lb)[0])
+            before = self.kc.LAUNCHES[name]
+            timed(name, kern, plain, 2, scan_work(name, long_sc.lb, W),
+                  warm=False, cols=cols, row=f"{name}_{key}")
+            extra[f"{name}_{key}_launches"] = \
+                (self.kc.LAUNCHES[name] - before) // 3
+            lev_layout(long_sc.lb, W, f"{name}_{key}", kind=kind)
+            del sl_cand, sl_lb
+        # K8 over the long corpus at the other query widths of the long
+        # phase: 300 chars and ~4,000 (its scratch form), kernel times only
         for key in ("q300", "q4k"):
             st = lk.stage_query(enc[key], "local", self.dev)
             extra[f"jaro_scan_long_{key}_ms"] = cuda_ms(
                 torch, lambda: jk.jaro_1v_many(enc[key], long_sc.cand,
                                                long_sc.lb, staged=st), 2)
-            if key == "q4k":
-                extra[f"lcs_scan_long_{key}_ms"] = cuda_ms(
-                    torch, lambda: ck.lcs_1v_many(enc[key], long_sc.cand,
-                                                  long_sc.lb, staged=st), 2)
-            extra[f"osa_scan_long_{key}_ms"] = cuda_ms(
-                torch, lambda: ok.osa_1v_many(enc[key], long_sc.cand,
-                                              long_sc.lb, staged=st), 2)
         # K10: the serve corpus with a 12-char piece of the query (the
         # partial phase's /topk), the kernels line's row; then the 64-char
         # query over the serve corpus (nearly every candidate shorter: the
@@ -4223,12 +4297,16 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     kc.load()
+    tiles = {f"ptxas_{k}": ptxas_kernels(kc.ptxas_report.get(f"{k}.cu", ""),
+                                         k) for k in ("osa_scan", "lcs_scan")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
           "ptxas_lev_scan": ptxas_kernels(
               kc.ptxas_report.get("lev_scan.cu", ""), "lev_scan"),
           "sass_lev_scan": sass_histogram(kc, "lev_scan"),
+          **tiles, "sass_osa_scan": sass_histogram(kc, "osa_scan"),
+          "sass_lcs_scan": sass_histogram(kc, "lcs_scan"),
           "ptxas_wlev_scan": ptxas_kernels(
               kc.ptxas_report.get("wlev_scan.cu", ""), "wlev_scan"),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
@@ -4238,6 +4316,13 @@ def main(argv=None) -> int:
           "ptxas_lev_pair": ptxas_kernels(
               kc.ptxas_report.get("lev_pair.cu", ""), "lev_pair"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
+    # no instance of K4 or K6 spills (a fresh build reports every one)
+    spilled = {k: v for t in tiles.values() for k, v in t.items()
+               if v["spill_bytes"]}
+    if kc.build_seconds is not None and (
+            spilled or not all(tiles.values())):
+        raise AssertionError(f"K4/K6 instances spill or were not "
+                             f"reported: {spilled or tiles}")
     smoke.phase_kernels()
     smoke.count_words(True)
     # the main paths, each counted from zero: the serving path over

@@ -7,9 +7,10 @@
 // which serves buckets over 1024 chars by streaming 512-char text chunks
 // through a second grid axis with S carried in VMEM.  As for K1, that
 // chunking existed only because a candidate block of a long bucket did not
-// fit VMEM: a thread here walks its own candidate's text from global
-// memory at any length, so one kernel serves every bucket and the wrapper
-// counts launches over 1024-char buckets apart (lcs_scan_long).
+// fit VMEM: a thread (a group of lanes in the tile form) here walks its
+// own candidate's text from global memory at any length, so one kernel
+// serves every bucket and the wrapper counts launches over 1024-char
+// buckets apart (lcs_scan_long).
 //
 // The recurrence (lcs_kernel.py:50-63, the reference's lcs_seq.rs:225-235):
 // per query word w and text char c, u = S[w] & PM[c][w] and
@@ -20,39 +21,75 @@
 // never borrows), so the kernel never reads the query length.  An empty
 // query has an all-zero PM table and gives 0.
 //
-// What bounds it on an H100: integer throughput.  A step costs ~5 u32 ops per
-// query word (and, the 3-input add with its carry-in, the carry-out, one
-// 3-input logic op for (t | (s & ~u))) plus one shared-memory PM lookup,
-// about half of K1's Myers word; the corpus is read once per query, 1 byte
-// per char, far on the compute side of the card's balance point.
+// What bounds it on an H100: integer throughput.  A step costs ~4 u32 ops
+// per query word (u = s & pm, the 3-input add s + u + carry, its
+// carry-out, one 3-input logic op for t | (s & ~u)) plus one shared-memory
+// PM lookup, about a third of K1's Myers word; the corpus is read once per
+// query, 1 byte per char, far on the compute side of the card's balance
+// point.
 //
 // Design, as K1 (csrc/lev_scan.cu):
-// * one thread per candidate, candidates along blockIdx.x; the NQ form
-//   puts the query index on blockIdx.y so the queries share the corpus
-//   lines the L2 holds;
 // * the packed corpus keeps the JAX layout [LB/4, B] u32, a coalesced load
-//   of 4 chars per text step group;
-// * the query's PM table ([W, 256] u32) sits in shared memory;
-// * S lives in registers for W <= kMaxRegW (template on W).  The state is
-//   half of K1's (S only, no VP/VN pair), so the register form reaches
-//   twice as far; longer queries keep S in a [NQ, W, B] scratch read and
-//   written coalesced by candidate, with PM read through the read-only
-//   cache, so no query length is refused;
-// * each thread runs exactly its candidate's lb steps (the TPU masked
-//   j < lb because lanes share control flow);
+//   of 4 chars per 4 text steps; the query's PM table sits in shared
+//   memory; the NQ form puts the query index on blockIdx.y so the queries
+//   share the corpus lines the L2 holds;
+// * register form (W <= kMaxRegW, template on W): one thread per
+//   candidate holds all W words of S; the table [W, 256] u32;
+// * tile form (W > kMaxRegW; csrc/tile_scan.cuh, the design K1's
+//   lev_scan_tile follows): a lane holds kTileWords consecutive query
+//   words of S in registers and a candidate takes ceil(W / kTileWords)
+//   lanes in a wavefront.  One bit crosses a word edge, the add's carry,
+//   from low words to high ones within a text step: lane t takes it with
+//   the char from lane t - 1 by shuffle, lane 0 starts it at 0.  A K4
+//   word costs about a third of K1's, so the step's own work (the
+//   shuffle, the char, the table's loads) weighs three times as much per
+//   word, and a lane holds twice K1's words.  Bits above the query's
+//   length stay 1 (above), in the padded words past W too (their PM rows
+//   are zero, so S + 0 + carry | S is S), so the LCS length is the sum of
+//   popc(~S) over every lane's words with no mask;
+// * strips: queries over 128 words go in strips of 128, the strip's top
+//   lane packing its carry, 1 bit a text row, 32 rows a u32, into an edge
+//   buffer ([NQ, ceil(LB / 32), nb] u32), which lane 0 of the next strip
+//   reads back, the buffer reused in place; the wrapper launches over
+//   chunks of candidates whose edge buffers fit its memory plan
+//   (lev_kernel.SCRATCH_BYTES); no form keeps state in device memory per
+//   step;
+// * the corpus comes sorted by length, and block b works the candidates
+//   of block nblocks - 1 - b, so the longest texts start first (both
+//   forms);
+// * each candidate runs exactly its lb steps (the TPU masked j < lb
+//   because lanes share control flow);
 // * the carry is taken from a 64-bit add: s + u + carry < 2^33;
-// * every offset into the corpus, the output and the scratch is 64-bit
-//   (row * B); only per-candidate lengths and the row count lb4 are
+// * every offset into the corpus, the output and the edge buffer is
+//   64-bit (row * B); only per-candidate lengths and the row count lb4 are
 //   32-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;    // PM entries: every byte value
-constexpr int kMaxRegW = 16;  // S in registers up to this many words
+constexpr int kThreads = 256;  // the register form's block
+constexpr int kRows = 256;     // PM entries: every byte value
+// the probe's variants (probes/osa_lcs_tile_probe.py); the defaults are
+// the kept design
+#ifndef RF_LCS_MAX_REG_W
+#define RF_LCS_MAX_REG_W 16
+#endif
+#ifndef RF_LCS_TILE_WORDS
+#define RF_LCS_TILE_WORDS 16
+#endif
+#ifndef RF_LCS_INTERLEAVE
+#define RF_LCS_INTERLEAVE 1
+#endif
+#ifndef RF_TILE_PAD
+#define RF_TILE_PAD 1
+#endif
+constexpr int kMaxRegW = RF_LCS_MAX_REG_W;     // register form up to this
+constexpr int kTileWords = RF_LCS_TILE_WORDS;  // query words a tile lane
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One Hyyro LCS step of one word; hands the add's carry to the next word.
 __device__ __forceinline__ uint32_t lcs_word(uint32_t pmw, uint32_t s,
@@ -72,24 +109,28 @@ __device__ __forceinline__ void step(const uint32_t* __restrict__ pm,
         s[w] = lcs_word(pm[w * kRows + c], s[w], carry);
 }
 
+// The register form over candidates [b0, b0 + nb).
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 lcs_scan_reg(const uint32_t* __restrict__ pm_all,
              const uint32_t* __restrict__ cand,
              const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-             int64_t B, int lb4) {
+             int64_t B, int64_t b0, int64_t nb, int lb4) {
     __shared__ uint32_t pm[W * kRows];
     const int q = blockIdx.y;
     const uint32_t* src = pm_all + (size_t)q * W * kRows;
     for (int i = threadIdx.x; i < W * kRows; i += kThreads) pm[i] = src[i];
     __syncthreads();
 
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (b >= B) return;
+    // the longest texts (the corpus's last) start first
+    const int64_t k =
+        (int64_t)(gridDim.x - 1 - blockIdx.x) * kThreads + threadIdx.x;
+    if (k >= nb) return;
+    const int64_t b = b0 + k;
     const int n = min(lb[b], 4 * lb4);
     uint32_t s[W];
 #pragma unroll
-    for (int w = 0; w < W; ++w) s[w] = 0xFFFFFFFFu;
+    for (int w = 0; w < W; ++w) s[w] = kFull;
     const int rows = n >> 2;
     const uint32_t* col = cand + b;
     for (int r = 0; r < rows; ++r) {
@@ -109,73 +150,100 @@ lcs_scan_reg(const uint32_t* __restrict__ pm_all,
     out[(size_t)q * B + b] = sim;
 }
 
-__global__ void __launch_bounds__(kThreads)
-lcs_scan_generic(const uint32_t* __restrict__ pm_all,
-                 const uint32_t* __restrict__ cand,
-                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                 uint32_t* __restrict__ scratch, int64_t B, int lb4, int W) {
-    const int q = blockIdx.y;
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (b >= B) return;
-    const uint32_t* pm = pm_all + (size_t)q * W * kRows;
-    const int n = min(lb[b], 4 * lb4);
-    // S rows [0, W) of this query's scratch block
-    uint32_t* st = scratch + (size_t)q * W * B + b;
-    for (int w = 0; w < W; ++w) st[(size_t)w * B] = 0xFFFFFFFFu;
-    const uint32_t* col = cand + b;
-    uint32_t word = 0u;
-    for (int j = 0; j < n; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-        uint32_t carry = 0u;
-        for (int w = 0; w < W; ++w)
-            st[(size_t)w * B] = lcs_word(__ldg(pm + w * kRows + c),
-                                         st[(size_t)w * B], carry);
+// The tile form's word recurrence (csrc/tile_scan.cuh): a lane's
+// kTileWords words of S; the carry bit handed on is the add's.  Its word
+// is cheap, so the table's loads weigh: the table is interleaved (a
+// group's lanes read consecutive 16-byte chunks, where lane-major lanes t
+// and t + 2 hit the same banks) and its rows padded by a chunk (so the
+// lanes of groups on other chars spread over the banks).
+struct LcsTile {
+    static constexpr int L = kTileWords;
+    static constexpr int kSlot = 1;
+    static constexpr uint32_t kStart = 0u;     // no carry into word 0
+    static constexpr bool kPrev = false;
+    static constexpr bool kInterleave = RF_LCS_INTERLEAVE;
+    static constexpr int kPad = RF_TILE_PAD ? 4 : 0;
+
+    struct State {
+        uint32_t s[L];
+
+        __device__ __forceinline__ void init() {
+#pragma unroll
+            for (int w = 0; w < L; ++w) s[w] = kFull;
+        }
+
+        __device__ __forceinline__ void step(const uint32_t* row,
+                                             const uint32_t*, int stride,
+                                             uint32_t& bits) {
+            uint32_t pmw[L];
+            tile::load_tile<L>(row, stride, pmw);
+#pragma unroll
+            for (int w = 0; w < L; ++w) s[w] = lcs_word(pmw[w], s[w], bits);
+        }
+
+        // the lane's share of the LCS length: its zero bits (none past
+        // the query's length)
+        __device__ __forceinline__ int part(int, int) const {
+            int sum = 0;
+#pragma unroll
+            for (int w = 0; w < L; ++w) sum += __popc(~s[w]);
+            return sum;
+        }
+    };
+
+    static __device__ __forceinline__ int finish(int, int sum) {
+        return sum;
     }
-    int sim = 0;
-    for (int w = 0; w < W; ++w) sim += __popc(~st[(size_t)w * B]);
-    out[(size_t)q * B + b] = sim;
-}
+};
+
+TILE_KERNEL(lcs_scan_tile, LcsTile)
 
 template <int W>
 cudaError_t launch_reg(const uint32_t* pm, const uint32_t* cand,
-                       const int32_t* lb, int32_t* out, int64_t B, int lb4,
-                       int nq, cudaStream_t stream) {
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), nq);
-    lcs_scan_reg<W><<<grid, kThreads, 0, stream>>>(pm, cand, lb, out, B,
-                                                   lb4);
+                       const int32_t* lb, int32_t* out, int64_t B,
+                       int64_t b0, int64_t nb, int lb4, int nq,
+                       cudaStream_t stream) {
+    const dim3 grid((unsigned)((nb + kThreads - 1) / kThreads), nq);
+    lcs_scan_reg<W><<<grid, kThreads, 0, stream>>>(pm, cand, lb, out, B, b0,
+                                                   nb, lb4);
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// LCS lengths of NQ queries (PM tables pm [NQ, W, 256]) to candidates
+// [b0, b0 + nb) of the packed corpus cand [lb4, B], written to
+// out[q * B + b].  W <= kMaxRegW takes the register form, past that the
+// tile form; queries over 128 words need the edge buffer edge:
+// [NQ, ceil(4 * lb4 / 32), nb] u32.
 extern "C" cudaError_t rf_lcs_scan(const uint32_t* pm, const uint32_t* cand,
                                    const int32_t* lb, int32_t* out,
-                                   uint32_t* scratch, int64_t B, int lb4,
-                                   int W, int nq, cudaStream_t stream) {
-    switch (W) {
-        case 1: return launch_reg<1>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 2: return launch_reg<2>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 3: return launch_reg<3>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 4: return launch_reg<4>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 5: return launch_reg<5>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 6: return launch_reg<6>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 7: return launch_reg<7>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 8: return launch_reg<8>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 9: return launch_reg<9>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 10: return launch_reg<10>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 11: return launch_reg<11>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 12: return launch_reg<12>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 13: return launch_reg<13>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 14: return launch_reg<14>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 15: return launch_reg<15>(pm, cand, lb, out, B, lb4, nq, stream);
-        case 16: return launch_reg<16>(pm, cand, lb, out, B, lb4, nq, stream);
+                                   uint32_t* edge, int64_t B, int64_t b0,
+                                   int64_t nb, int lb4, int W, int nq,
+                                   cudaStream_t stream) {
+    if (W < 1 || nq < 1 || b0 < 0 || nb < 0 || b0 + nb > B)
+        return cudaErrorInvalidValue;
+    if (nb == 0) return cudaSuccess;
+    static_assert(kMaxRegW <= 16, "the switch below instantiates W <= 16");
+    if (W <= kMaxRegW) switch (W) {
+        case 1: return launch_reg<1>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 2: return launch_reg<2>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 3: return launch_reg<3>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 4: return launch_reg<4>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 5: return launch_reg<5>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 6: return launch_reg<6>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 7: return launch_reg<7>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 8: return launch_reg<8>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 9: return launch_reg<9>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 10: return launch_reg<10>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 11: return launch_reg<11>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 12: return launch_reg<12>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 13: return launch_reg<13>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 14: return launch_reg<14>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 15: return launch_reg<15>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
+        case 16: return launch_reg<16>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
         default: break;
     }
-    static_assert(kMaxRegW == 16, "the switch above instantiates W <= 16");
-    if (W < 1 || scratch == nullptr) return cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), nq);
-    lcs_scan_generic<<<grid, kThreads, 0, stream>>>(pm, cand, lb, out,
-                                                    scratch, B, lb4, W);
-    return cudaGetLastError();
+    return tile::launch_tile<LcsTile>(lcs_scan_tile, pm, nullptr, cand, lb, out,
+                                      edge, B, b0, nb, lb4, W, nq, stream);
 }

@@ -91,12 +91,13 @@ _SIGNATURES = {
     "rf_remap_pack": [_P, _P, _P, _I64, _I, _P],
     # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, stream
     "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _P],
-    # pm, cand, lb, out, scratch, B, lb4, W, nq, stream
-    "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # pm, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
+    "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
     # pm, ws, bw, cand, lb, out, B, lb4, stream
     "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
-    # pm, las, cand, lb, out, scratch, B, lb4, W, nq, stream
-    "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    # pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
+    "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
+                    _P],
     # pm, la, ins, del, sub, cand, lb, out, edge, B, b0, nb, lb4, stream
     "rf_wlev_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
                      _I, _P],

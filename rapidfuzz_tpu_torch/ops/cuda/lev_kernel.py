@@ -265,12 +265,12 @@ def tile_plan(W: int):
     return L, min(-(-W // L), S // L), S
 
 
-def edge_chunk(LB: int, B: int, NQ: int = 1) -> int:
-    """Candidates per launch of K1's tile form for queries over a strip:
-    ``ceil(LB / EDGE_ROWS)`` u32 of edge buffer per candidate and query
-    (``LB`` the bucket), whole multiples of :data:`BLOCK`, within
-    :data:`SCRATCH_BYTES`."""
-    per = 4 * NQ * -(-LB // EDGE_ROWS)
+def edge_chunk(LB: int, B: int, NQ: int = 1, rows: int = EDGE_ROWS) -> int:
+    """Candidates per launch of a tile form (K1's; K4's and K6's with their
+    ``rows``) for queries over a strip: ``ceil(LB / rows)`` u32 of edge
+    buffer per candidate and query (``LB`` the bucket, ``rows`` text rows a
+    u32), whole multiples of :data:`BLOCK`, within :data:`SCRATCH_BYTES`."""
+    per = 4 * NQ * -(-LB // rows)
     return min(B, max(BLOCK, SCRATCH_BYTES // per // BLOCK * BLOCK))
 
 

@@ -13,6 +13,14 @@ replaces three TPU kernels:
   kernel serves every bucket.  One-query launches over buckets longer
   than :data:`~.lev_kernel.LONG_LB` count as ``osa_scan_long``.
 
+Queries up to :data:`MAX_REG_W` words run one thread a candidate; longer
+ones run the tile form (:func:`tile_plan`): :data:`TILE_WORDS` query
+words a lane, ``G`` lanes a candidate passing the HP/HN carries and the
+transposition term's cross-word bit by shuffle, strips of
+:data:`~.lev_kernel.STRIP_WORDS` passing those 3 bits through an edge
+buffer, :data:`EDGE_ROWS` text rows a u32
+(:func:`~.lcs_kernel.tile_launches`).
+
 The corpus and the PM tables are K1's (:func:`~.lev_kernel.prepare_corpus`,
 :func:`~.lev_kernel.stage_query`): ``cand`` ``[LB/4, B]``, ``lb`` ``[B]``,
 ``las`` ``[NQ]``, ``tabs`` ``[W, 256]``.
@@ -27,14 +35,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import check, launch
-from .lcs_kernel import padded_tables, text_steps
-from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
-                         words)
+from . import check
+from .lcs_kernel import padded_tables, text_steps, tile_launches
+from .lev_kernel import (LONG_LB, M32, PM_ROWS, STRIP_WORDS, stage_queries,
+                         stage_query, words)
 
-MAX_REG_W = 8    # K6 keeps VP, VN, D0 and PM of the last step in registers
-                 # up to this many words; longer queries use a [NQ, 3W, B]
-                 # scratch
+MAX_REG_W = 8    # K6 keeps VP, VN, D0 and PM of the last step in a thread's
+                 # registers up to this many words; its tile form past it
+TILE_WORDS = 8   # query words a lane of K6's tile form holds
+EDGE_ROWS = 8    # text rows a u32 of the strip edge buffer packs (4-bit
+                 # slots: hp_c, hn_c and the t bit)
+
+
+def tile_plan(W: int):
+    """``(L, G, S)`` of K6's tile form for a query of ``W`` words (past
+    :data:`MAX_REG_W`): ``L`` query words a lane, ``G`` lanes a candidate
+    (``32 // G`` candidates a warp), strips of ``S`` words."""
+    L, S = TILE_WORDS, STRIP_WORDS
+    return L, min(-(-W // L), S // L), S
 
 
 def osa_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
@@ -103,15 +121,9 @@ def _osa_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((NQ, B), dtype=torch.int32, device=dev)
-    # generic-W kernel: VP, VN and D0 live in a [NQ, 3W, B] scratch,
-    # coalesced by candidate; W <= MAX_REG_W keeps them in registers
-    scratch = (torch.empty((NQ, 3 * W, B), dtype=torch.int32, device=dev)
-               if W > MAX_REG_W else None)
     if B and NQ:
-        launch(name, "rf_osa_scan", dev, tabs.data_ptr(), las.data_ptr(),
-               cand.data_ptr(), lb.data_ptr(), out.data_ptr(),
-               None if scratch is None else scratch.data_ptr(),
-               B, cand.shape[0], W, NQ)
+        tile_launches(name, "rf_osa_scan", (tabs, las, cand, lb, out), W,
+                      EDGE_ROWS)
     return out
 
 

@@ -110,12 +110,14 @@ class CorpusScanner:
     Device memory is planned here, once: ``LB`` bytes per candidate for
     the packed corpus (wide corpora: ``4*LB`` unpacked, plus ``LB`` packed
     per query), 4 for its length.  Per query a scan adds an int32 output,
-    for queries over 4,096 chars K1's edge buffer of 2 bits per text row
-    (``lev_kernel.edge_chunk``), and
+    for queries over 4,096 chars the edge buffer of K1's, K4's or K6's
+    tile form between strips (``lev_kernel.edge_chunk``: K1 2 bits per
+    text row and candidate, K4 1, K6 4, launched over chunks of candidates
+    within ``lev_kernel.SCRATCH_BYTES``), and
     for a hint scan its stragglers, compacted in chunks of at most an
     eighth of the corpus, so no scan stages a second corpus-sized copy;
-    the LCS kernels keep queries over 512 chars in a ``[W, B]`` scratch,
-    the OSA kernel queries over 256 chars in a ``[3W, B]`` scratch, and a
+    the Levenshtein, LCS and OSA kernels keep their state in registers at
+    every query length, and a
     weighted scan keeps its rows in registers (the tile form past 128
     query chars) and, for queries over 1,024 chars, adds an edge buffer
     of one int32 per text row and candidate (``[chunk, LB]``, ``4*LB``
