@@ -11,8 +11,9 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``; K1's per kernel instance) and,
-   for K1 and K7-K11, each kernel's SASS instruction count and commonest
+   registers and spills (``ptxas -v``; K1's, K4's and K6's per kernel
+   instance, the run failing if a K4 or K6 instance spills) and, for K1,
+   K4, K6 and K7-K11, each kernel's SASS instruction count and commonest
    opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: K1 at W = 1, 2, 3 and 8 (registers), its tile
@@ -20,15 +21,17 @@ Phases, each printing one JSON line before the next starts:
    two chunks of a smaller edge-buffer budget) in byte and local mode
    over buckets 64, 1,056 and 8,192 (the plain version on the texts of
    up to 64 chars, the 32 longest of the long buckets against the
-   oracle), 16 queries per launch at W = 1, 2 and 10; the short-text
+   oracle), 16 queries per launch at W = 1, 2 and 10; K6's and K4's tile
+   forms likewise (K4's first tile width 17; K6's texts with adjacent
+   swaps, beating K1 on some row of each bucket); the short-text
    routes at 262,144 candidates, the
    long routes (K1 and K4 over 2048- and 8192-char buckets, K4's
-   scratch form over 2048 only, the run-time band, the streamed bands
+   tile form over 2048 only, the run-time band, the streamed bands
    over 2048) at 2,048 candidates, where the plain
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
-   at W = 1, 2, 8 and 17 (its first scratch width), 16 queries per
+   at W = 1, 2, 8 and 17 (its first tile width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
-   band, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first scratch width)
+   band, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first tile width)
    and 16 queries per launch over near copies with adjacent swaps planted
    across query words and packed 4-char rows, and over 2048- and
    8192-char buckets; K7 (weighted Levenshtein) under the tables
@@ -92,13 +95,13 @@ Phases, each printing one JSON line before the next starts:
    the whole corpus where a length argument bounds the work (top-k and
    cutoff answers), on sampled rows elsewhere; then a service with
    ``metric="indel"`` over the same texts: ``/topk`` for the three
-   queries (K4 in register and scratch form) and ``score_cutoff`` 15 and
+   queries (K4 in register and tile form) and ``score_cutoff`` 15 and
    31 for the ~4,000-char query (the streamed LCS band);
 9. osa     — OSA: ``ScanService(metric="osa")`` over the serve corpus
    behind ``make_server`` (``/topk``, ``/distances`` plain and under a
    cutoff, ``/batch`` of 20 queries), a ``CorpusScanner(metric="osa")``
    over the long corpus for the 64- and 300-char queries, an OSA service
-   over the bucket-6000 texts for the ~4,000-char query (K6's scratch
+   over the bucket-6000 texts for the ~4,000-char query (K6's tile
    form), and ``osa.distance_many`` over 65,536 strings, all held against
    the oracle (whole-corpus windows: OSA is at least the length
    difference and at least half the Levenshtein distance);
@@ -161,7 +164,8 @@ Phases, each printing one JSON line before the next starts:
    the long corpus (its tile form), each with its launches, its plain
    version on the shortest texts, and, as for its register rows, the
    instructions its layout adds to the bound (ramps, idle lanes, the
-   wait for a warp's longest text); K7 also at 32-129 chars over the serve
+   wait for a warp's longest text); K6 likewise at 300 and 4,001 chars,
+   K4 at 4,001 (their tile forms); K7 also at 32-129 chars over the serve
    corpus and at 299 and 4,001 chars over the long corpus (its tile form,
    the second launched over chunks of the 1 GiB edge-buffer plan), its
    plain version on a slice of the candidates where the whole shape would
@@ -711,25 +715,24 @@ class Smoke:
     def count_words(self, on: bool) -> None:
         """Count K1's, K4's and K6's launches and their candidates also
         by query words (``self.words``) while ``on``: the launch function
-        their modules call is wrapped (K6's launches go through K4's
-        module, ``lcs_kernel.tile_launches``), and restored when ``on`` is
-        false."""
-        for mod in (self.lk, self.ck):
-            inner = getattr(mod.launch, "inner", mod.launch)
-            if not on:
-                mod.launch = inner
-                continue
+        their wrappers call (``lev_kernel.tile_launches``) is wrapped, and
+        restored when ``on`` is false."""
+        lk = self.lk
+        inner = getattr(lk.launch, "inner", lk.launch)
+        if not on:
+            lk.launch = inner
+            return
 
-            def launch(name, entry, dev, *args, _inner=inner):
-                _inner(name, entry, dev, *args)
-                if entry in WORDS_ARG:
-                    w, nb = WORDS_ARG[entry]
-                    tally = self.words[name][args[w]]
-                    tally[0] += 1
-                    tally[1] += args[nb]
+        def launch(name, entry, dev, *args):
+            inner(name, entry, dev, *args)
+            if entry in WORDS_ARG:
+                w, nb = WORDS_ARG[entry]
+                tally = self.words[name][args[w]]
+                tally[0] += 1
+                tally[1] += args[nb]
 
-            launch.inner = inner
-            mod.launch = launch
+        launch.inner = inner
+        lk.launch = launch
 
     def emit_phase(self, obj) -> None:
         """A phase's JSON line, with the seconds its oracle checks took."""
@@ -1042,13 +1045,13 @@ class Smoke:
     def long_kernel_cases(self, rng, a, salt):
         """The long routes against their plain versions at
         N_KERNEL_LONG candidates: K1 over 2048-char buckets at W = 2
-        (registers) and 10 (scratch form) and over 8192 at W = 2; the
+        (registers) and 10 (tile form) and over 8192 at W = 2; the
         run-time band for cutoffs 1-15 and queries of 8-40 chars over 64-
         and 2048-char buckets; the streamed band at bw 1-3 over 2048-char
         buckets, with queries that keep its PM table in shared memory
         (300 chars) and that read it through the cache (2,000).  The
         plain versions take about 10 us per launch, some 20 launches per
-        step and word, so the 8192 bucket's scratch form and streamed
+        step and word, so the 8192 bucket's tile form and streamed
         band (seconds each) are held by their plain versions in the
         timing phase and by the oracle in the long phase, not here."""
         torch, lk, bk = self.torch, self.lk, self.bk
@@ -1100,7 +1103,7 @@ class Smoke:
 
     def lcs_kernel_cases(self, rng, alph, salt):
         """K4 and K5 against their plain versions: ``lcs_scan`` at W = 1,
-        2, 8 and 17 (the first scratch width) and ``lcs_scan_nq`` over
+        2, 8 and 17 (the first tile width) and ``lcs_scan_nq`` over
         N_KERNEL candidates at bucket 64, in both PM modes; ``lcs_scan_long``
         at W = 2 and 10 over 2048-char buckets and at W = 2 over 8192;
         ``lcs_band`` at indel cutoffs 3, 15, 31 and 47 (bw 1-3) over near
@@ -1197,7 +1200,7 @@ class Smoke:
         """K6 against its plain version over near copies of the query
         with adjacent swaps planted across query bits 31/32 and across
         packed 4-char rows (text chars 3/4 and 7/8): ``osa_scan`` at W =
-        1, 2, 4 and 9 (the first scratch width) over N_KERNEL candidates,
+        1, 2, 4 and 9 (the first tile width) over N_KERNEL candidates,
         in both PM modes; ``osa_scan_nq`` for a one-word group holding an
         empty query and a two-word group; ``osa_scan_long`` at W = 2 over
         2048- and 8192-char buckets and at W = 9 over 2048, at
@@ -2445,7 +2448,7 @@ class Smoke:
                                f"bucket {ODD_LB} /topk")
         del odd
         # the LCS family over the same texts: the full long scan in its
-        # register (64, 300 chars) and scratch (~4,000) forms, and the
+        # register (64, 300 chars) and tile (~4,000) forms, and the
         # streamed band under indel cutoffs 15 (bw 1) and 31 (bw 2)
         indel = ScanService(corpus, metric="indel", bucket=LONG_LB,
                             device=self.dev)
@@ -2576,8 +2579,8 @@ class Smoke:
             if got != (want, m - want, want / m):
                 raise AssertionError(f"osa scalar scores {s1!r} {s2!r}: "
                                      f"{got}")
-        # the long texts: K6 over buckets > 1024 in register form (64 and
-        # 300 chars) and scratch form (~4,000 chars)
+        # the long texts: K6 over buckets > 1024 in register form (64
+        # chars) and tile form (300 and ~4,000 chars)
         qs = self.long_queries
         long_corpus, long_lens = self.long_corpus, self.long_lens
         t0 = time.perf_counter()

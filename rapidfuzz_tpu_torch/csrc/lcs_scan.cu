@@ -73,22 +73,8 @@ namespace {
 
 constexpr int kThreads = 256;  // the register form's block
 constexpr int kRows = 256;     // PM entries: every byte value
-// the probe's variants (probes/osa_lcs_tile_probe.py); the defaults are
-// the kept design
-#ifndef RF_LCS_MAX_REG_W
-#define RF_LCS_MAX_REG_W 16
-#endif
-#ifndef RF_LCS_TILE_WORDS
-#define RF_LCS_TILE_WORDS 16
-#endif
-#ifndef RF_LCS_INTERLEAVE
-#define RF_LCS_INTERLEAVE 1
-#endif
-#ifndef RF_TILE_PAD
-#define RF_TILE_PAD 1
-#endif
-constexpr int kMaxRegW = RF_LCS_MAX_REG_W;     // register form up to this
-constexpr int kTileWords = RF_LCS_TILE_WORDS;  // query words a tile lane
+constexpr int kMaxRegW = 16;    // register form up to this many words
+constexpr int kTileWords = 16;  // query words a tile lane holds
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One Hyyro LCS step of one word; hands the add's carry to the next word.
@@ -161,8 +147,8 @@ struct LcsTile {
     static constexpr int kSlot = 1;
     static constexpr uint32_t kStart = 0u;     // no carry into word 0
     static constexpr bool kPrev = false;
-    static constexpr bool kInterleave = RF_LCS_INTERLEAVE;
-    static constexpr int kPad = RF_TILE_PAD ? 4 : 0;
+    static constexpr bool kInterleave = true;
+    static constexpr int kPad = 4;
 
     struct State {
         uint32_t s[L];
@@ -224,7 +210,7 @@ extern "C" cudaError_t rf_lcs_scan(const uint32_t* pm, const uint32_t* cand,
     if (W < 1 || nq < 1 || b0 < 0 || nb < 0 || b0 + nb > B)
         return cudaErrorInvalidValue;
     if (nb == 0) return cudaSuccess;
-    static_assert(kMaxRegW <= 16, "the switch below instantiates W <= 16");
+    static_assert(kMaxRegW == 16, "the switch below instantiates W <= 16");
     if (W <= kMaxRegW) switch (W) {
         case 1: return launch_reg<1>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);
         case 2: return launch_reg<2>(pm, cand, lb, out, B, b0, nb, lb4, nq, stream);

@@ -82,21 +82,7 @@ namespace {
 constexpr int kThreads = 256;  // the register form's block
 constexpr int kRows = 256;     // PM entries: every byte value
 constexpr int kMaxRegW = 8;    // register form up to this many words
-// the probe's variants (probes/osa_lcs_tile_probe.py); the defaults are
-// the kept design
-#ifndef RF_OSA_TILE_WORDS
-#define RF_OSA_TILE_WORDS 8
-#endif
-#ifndef RF_OSA_PREV_SHARED
-#define RF_OSA_PREV_SHARED 1
-#endif
-#ifndef RF_OSA_INTERLEAVE
-#define RF_OSA_INTERLEAVE 0
-#endif
-#ifndef RF_TILE_PAD
-#define RF_TILE_PAD 0
-#endif
-constexpr int kTileWords = RF_OSA_TILE_WORDS;  // query words a tile lane
+constexpr int kTileWords = 8;  // query words a tile lane holds
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // One OSA step of one word.  `t_lo` comes in as word w-1's
@@ -206,13 +192,12 @@ struct OsaTile {
     static constexpr int L = kTileWords;
     static constexpr int kSlot = 4;
     static constexpr uint32_t kStart = 1u;     // hp_c = 1, hn_c = 0, t = 0
-    static constexpr bool kPrev = RF_OSA_PREV_SHARED;
-    static constexpr bool kInterleave = RF_OSA_INTERLEAVE;
-    static constexpr int kPad = RF_TILE_PAD ? 4 : 0;
+    static constexpr bool kPrev = true;
+    static constexpr bool kInterleave = false;
+    static constexpr int kPad = 0;
 
     struct State {
-        // pmp (PM_prev in registers) is dead where kPrev
-        uint32_t vp[L], vn[L], d0p[L], pmp[L];
+        uint32_t vp[L], vn[L], d0p[L];
 
         __device__ __forceinline__ void init() {
 #pragma unroll
@@ -220,24 +205,21 @@ struct OsaTile {
                 vp[w] = kFull;
                 vn[w] = 0u;
                 d0p[w] = 0u;
-                pmp[w] = 0u;
             }
         }
 
         __device__ __forceinline__ void step(const uint32_t* row,
                                              const uint32_t* prev,
                                              int stride, uint32_t& bits) {
-            uint32_t pmw[L], pp[L];
+            uint32_t pmw[L], pmp[L];
             tile::load_tile<L>(row, stride, pmw);
-            if (kPrev) tile::load_tile<L>(prev, stride, pp);
+            tile::load_tile<L>(prev, stride, pmp);
             uint32_t hp_c = bits & 1u, hn_c = (bits >> 1) & 1u;
             uint32_t t_lo = (bits >> 2) << 31, hp, hn;
 #pragma unroll
-            for (int w = 0; w < L; ++w) {
-                osa_word(pmw[w], kPrev ? pp[w] : pmp[w], vp[w], vn[w],
-                         d0p[w], t_lo, hp_c, hn_c, hp, hn);
-                pmp[w] = pmw[w];
-            }
+            for (int w = 0; w < L; ++w)
+                osa_word(pmw[w], pmp[w], vp[w], vn[w], d0p[w], t_lo, hp_c,
+                         hn_c, hp, hn);
             bits = hp_c | (hn_c << 1) | ((t_lo >> 31) << 2);
         }
 

@@ -17,7 +17,8 @@ Queries up to :data:`MAX_REG_W` words run one thread a candidate; longer
 ones run the tile form (:func:`tile_plan`): :data:`TILE_WORDS` query
 words a lane, ``G`` lanes a candidate passing the add's carry by shuffle,
 strips of :data:`~.lev_kernel.STRIP_WORDS` passing it through an edge
-buffer, :data:`EDGE_ROWS` text rows a u32 (:func:`tile_launches`).
+buffer, :data:`EDGE_ROWS` text rows a u32
+(:func:`~.lev_kernel.tile_launches`).
 
 The corpus and the PM tables are K1's (:func:`~.lev_kernel.prepare_corpus`,
 :func:`~.lev_kernel.stage_query`): ``cand`` ``[LB/4, B]``, ``lb`` ``[B]``,
@@ -36,9 +37,10 @@ import numpy as np
 import torch
 
 from ..bitpack import popcount
-from . import check, launch
-from .lev_kernel import (LONG_LB, M32, PM_ROWS, STRIP_WORDS, edge_chunk,
-                         stage_queries, stage_query, u32, words)
+from . import check
+from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
+                         tile_launches, u32, words)
+from .lev_kernel import tile_plan as lev_tile_plan
 
 MAX_REG_W = 16   # K4 keeps S in a thread's registers up to this many
                  # words; its tile form past it
@@ -49,35 +51,9 @@ EDGE_ROWS = 32   # text rows a u32 of the strip edge buffer packs (1 bit
 
 def tile_plan(W: int):
     """``(L, G, S)`` of K4's tile form for a query of ``W`` words (past
-    :data:`MAX_REG_W`): ``L`` query words a lane, ``G`` lanes a candidate
-    (``32 // G`` candidates a warp), strips of ``S`` words."""
-    L, S = TILE_WORDS, STRIP_WORDS
-    return L, min(-(-W // L), S // L), S
-
-
-def tile_launches(name: str, entry: str, tensors, W: int,
-                  rows: int) -> None:
-    """Launch K4's or K6's entry point ``entry`` (counted as ``name``) over
-    every candidate: ``tensors`` are the pointers it takes before the edge
-    buffer, the packed corpus ``[LB/4, B]`` third from the end and the
-    output ``[NQ, B]`` last.  Queries over
-    :data:`~.lev_kernel.STRIP_WORDS` words get an edge buffer of ``rows``
-    text rows a u32 and one launch per chunk of candidates within
-    :data:`~.lev_kernel.SCRATCH_BYTES` (:func:`~.lev_kernel.edge_chunk`),
-    else one launch."""
-    cand, out = tensors[-3], tensors[-1]
-    NQ, B = out.shape
-    dev = cand.device
-    chunk, edge = B, None
-    if W > STRIP_WORDS:
-        LB = cand.shape[0] * 4
-        chunk = edge_chunk(LB, B, NQ, rows)
-        edge = torch.empty(NQ * -(-LB // rows) * chunk, dtype=torch.int32,
-                           device=dev)
-    for b0 in range(0, B, chunk):
-        launch(name, entry, dev, *(t.data_ptr() for t in tensors),
-               None if edge is None else edge.data_ptr(), B, b0,
-               min(chunk, B - b0), cand.shape[0], W, NQ)
+    :data:`MAX_REG_W`): :func:`~.lev_kernel.tile_plan` at ``L`` =
+    :data:`TILE_WORDS`."""
+    return lev_tile_plan(W, TILE_WORDS)
 
 
 def text_steps(cand: torch.Tensor, lb: torch.Tensor):

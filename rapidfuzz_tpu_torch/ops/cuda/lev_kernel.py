@@ -257,11 +257,12 @@ def lev_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     return dist.to(torch.int32)
 
 
-def tile_plan(W: int):
-    """``(L, G, S)`` of K1's tile form for a query of ``W`` words (past
-    :data:`MAX_REG_W`): ``L`` query words a lane, ``G`` lanes a candidate
-    (``32 // G`` candidates a warp), strips of ``S`` words."""
-    L, S = TILE_WORDS, STRIP_WORDS
+def tile_plan(W: int, L: int = TILE_WORDS):
+    """``(L, G, S)`` of K1's tile form (K4's and K6's with their ``L``) for
+    a query of ``W`` words (past :data:`MAX_REG_W`): ``L`` query words a
+    lane, ``G`` lanes a candidate (``32 // G`` candidates a warp), strips of
+    ``S`` words."""
+    S = STRIP_WORDS
     return L, min(-(-W // L), S // L), S
 
 
@@ -272,6 +273,30 @@ def edge_chunk(LB: int, B: int, NQ: int = 1, rows: int = EDGE_ROWS) -> int:
     u32), whole multiples of :data:`BLOCK`, within :data:`SCRATCH_BYTES`."""
     per = 4 * NQ * -(-LB // rows)
     return min(B, max(BLOCK, SCRATCH_BYTES // per // BLOCK * BLOCK))
+
+
+def tile_launches(name: str, entry: str, tensors, W: int,
+                  rows: int = EDGE_ROWS) -> None:
+    """Launch K1's, K4's or K6's entry point ``entry`` (counted as
+    ``name``) over every candidate: ``tensors`` are the pointers it takes
+    before the edge buffer, the packed corpus ``[LB/4, B]`` third from the
+    end and the output ``[NQ, B]`` last.  Queries over :data:`STRIP_WORDS`
+    words get an edge buffer of ``rows`` text rows a u32 and one launch
+    per chunk of candidates within :data:`SCRATCH_BYTES`
+    (:func:`edge_chunk`), else one launch."""
+    cand, out = tensors[-3], tensors[-1]
+    NQ, B = out.shape
+    dev = cand.device
+    chunk, edge = B, None
+    if W > STRIP_WORDS:
+        LB = cand.shape[0] * 4
+        chunk = edge_chunk(LB, B, NQ, rows)
+        edge = torch.empty(NQ * -(-LB // rows) * chunk, dtype=torch.int32,
+                           device=dev)
+    for b0 in range(0, B, chunk):
+        launch(name, entry, dev, *(t.data_ptr() for t in tensors),
+               None if edge is None else edge.data_ptr(), B, b0,
+               min(chunk, B - b0), cand.shape[0], W, NQ)
 
 
 def _lev_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
@@ -293,21 +318,9 @@ def _lev_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty((NQ, B), dtype=torch.int32, device=dev)
-    chunk, edge = B, None
-    if W > STRIP_WORDS:
-        # strips pass 2 bits a text row through the edge buffer: one launch
-        # per chunk of candidates under SCRATCH_BYTES
-        LB = cand.shape[0] * 4
-        chunk = edge_chunk(LB, B, NQ)
-        edge = torch.empty(NQ * -(-LB // EDGE_ROWS) * chunk,
-                           dtype=torch.int32, device=dev)
     if B and NQ:
-        for b0 in range(0, B, chunk):
-            launch(name, "rf_lev_scan", dev, tabs.data_ptr(),
-                   las.data_ptr(), cand.data_ptr(), lb.data_ptr(),
-                   out.data_ptr(),
-                   None if edge is None else edge.data_ptr(), B, b0,
-                   min(chunk, B - b0), cand.shape[0], W, NQ)
+        # strips pass 2 bits a text row through the edge buffer
+        tile_launches(name, "rf_lev_scan", (tabs, las, cand, lb, out), W)
     return out
 
 

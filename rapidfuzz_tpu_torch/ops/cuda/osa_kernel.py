@@ -19,7 +19,7 @@ words a lane, ``G`` lanes a candidate passing the HP/HN carries and the
 transposition term's cross-word bit by shuffle, strips of
 :data:`~.lev_kernel.STRIP_WORDS` passing those 3 bits through an edge
 buffer, :data:`EDGE_ROWS` text rows a u32
-(:func:`~.lcs_kernel.tile_launches`).
+(:func:`~.lev_kernel.tile_launches`).
 
 The corpus and the PM tables are K1's (:func:`~.lev_kernel.prepare_corpus`,
 :func:`~.lev_kernel.stage_query`): ``cand`` ``[LB/4, B]``, ``lb`` ``[B]``,
@@ -36,9 +36,10 @@ import numpy as np
 import torch
 
 from . import check
-from .lcs_kernel import padded_tables, text_steps, tile_launches
-from .lev_kernel import (LONG_LB, M32, PM_ROWS, STRIP_WORDS, stage_queries,
-                         stage_query, words)
+from .lcs_kernel import padded_tables, text_steps
+from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
+                         tile_launches, words)
+from .lev_kernel import tile_plan as lev_tile_plan
 
 MAX_REG_W = 8    # K6 keeps VP, VN, D0 and PM of the last step in a thread's
                  # registers up to this many words; its tile form past it
@@ -49,10 +50,9 @@ EDGE_ROWS = 8    # text rows a u32 of the strip edge buffer packs (4-bit
 
 def tile_plan(W: int):
     """``(L, G, S)`` of K6's tile form for a query of ``W`` words (past
-    :data:`MAX_REG_W`): ``L`` query words a lane, ``G`` lanes a candidate
-    (``32 // G`` candidates a warp), strips of ``S`` words."""
-    L, S = TILE_WORDS, STRIP_WORDS
-    return L, min(-(-W // L), S // L), S
+    :data:`MAX_REG_W`): :func:`~.lev_kernel.tile_plan` at ``L`` =
+    :data:`TILE_WORDS`."""
+    return lev_tile_plan(W, TILE_WORDS)
 
 
 def osa_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
