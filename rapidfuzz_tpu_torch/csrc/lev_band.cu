@@ -27,59 +27,110 @@
 // rejects them.  Final masks as band_kernel.py:374-376: lb == 0 -> la,
 // |la - lb| > cut -> BIG, dist > cut -> BIG.
 //
-// What bounds it on an H100: integer issue, as K1, but the per-step cost
-// is ~25 ops per band word independent of the query's length.
-//
 // Design: one thread per candidate over the [LB/4, B] packed corpus, as
-// K1.  The v5e needed per-step PM windows pre-shifted on the host
-// (build_shifted_tables) and probe masks from a table (probe_table)
-// because its scalar shifts were slow; here the BW + 1 PM words around
-// the window are read from the query's [W, 256] table (the K1 table, cut
-// to the ws words a bucket of LB chars can reach) and joined with
-// __funnelshift_r, and the probe bit is computed in-thread.  The table
-// sits in shared memory when its ws KB fit the 48 KB a block gets without
-// opting in; longer queries over long buckets read it through the
-// read-only cache, where the few rows around the moving window stay hot.
-// Every index that depends on the step alone is uniform across the warp;
-// corpus offsets are 64-bit (row * B).
+// K1; the BW + 1 PM words around the window are joined with
+// __funnelshift_r and the probe bit is computed in-thread (the v5e needed
+// host-shifted tables for both).  Every PM row a step reads depends on the
+// step j alone, so the threads of a block, walking their texts in step,
+// read the same rows.  The block walks the text in chunks of S steps, and
+// the rows chunk c reads (ring_plan in ops/cuda/band_kernel.py: R rows from
+// widx0(c*S)) are staged into a shared-memory ring of two slots while the
+// block computes chunk c - 1, rows outside [0, ws) as zeros, so no step
+// reads device memory for PM or tests a row's range.  One barrier a chunk;
+// a thread whose text has ended keeps joining the barriers until the
+// block's longest text ends.  Each thread holds the next kAhead packed
+// corpus words in registers and loads word r + kAhead while it steps word
+// r.  Blocks start with the last (longest, as the scanner sorts by length)
+// candidates, and the wrapper picks a block of 64-256 threads from B so
+// that a launch reaches every SM.
+//
+// Probe switches (-D): RF_BAND_RING 0 reads PM from device memory through
+// the read-only cache (no ring), 1 stages the ring with cp.async, 2 with
+// one bulk copy (TMA) a chunk completing on an mbarrier; RF_BAND_AHEAD
+// corpus words held ahead; RF_BAND_SPLIT 1 runs chunks that miss the
+// horizontal phase with no phase test a step; RF_BAND_REVERSE 1 starts
+// the last blocks first.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef RF_BAND_RING
+#define RF_BAND_RING 1
+#endif
+#ifndef RF_BAND_AHEAD
+#define RF_BAND_AHEAD 4
+#endif
+#ifndef RF_BAND_SPLIT
+#define RF_BAND_SPLIT 1
+#endif
+#ifndef RF_BAND_REVERSE
+#define RF_BAND_REVERSE 1
+#endif
+#ifndef RF_BAND_LEAN
+#define RF_BAND_LEAN 1
+#endif
+#ifndef RF_BAND_UNIFORM
+#define RF_BAND_UNIFORM 0
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;
+constexpr int kRows = 256;        // PM entries a table word (a byte value)
 constexpr int kBig = 1 << 29;
-constexpr int kSmemWords = 48;   // table words that fit 48 KB of shared
+constexpr int kMaxThreads = 256;
+constexpr int kAhead = RF_BAND_AHEAD;
+constexpr int kSlotBytesMax = 48 * 1024;  // the ring's two slots, in all
 
 template <int BW>
 struct Band {
     uint32_t vp[BW], vn[BW];
     int dist;
+    int top;    // d0's top bits over the steps of diagonal-only chunks
 };
 
-template <bool SMEM>
-__device__ __forceinline__ uint32_t pm_word(const uint32_t* pm, int w,
-                                            uint32_t c) {
-    return SMEM ? pm[w * kRows + c] : __ldg(pm + w * kRows + c);
+// Byte u of a packed corpus word: one PRMT
+__device__ __forceinline__ uint32_t byte_of(uint32_t word, int u) {
+#if RF_BAND_LEAN
+    return __byte_perm(word, 0u, 0x4440u | (uint32_t)u);
+#else
+    return (word >> (8 * u)) & 0xFFu;
+#endif
 }
 
-template <int BW, bool SMEM>
-__device__ __forceinline__ void band_step(const uint32_t* pm, int ws, int j,
-                                          int semi, int pstart, uint32_t c,
-                                          Band<BW>& st) {
-    // PM window of band word k starts at pattern position start0 + 32*k:
-    // words widx0 + k and widx0 + k + 1, same shift for every k
-    const int start0 = j + semi + 1 - 32 * BW;
-    const int widx0 = start0 >> 5;  // floor division (arithmetic shift)
-    const unsigned sh = (unsigned)(start0 & 31);
-    uint32_t pw[BW + 1];
+// The BW + 1 PM words of step j's window for char c: from the ring slot
+// `ring` holding rows wb.. (RING), else from the table in device memory.
+template <int BW>
+__device__ __forceinline__ void pm_window(const uint32_t* ring,
+                                          const uint32_t* pm, int ws,
+                                          int wb, int widx0, uint32_t c,
+                                          uint32_t (&pw)[BW + 1]) {
+#if RF_BAND_RING
+    const uint32_t* row = ring + (widx0 - wb) * kRows + c;
+#pragma unroll
+    for (int i = 0; i <= BW; ++i) pw[i] = row[i * kRows];
+#else
 #pragma unroll
     for (int i = 0; i <= BW; ++i) {
         const int w = widx0 + i;
-        pw[i] = (w >= 0 && w < ws) ? pm_word<SMEM>(pm, w, c) : 0u;
+        pw[i] = (w >= 0 && w < ws) ? __ldg(pm + w * kRows + c) : 0u;
     }
+#endif
+}
+
+// One text step of the band recurrence (band_kernel.py's step); PHASE
+// false runs the diagonal phase's delta with no test of the phase.
+template <int BW, bool PHASE>
+__device__ __forceinline__ void band_step(const uint32_t* ring,
+                                          const uint32_t* pm, int ws, int wb,
+                                          int j, int off, int pstart,
+                                          uint32_t c, Band<BW>& st) {
+    // PM window of band word k starts at pattern position start0 + 32*k:
+    // words widx0 + k and widx0 + k + 1, same shift for every k
+    const int start0 = j + off;
+    const int widx0 = start0 >> 5;  // floor division (arithmetic shift)
+    const unsigned sh = (unsigned)(start0 & 31);
+    uint32_t pw[BW + 1];
+    pm_window<BW>(ring, pm, ws, wb, widx0, c, pw);
     uint32_t d0[BW], hp[BW], hn[BW];
     uint32_t carry = 0u;
 #pragma unroll
@@ -92,16 +143,23 @@ __device__ __forceinline__ void band_step(const uint32_t* pm, int ws, int j,
         hn[k] = d0[k] & st.vp[k];
     }
     const int kk = j - pstart;
-    if (kk >= 0 && kk <= 32 * BW - 2) {       // horizontal phase
+    if (PHASE && kk >= 0 && kk <= 32 * BW - 2) {     // horizontal phase
         const int rb = 32 * BW - 2 - kk;
-        uint32_t hpw = 0u, hnw = 0u;
+        // the word holding bit rb, by selects (an indexed pick goes to a
+        // stack array)
+        uint32_t hpw = hp[0], hnw = hn[0];
 #pragma unroll
-        for (int k = 0; k < BW; ++k)
-            if (k == (rb >> 5)) { hpw = hp[k]; hnw = hn[k]; }
+        for (int k = 1; k < BW; ++k) {
+            const bool at = (rb >> 5) == k;
+            hpw = at ? hp[k] : hpw;
+            hnw = at ? hn[k] : hnw;
+        }
         st.dist += (int)((hpw >> (rb & 31)) & 1u)
                  - (int)((hnw >> (rb & 31)) & 1u);
-    } else {                                  // diagonal phase
+    } else if (PHASE || !RF_BAND_LEAN) {             // diagonal phase
         st.dist += 1 - (int)(d0[BW - 1] >> 31);
+    } else {      // a diagonal-only chunk: its steps are added after it
+        st.top += (int)(d0[BW - 1] >> 31);
     }
 #pragma unroll
     for (int k = 0; k < BW; ++k) {
@@ -112,24 +170,158 @@ __device__ __forceinline__ void band_step(const uint32_t* pm, int ws, int j,
     }
 }
 
+// The thread's steps of one chunk, [j0, min(j0 + S, n)): word r of its
+// column comes from nxt[r % kAhead], which then loads word r + kAhead.
+// UNIFORM walks the block's steps (to jblk, the block's longest text) in
+// every thread, a thread stepping only its own, so that the step index is
+// the same in every thread.
+template <int BW, bool PHASE>
+__device__ __forceinline__ void run_chunk(const uint32_t* ring,
+                                          const uint32_t* pm, int ws, int wb,
+                                          int j0, int S, int n, int jblk,
+                                          int off, int pstart,
+                                          const uint32_t* col, int64_t B,
+                                          uint32_t (&nxt)[kAhead],
+                                          Band<BW>& st) {
+#if RF_BAND_UNIFORM
+    const int jend = min(j0 + S, jblk);
+#else
+    const int jend = min(j0 + S, n);
+#endif
+    const int nw = (n + 3) >> 2;
+    for (int g = j0 >> 2; 4 * g < jend; g += kAhead) {
+#pragma unroll
+        for (int d = 0; d < kAhead; ++d) {
+            const int r = g + d;
+            const uint32_t word = nxt[d];
+            if (r + kAhead < nw) nxt[d] = col[(size_t)(r + kAhead) * B];
+            const int j = 4 * r;
+            if (j + 4 <= n && j + 4 <= jend) {
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    band_step<BW, PHASE>(ring, pm, ws, wb, j + u, off,
+                                         pstart, byte_of(word, u), st);
+            } else {
+                for (int u = 0; j + u < min(jend, n); ++u)
+                    band_step<BW, PHASE>(ring, pm, ws, wb, j + u, off,
+                                         pstart, byte_of(word, u), st);
+            }
+        }
+    }
+    if (!PHASE && RF_BAND_LEAN)
+        st.dist += max(min(j0 + S, n) - j0, 0);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+    // bytes < 16 zero-fills the rest; 0 reads nothing
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+
+#if RF_BAND_RING == 2
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+    const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                 :: "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
+    uint32_t done = 0;
+    while (!done) {
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    }
+}
+#endif
+
+// Stage rows wb .. wb + R - 1 of the [ws, 256] table into `slot`, rows
+// outside [0, ws) as zeros.
+__device__ __forceinline__ void stage_rows(uint32_t* slot, const uint32_t* pm,
+                                           int ws, int wb, int R,
+                                           uint64_t* bar) {
+#if RF_BAND_RING == 1
+    const uint32_t base = (uint32_t)__cvta_generic_to_shared(slot);
+    const int pieces = R * (kRows / 4);           // 16-byte pieces
+    for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
+        const int w = wb + (i >> 6);
+        const bool in = (unsigned)w < (unsigned)ws;
+        cp_async16(base + 16u * i,
+                   in ? pm + (size_t)w * kRows + 4 * (i & 63) : pm,
+                   in ? 16u : 0u);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+#elif RF_BAND_RING == 2
+    const int lo = max(wb, 0), hi = max(min(wb + R, ws), lo);
+    uint4* s4 = reinterpret_cast<uint4*>(slot);
+    const int zlo = (lo - wb) * (kRows / 4), zhi = (hi - wb) * (kRows / 4);
+    for (int i = threadIdx.x; i < R * (kRows / 4); i += blockDim.x)
+        if (i < zlo || i >= zhi) s4[i] = make_uint4(0u, 0u, 0u, 0u);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+        const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+        const uint32_t bytes = (uint32_t)(hi - lo) * kRows * 4u;
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                     :: "r"(b), "r"(bytes) : "memory");
+        if (bytes) {
+            const uint32_t d = (uint32_t)__cvta_generic_to_shared(
+                slot + (lo - wb) * kRows);
+            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                         "complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                         :: "r"(d), "l"(pm + (size_t)lo * kRows),
+                            "r"(bytes), "r"(b) : "memory");
+        }
+    }
+#endif
+}
+
 // PINNED fixes semi at 16*BW - 1 at compile time, which folds the window
 // and probe arithmetic as K3 did before it took a run-time semiwidth.
-template <int BW, bool SMEM, bool PINNED>
-__global__ void __launch_bounds__(kThreads)
-lev_band_kernel(const uint32_t* __restrict__ pm_g, int ws, int la, int cut,
+#ifndef RF_BAND_MINB
+#define RF_BAND_MINB 1
+#endif
+
+template <int BW, bool PINNED>
+__global__ void __launch_bounds__(kMaxThreads, RF_BAND_MINB)
+lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
                 int semi_arg, const uint32_t* __restrict__ cand,
                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                int64_t B, int lb4) {
+                int64_t B, int lb4, int S, int R) {
     const int semi = PINNED ? 16 * BW - 1 : semi_arg;
-    extern __shared__ uint32_t pm_s[];
-    if (SMEM) {
-        for (int i = threadIdx.x; i < ws * kRows; i += kThreads)
-            pm_s[i] = pm_g[i];
-        __syncthreads();
+    const int off = semi + 1 - 32 * BW;       // start0 = j + off
+    extern __shared__ uint4 ring4[];
+    uint32_t* ring = reinterpret_cast<uint32_t*>(ring4);
+    const int slot = R * kRows;
+#if RF_BAND_RING == 2
+    __shared__ uint64_t bars[2];
+    if (threadIdx.x == 0) {
+        mbar_init(&bars[0]);
+        mbar_init(&bars[1]);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    const uint32_t* pm = SMEM ? pm_s : pm_g;
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (b >= B) return;
+    __syncthreads();
+#else
+    uint64_t* bars = nullptr;
+#endif
+#if RF_BAND_REVERSE
+    const int64_t blk = (int64_t)gridDim.x - 1 - blockIdx.x;
+#else
+    const int64_t blk = blockIdx.x;
+#endif
+    const int64_t b = blk * blockDim.x + threadIdx.x;
+    const int lbv = b < B ? lb[b] : 0;
+    const int n = min(lbv, 4 * lb4);
+    const int nw = (n + 3) >> 2;
+    const uint32_t* col = cand + (b < B ? b : 0);
+    // the first words load whatever the length (within the bucket), so
+    // they need not wait for lb[b]
+    uint32_t nxt[kAhead];
+#pragma unroll
+    for (int d = 0; d < kAhead; ++d)
+        nxt[d] = (b < B && d < lb4) ? col[(size_t)d * B] : 0u;
 
     Band<BW> st;
     const int lo = 32 * BW - 1 - semi;     // VP: top semi + 1 bits set
@@ -141,61 +333,93 @@ lev_band_kernel(const uint32_t* __restrict__ pm_g, int ws, int la, int cut,
         st.vn[k] = 0u;
     }
     st.dist = semi;
+    st.top = 0;
     const int pstart = max(la - semi, 0);
-    const int lbv = lb[b];
-    const int n = min(lbv, 4 * lb4);
-    const uint32_t* col = cand + b;
-    const int rows = n >> 2;
-    for (int r = 0; r < rows; ++r) {
-        const uint32_t word = col[(size_t)r * B];
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-            band_step<BW, SMEM>(pm, ws, 4 * r + u, semi, pstart,
-                                (word >> (8 * u)) & 0xFFu, st);
+    const int pend = pstart + 32 * BW - 2;
+
+#if RF_BAND_RING
+    stage_rows(ring, pm, ws, (0 + off) >> 5, R, bars);
+#endif
+#if RF_BAND_UNIFORM
+    __shared__ int nmax_s;
+    if (threadIdx.x == 0) nmax_s = 0;
+    __syncthreads();
+    const int wmax = __reduce_max_sync(0xFFFFFFFFu, n);
+    if ((threadIdx.x & 31) == 0) atomicMax(&nmax_s, wmax);
+    __syncthreads();
+    const int jblk = nmax_s;
+#else
+    const int jblk = 0;
+#endif
+    bool more = true;
+    for (int c = 0; more; ++c) {
+        const int j0 = c * S;
+        const int wb = (j0 + off) >> 5;       // first row of chunk c
+        const uint32_t* cur = ring + (c & 1) * slot;
+#if RF_BAND_RING == 1
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+#elif RF_BAND_RING == 2
+        mbar_wait(&bars[c & 1], (uint32_t)(c >> 1) & 1u);
+#endif
+        // one barrier a chunk: chunk c has landed for every thread, and
+        // every thread is done with chunk c - 1, whose slot is refilled
+        more = __syncthreads_or(j0 + S < n);
+#if RF_BAND_RING
+        if (more)
+            stage_rows(ring + ((c + 1) & 1) * slot, pm, ws,
+                       (j0 + S + off) >> 5, R, bars + ((c + 1) & 1));
+#endif
+        if (!RF_BAND_UNIFORM && j0 >= n) continue;
+        if (!RF_BAND_SPLIT || (j0 <= pend && pstart < j0 + S))
+            run_chunk<BW, true>(cur, pm, ws, wb, j0, S, n, jblk, off, pstart,
+                                col, B, nxt, st);
+        else
+            run_chunk<BW, false>(cur, pm, ws, wb, j0, S, n, jblk, off,
+                                 pstart, col, B, nxt, st);
     }
-    const int rem = n & 3;
-    if (rem) {
-        const uint32_t word = col[(size_t)rows * B];
-        for (int u = 0; u < rem; ++u)
-            band_step<BW, SMEM>(pm, ws, 4 * rows + u, semi, pstart,
-                                (word >> (8 * u)) & 0xFFu, st);
-    }
-    int d = (lbv == 0) ? la : st.dist;
+    if (b >= B) return;
+    int d = (lbv == 0) ? la : st.dist - st.top;
     if (abs(la - lbv) > cut) d = kBig;
     if (d > cut) d = kBig;
     out[b] = d;
 }
 
+// Rows a chunk of S steps reads (ring_plan): from widx0(c*S) to
+// widx0(c*S + L - 1) + BW, L = min(S, LB) steps (at least 1); S is a
+// multiple of 32, so every chunk starts at the same offset m in its first
+// row.
+int ring_rows(int bw, int semi, int S, int LB) {
+    const int m = ((semi + 1 - 32 * bw) % 32 + 32) % 32;
+    const int L = S < LB ? S : (LB > 1 ? LB : 1);
+    return (m + L - 1) / 32 + bw + 1;
+}
+
 template <int BW, bool PINNED>
-void launch_table(const uint32_t* pm, int ws, int la, int cut, int semi,
-                  const uint32_t* cand, const int32_t* lb, int32_t* out,
-                  int64_t B, int lb4, cudaStream_t stream) {
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads));
-    if (ws <= kSmemWords) {
-        const size_t smem = (size_t)ws * kRows * sizeof(uint32_t);
-        lev_band_kernel<BW, true, PINNED><<<grid, kThreads, smem, stream>>>(
-            pm, ws, la, cut, semi, cand, lb, out, B, lb4);
-    } else {
-        lev_band_kernel<BW, false, PINNED><<<grid, kThreads, 0, stream>>>(
-            pm, ws, la, cut, semi, cand, lb, out, B, lb4);
-    }
+cudaError_t launch(const uint32_t* pm, int ws, int la, int cut, int semi,
+                   const uint32_t* cand, const int32_t* lb, int32_t* out,
+                   int64_t B, int lb4, int threads, int S, int R,
+                   cudaStream_t stream) {
+    const int64_t blocks = (B + threads - 1) / threads;
+    const bool two = (int64_t)S < 4 * (int64_t)lb4;   // more than one chunk
+    const size_t smem = RF_BAND_RING
+        ? (size_t)(two ? 2 : 1) * R * kRows * sizeof(uint32_t) : 0;
+    lev_band_kernel<BW, PINNED><<<(unsigned)blocks, threads, smem, stream>>>(
+        pm, ws, la, cut, semi, cand, lb, out, B, lb4, S, R);
+    return cudaGetLastError();
 }
 
 template <int BW>
 cudaError_t launch_band(const uint32_t* pm, int ws, int la, int cut,
                         int semi, const uint32_t* cand, const int32_t* lb,
-                        int32_t* out, int64_t B, int lb4,
-                        cudaStream_t stream) {
-    if (semi == 16 * BW - 1) {
-        launch_table<BW, true>(pm, ws, la, cut, semi, cand, lb, out, B, lb4,
-                               stream);
-    } else if constexpr (BW == 1) {   // the run-time band is one word
-        launch_table<BW, false>(pm, ws, la, cut, semi, cand, lb, out, B,
-                                lb4, stream);
-    } else {
-        return cudaErrorInvalidValue;
-    }
-    return cudaGetLastError();
+                        int32_t* out, int64_t B, int lb4, int threads, int S,
+                        int R, cudaStream_t stream) {
+    if (semi == 16 * BW - 1)
+        return launch<BW, true>(pm, ws, la, cut, semi, cand, lb, out, B, lb4,
+                                threads, S, R, stream);
+    if constexpr (BW == 1)   // the run-time band is one word
+        return launch<BW, false>(pm, ws, la, cut, semi, cand, lb, out, B,
+                                 lb4, threads, S, R, stream);
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -204,14 +428,21 @@ extern "C" cudaError_t rf_lev_band(const uint32_t* pm, int ws, int la,
                                    int cut, int semi, int bw,
                                    const uint32_t* cand, const int32_t* lb,
                                    int32_t* out, int64_t B, int lb4,
+                                   int threads, int S, int R,
                                    cudaStream_t stream) {
-    // the band register holds 2*semi + 2 <= 32*bw rows
-    if (ws < 1 || semi < 0 || 2 * semi + 2 > 32 * bw)
+    // the band register holds 2*semi + 2 <= 32*bw rows; a chunk is whole
+    // groups of kAhead words and starts a row at the same offset
+    if (ws < 1 || semi < 0 || 2 * semi + 2 > 32 * bw || lb4 < 0
+        || threads < 32 || threads > kMaxThreads || threads % 32
+        || S < 32 || S % 32 || S % (4 * kAhead)
+        || R < ring_rows(bw, semi, S, 4 * lb4)
+        || 2 * R * kRows * (int)sizeof(uint32_t) > kSlotBytesMax
+        || (reinterpret_cast<uintptr_t>(pm) & 15))
         return cudaErrorInvalidValue;
     switch (bw) {
-        case 1: return launch_band<1>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, stream);
-        case 2: return launch_band<2>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, stream);
-        case 3: return launch_band<3>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, stream);
+        case 1: return launch_band<1>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
+        case 2: return launch_band<2>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
+        case 3: return launch_band<3>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
         default: return cudaErrorInvalidValue;
     }
 }

@@ -45,6 +45,10 @@ MAX_CUTOFF = 15        # one-word band (the TPU's dynamic kernel)
 MAX_CUTOFF_FAST = 47   # pinned band of up to 3 words
 FLAT_MAX_STEPS = 512   # the TPU's flat-unroll budget (kept for routing)
 FAST_MAX_LB = 1024     # the TPU's bucket cap of the pinned band (routing)
+CHUNK = 256            # text steps a chunk of K3's PM ring (S)
+AHEAD = 4              # packed corpus words a K3 thread holds ahead
+BLOCKS = (256, 128, 64)  # K3's block sizes, largest first
+SMS = 132              # the H100's SMs (the block plan's default)
 
 
 def band_words(cutoff: int) -> int:
@@ -60,6 +64,53 @@ def table_words(la: int, LB: int) -> int:
     is at most 47), so words past ``(LB + 16)//32 + 1`` are never
     touched."""
     return min(words(la), (LB + 16) // 32 + 2)
+
+
+def ring_plan(bw: int, semi: int, LB: int, S: int = CHUNK):
+    """K3's PM ring for a ``bw``-word band of semiwidth ``semi`` over a
+    bucket of ``LB`` chars, in chunks of ``S`` text steps (a multiple of
+    32 and of ``4 * AHEAD``) -> ``(rows, slots)``: the table rows a chunk
+    stages (:func:`chunk_rows`) and the ring's slots (2 when the bucket
+    takes more than one chunk: chunk ``c + 1`` lands while ``c`` runs).
+    Step ``j`` reads rows ``widx0(j) .. widx0(j) + bw``, ``widx0(j) =
+    (j + semi + 1 - 32*bw) // 32``; a chunk of ``L = min(S, LB)`` steps
+    starts ``m = (semi + 1 - 32*bw) % 32`` into its first row (every chunk
+    alike, ``S`` being a multiple of 32), so it spans
+    ``(m + L - 1) // 32 + bw + 1`` rows."""
+    if S % 32 or S % (4 * AHEAD) or S <= 0:
+        raise ValueError(f"chunk of {S} steps: not a multiple of 32 and "
+                         f"{4 * AHEAD}")
+    m = (semi + 1 - 32 * bw) % 32
+    rows = (m + max(1, min(S, LB)) - 1) // 32 + bw + 1
+    return rows, 2 if S < LB else 1
+
+
+def chunk_rows(c: int, bw: int, semi: int, S: int = CHUNK) -> int:
+    """First table row chunk ``c`` (steps ``c*S ..``) stages: ``widx0(c*S)``;
+    it stages :func:`ring_plan`'s ``rows`` rows from there, those outside
+    ``[0, ws)`` as zeros."""
+    return (c * S + semi + 1 - 32 * bw) >> 5
+
+
+def block_threads(B: int, sms: int = SMS) -> int:
+    """K3's block size for ``B`` candidates: the largest of
+    :data:`BLOCKS` that gives at least two blocks an SM, else the
+    smallest."""
+    for t in BLOCKS:
+        if -(-B // t) >= 2 * sms:
+            return t
+    return BLOCKS[-1]
+
+
+def block_map(B: int, threads: int) -> torch.Tensor:
+    """The candidate each of K3's threads takes, in launch order (block
+    ``i``, thread ``t`` at ``i * threads + t``): block ``i`` takes the
+    candidates of block ``nblocks - 1 - i``, so the last (longest) start
+    first; ``-1`` past ``B``."""
+    nb = -(-B // threads)
+    idx = (torch.arange(nb - 1, -1, -1)[:, None] * threads
+           + torch.arange(threads)[None, :]).reshape(-1)
+    return torch.where(idx < B, idx, -1)
 
 
 def _vp0(bw: int, semi: int) -> list[int]:
@@ -219,7 +270,10 @@ def _band(q: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, cut: int,
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
+        rows, _ = ring_plan(bw, semi, LB)
+        threads = block_threads(
+            B, torch.cuda.get_device_properties(dev).multi_processor_count)
         launch(name, "rf_lev_band", dev, tabs.data_ptr(), tabs.shape[0], la,
                cut, semi, bw, cand.data_ptr(), lb.data_ptr(),
-               out.data_ptr(), B, cand.shape[0])
+               out.data_ptr(), B, cand.shape[0], threads, CHUNK, rows)
     return out
