@@ -11,10 +11,10 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``; K1's, K4's and K6's per kernel
-   instance, the run failing if a K4 or K6 instance spills) and, for K1,
-   K4, K6 and K7-K11, each kernel's SASS instruction count and commonest
-   opcodes (``cuobjdump``);
+   registers and spills (``ptxas -v``; K1's, K3's, K4's and K6's per
+   kernel instance, the run failing if a K3, K4 or K6 instance spills)
+   and, for K1, K3, K4, K6 and K7-K11, each kernel's SASS instruction
+   count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: K1 at W = 1, 2, 3 and 8 (registers), its tile
    form at W = 9, 10, 33, 126 and 129 (one word past a strip, also over
@@ -27,7 +27,11 @@ Phases, each printing one JSON line before the next starts:
    routes at 262,144 candidates, the
    long routes (K1 and K4 over 2048- and 8192-char buckets, K4's
    tile form over 2048 only, the run-time band, the streamed bands
-   over 2048) at 2,048 candidates, where the plain
+   over 2048) at 2,048 candidates, K3's PM ring (its three launch names
+   at buckets 64, 1,024, 6,000 and 8,192, pinned bands bw 1-3 and the
+   run-time band at semi 0-15, texts ending one before, at and one past
+   every chunk edge, empty texts, far lengths, queries shorter than the
+   bucket: ``BAND_CASES``) at 2,048 candidates, where the plain
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first tile width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
@@ -177,7 +181,11 @@ Phases, each printing one JSON line before the next starts:
    over the serve corpus, and a 64-char one over the serve and the long
    corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8 (ms and ns a text
    step), its plain version on the first 4,096 text chars at R = 4, and
-   beside its bound the one-warp and one-SM figures;
+   beside its bound the one-warp and one-SM figures; K3's three rows
+   with the instructions its layout adds beside the bound (a warp
+   stepping to its longest text) and, for the run-time band, the floor
+   its longest text's chain of steps sets and what one warp over the 32
+   longest texts takes alone;
 16. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
@@ -412,6 +420,17 @@ TILE_STEP_OPS = {"lev": 120 - 10 - 5 * 3 / 4,
                  "osa": 173 - 11 - 9 - 6 * 3 / 4,
                  "lcs": 101 - 8 - 6 * 3 / 4}
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
+#: What K3 issues beside its bound's OPS goes beside it
+#: (lev_band*_layout_bound_ms), counted in the SASS of the built library
+#: under alu_blocks' rule: INT32-lane instructions per thread and text step
+#: of lev_band_kernel<1,1>'s unrolled word (4 steps), in chunks with no
+#: horizontal phase ("diag") and in those with it ("phase").  Its
+#: loop-carried chain a step is LEV_BAND_CHAIN dependent instructions (vp
+#: -> and -> add -> lop3 d0 -> shift -> lop3 vp), each ALU_LATENCY cycles
+#: (the integer pipe's dependent-issue latency; not measured here)
+LEV_BAND_STEP_OPS = {"diag": 56 / 4, "phase": 54 / 4}
+LEV_BAND_CHAIN = 5
+ALU_LATENCY = 4
 #: K10's bound charges every window step the function needs, per query
 #: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
 #: the SASS of the built library: the loop body of K10's role for
@@ -459,6 +478,21 @@ PARTIAL_ODD_SAMPLE = 24
 LEV_PAIR_OPS = (16 + 16 + 16 + 15 + 2 * 16 + 16 + 16 + 3 * 16) / 16
 LEV_PAIR_STEP_ALU = (122, 147)
 LEV_PAIR_THREADS = 128
+#: K3's ring cases (band_cases): (bucket, query length, [(launch name,
+#: cutoff)]); lev_band_rt's semiwidth is its cutoff, the pinned bands'
+#: 16 * bw - 1
+BAND_CASES = (
+    (64, 64, [("lev_band", c) for c in (15, 31, 47)]),
+    (64, 15, [("lev_band_rt", c) for c in range(15)]),
+    (1024, 257, [("lev_band", c) for c in (15, 31, 47)]
+     + [("lev_band_long", 47)]),
+    (1024, 12, [("lev_band_rt", c) for c in (0, 7, 11)]),
+    (6000, 4001, [("lev_band_rt", 0), ("lev_band_rt", 15),
+                  ("lev_band_long", 31)]),
+    (6000, 40, [("lev_band_rt", 7), ("lev_band_long", 15)]),
+    (8192, 4001, [("lev_band_rt", 7), ("lev_band_long", 15),
+                  ("lev_band_long", 47)]),
+    (8192, 40, [("lev_band_rt", 11), ("lev_band_long", 31)]))
 #: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
 #: levenshtein.rs:2139-2161): its distance and the cutoff that must give
 #: None; the pair past the band's ceiling (max_cutoff(8) = 16,383): two
@@ -879,6 +913,7 @@ class Smoke:
                 ("lcs_tile", lambda s: self.tile_cases("lcs", rng, alph, s)),
                 ("long", lambda s: self.long_kernel_cases(rng, alph["byte"],
                                                           s)),
+                ("band", lambda s: self.band_cases(rng, alph["byte"], s)),
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
                 ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
@@ -1099,6 +1134,75 @@ class Smoke:
                 if int((got <= cut).sum()) == 0:
                     raise AssertionError(f"streamed band cutoff={cut}: no "
                                          "candidate accepted")
+        return salt
+
+    def band_cases(self, rng, a, salt):
+        """K3's three launch names against ``lev_band_plain`` at buckets
+        64, 1,024, 6,000 and 8,192 (N_KERNEL_LONG candidates each), every
+        call's route checked by its launch count: ``lev_band`` (the pinned
+        band, bw 1-3, up to 1,024), ``lev_band_long`` (the pinned band at
+        any bucket) and ``lev_band_rt`` (the run-time band, semi 0-14 at
+        bucket 64 and 0, 7, 11 and 15 past it).  The texts copy windows of
+        the query with ~5 % of their chars substituted, two of them the
+        whole query; their lengths are 0, 1, one before, at and one past
+        every chunk edge (``band_kernel.CHUNK``: the PM ring's chunk plan
+        and its barrier), the bucket's end (6,000 ends in a part chunk),
+        the query's +- 40 and near it.  Queries shorter than the bucket
+        (15, 12 and 40 chars) read rows of ws and above as zero; the
+        257-char query's horizontal phase crosses the edge at 256, the
+        4,001-char one's (cutoffs 31 and 47) the edge at 3,840 (BAND_CASES
+        lists the bands)."""
+        torch, lk, bk, kc = self.torch, self.lk, self.bk, self.kc
+        at = torch.from_numpy(a).to(self.dev)
+        B = N_KERNEL_LONG
+        for LBk, la, calls in BAND_CASES:
+            salt += 1
+            g = self.gen(salt)
+            q = rng.choice(a, la)
+            qt = torch.from_numpy(q).to(self.dev)
+            fixed = [0, 1, LBk - 1, LBk, max(la - 40, 0), la + 40, la, la]
+            fixed += [e + d for e in range(bk.CHUNK, LBk + 1, bk.CHUNK)
+                      for d in (-1, 0, 1)]
+            lens = la + torch.randint(-15, 16, (B,), generator=g,
+                                      device=self.dev)
+            lens[: len(fixed)] = torch.tensor(fixed, device=self.dev)
+            lens = lens.clamp(0, LBk)
+            pos = torch.arange(LBk, device=self.dev)[None, :]
+            s0 = (torch.rand(B, generator=g, device=self.dev)
+                  * (la - lens).clamp(min=0)).long()[:, None]
+            s0[6:8] = 0                       # two whole copies
+            chars = qt[(s0 + pos).clamp(max=la - 1)]
+            sub = (torch.rand((B, LBk), generator=g, device=self.dev)
+                   < 0.05) | (s0 + pos >= la)
+            sub[6:8] = pos >= la
+            rnd = at[torch.randint(0, at.numel(), (B, LBk), generator=g,
+                                   device=self.dev)]
+            chars = torch.where(sub, rnd, chars)
+            chars = torch.where(pos < lens[:, None], chars, -1)
+            cand, lb = lk.prepare_corpus(chars.to(torch.int32),
+                                         lens.to(torch.int32))
+            del chars, sub, rnd
+            _, tabs = lk.stage_query(q, "byte", self.dev)
+            ws = bk.table_words(la, LBk)
+            for name, cut in calls:
+                fn = (bk.lev_banded_stream_1v_many if name == "lev_band_long"
+                      else bk.lev_banded_1v_many)
+                before = dict(kc.LAUNCHES)
+                got = fn(q, cand, lb, cutoff=cut)
+                if kc.LAUNCHES[name] != before[name] + 1 or sum(
+                        kc.LAUNCHES.values()) != sum(before.values()) + 1:
+                    raise AssertionError(f"K3 LB={LBk} la={la} cut={cut}: "
+                                         f"not routed to {name}")
+                bw, semi = ((1, cut) if name == "lev_band_rt"
+                            else (bk.band_words(cut),
+                                  16 * bk.band_words(cut) - 1))
+                ref = bk.lev_band_plain(la, cut, bw, tabs[:ws], cand, lb,
+                                        semi)
+                self.compare(name, got, ref,
+                             f"ring LB={LBk} la={la} cut={cut} bw={bw}")
+                if not bool((got <= cut).any()):
+                    raise AssertionError(f"K3 LB={LBk} la={la} cut={cut}: "
+                                         "no candidate accepted")
         return salt
 
     def lcs_kernel_cases(self, rng, alph, salt):
@@ -3584,8 +3688,28 @@ class Smoke:
                            - OPS[f"{kind}_scan"] * W * int(l64.sum()))
             extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
 
+        def band_layout(lbv, la, semi, bw, row):
+            """``extra[row + "_layout_bound_ms"]``: what K3 issues beyond
+            its bound's OPS per band word and step, over this run's data:
+            a warp (32 consecutive candidates) steps to its longest text,
+            LEV_BAND_STEP_OPS["phase"] a step in the chunks that hold the
+            horizontal phase (band_kernel.CHUNK steps each) and ["diag"]
+            in the others."""
+            l64 = lbv.to(torch.int64)
+            nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % 32)])
+            nmax = nmax.view(-1, 32).max(1).values
+            S = bk.CHUNK
+            pstart = max(la - semi, 0)
+            c0, c1 = pstart // S, (pstart + 32 * bw - 2) // S
+            hz = (nmax.clamp(max=(c1 + 1) * S) - c0 * S).clamp(min=0)
+            issue = 32 * (LEV_BAND_STEP_OPS["diag"] * int((nmax - hz).sum())
+                          + LEV_BAND_STEP_OPS["phase"] * int(hz.sum()))
+            layout = issue - OPS[row] * bw * int(l64.sum())
+            extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
+
         lev_layout(lb, lk.words(q.size), "lev_scan")
         lev_layout(lb, 2, "lev_scan_nq", nq=16)
+        band_layout(lb, q.size, 15, 1, "lev_band")
         timed("lev_scan",
               lambda: lk.lev_1v_many(q, cand, lb, staged=(las, tabs)),
               lambda: lk.lev_scan_plain(las, tabs[None], cand, lb)[0], 20,
@@ -3619,6 +3743,20 @@ class Smoke:
         ws_long = bk.table_words(q4k.size, LONG_LB)
         ws_odd = bk.table_words(q4k.size, ODD_LB)
         lev_layout(long_sc.lb, 2, "lev_scan_long")
+        band_layout(long_sc.lb, q4k.size, 15, 1, "lev_band_long")
+        band_layout(odd_sc.lb, q4k.size, 15, 1, "lev_band_rt")
+        # the run-time band's longest text walks its steps one after
+        # another: each step's loop-carried chain, LEV_BAND_CHAIN dependent
+        # instructions of ALU_LATENCY cycles
+        extra["lev_band_rt_chain_floor_ms"] = (
+            int(odd_sc.lb.max()) * LEV_BAND_CHAIN * ALU_LATENCY
+            / (clock_mhz * 1e3))
+        # and what one warp takes alone over the 32 longest of those texts
+        far = torch.argsort(odd_sc.lb, descending=True)[:32]
+        c32, l32 = odd_sc.cand[:, far].contiguous(), odd_sc.lb[far]
+        extra["lev_band_rt_warp_ms"] = cuda_ms(
+            torch, lambda: bk.lev_banded_1v_many(q4k, c32, l32, cutoff=15,
+                                                 staged=l4k), 5)
         timed("lev_scan_long",
               lambda: lk.lev_1v_many(q64, long_sc.cand, long_sc.lb,
                                      staged=l64),
@@ -4301,7 +4439,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kc.load()
     tiles = {f"ptxas_{k}": ptxas_kernels(kc.ptxas_report.get(f"{k}.cu", ""),
-                                         k) for k in ("osa_scan", "lcs_scan")}
+                                         k)
+             for k in ("osa_scan", "lcs_scan", "lev_band")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
@@ -4310,6 +4449,7 @@ def main(argv=None) -> int:
           "sass_lev_scan": sass_histogram(kc, "lev_scan"),
           **tiles, "sass_osa_scan": sass_histogram(kc, "osa_scan"),
           "sass_lcs_scan": sass_histogram(kc, "lcs_scan"),
+          "sass_lev_band": sass_histogram(kc, "lev_band"),
           "ptxas_wlev_scan": ptxas_kernels(
               kc.ptxas_report.get("wlev_scan.cu", ""), "wlev_scan"),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
@@ -4319,12 +4459,12 @@ def main(argv=None) -> int:
           "ptxas_lev_pair": ptxas_kernels(
               kc.ptxas_report.get("lev_pair.cu", ""), "lev_pair"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
-    # no instance of K4 or K6 spills (a fresh build reports every one)
+    # no instance of K3, K4 or K6 spills (a fresh build reports every one)
     spilled = {k: v for t in tiles.values() for k, v in t.items()
                if v["spill_bytes"]}
     if kc.build_seconds is not None and (
             spilled or not all(tiles.values())):
-        raise AssertionError(f"K4/K6 instances spill or were not "
+        raise AssertionError(f"K3/K4/K6 instances spill or were not "
                              f"reported: {spilled or tiles}")
     smoke.phase_kernels()
     smoke.count_words(True)

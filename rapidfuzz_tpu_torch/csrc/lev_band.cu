@@ -7,8 +7,7 @@
 // * _stream_kernel (_run_stream): the same pinned band over buckets of
 //   any length, with the text streamed in 512-char chunks and the band
 //   carried in VMEM between grid steps.  Here a thread walks all of its
-//   candidate's steps, so nothing is chunked: the wrapper launches the
-//   same kernel at any LB;
+//   candidate's steps, so the wrapper launches the same kernel at any LB;
 // * _kernel (_run): a one-word band whose semiwidth is the caller's cutoff
 //   (<= 15), for queries no longer than the pinned band or buckets > 1024.
 //   It is the BW = 1 case of the general band below with semi = cutoff.
@@ -27,59 +26,50 @@
 // rejects them.  Final masks as band_kernel.py:374-376: lb == 0 -> la,
 // |la - lb| > cut -> BIG, dist > cut -> BIG.
 //
+// What bounds it on an H100: integer issue over long buckets (12 INT32-lane
+// operations per band word and step in the bound, 14 issued a step at
+// BW = 1); where a launch holds about one warp a scheduler (the run-time
+// band over 16,384 texts), the serial chain of its longest text's steps.
+//
 // Design: one thread per candidate over the [LB/4, B] packed corpus, as
 // K1; the BW + 1 PM words around the window are joined with
 // __funnelshift_r and the probe bit is computed in-thread (the v5e needed
-// host-shifted tables for both).  Every PM row a step reads depends on the
-// step j alone, so the threads of a block, walking their texts in step,
-// read the same rows.  The block walks the text in chunks of S steps, and
-// the rows chunk c reads (ring_plan in ops/cuda/band_kernel.py: R rows from
-// widx0(c*S)) are staged into a shared-memory ring of two slots while the
-// block computes chunk c - 1, rows outside [0, ws) as zeros, so no step
-// reads device memory for PM or tests a row's range.  One barrier a chunk;
-// a thread whose text has ended keeps joining the barriers until the
-// block's longest text ends.  Each thread holds the next kAhead packed
-// corpus words in registers and loads word r + kAhead while it steps word
-// r.  Blocks start with the last (longest, as the scanner sorts by length)
-// candidates, and the wrapper picks a block of 64-256 threads from B so
-// that a launch reaches every SM.
-//
-// Probe switches (-D): RF_BAND_RING 0 reads PM from device memory through
-// the read-only cache (no ring), 1 stages the ring with cp.async, 2 with
-// one bulk copy (TMA) a chunk completing on an mbarrier; RF_BAND_AHEAD
-// corpus words held ahead; RF_BAND_SPLIT 1 runs chunks that miss the
-// horizontal phase with no phase test a step; RF_BAND_REVERSE 1 starts
-// the last blocks first.
+// host-shifted tables for both).
+// * The PM ring.  Every row a step reads depends on the step j alone, so
+//   a block walks the text in chunks of S steps, every thread at the same
+//   step index up to the block's longest text (a thread steps only its
+//   own), and the R table rows chunk c reads, from widx0(c*S) (ring_plan in
+//   ops/cuda/band_kernel.py), come from one of two shared-memory slots:
+//   one bulk copy (TMA) a chunk, issued by thread 0 while the block
+//   computes the chunk before and completing on the slot's mbarrier, rows
+//   outside [0, ws) zeroed by the block.  No step reads device memory for
+//   PM or tests a row's range.  One barrier a chunk: after it chunk c's
+//   rows are in and every thread is done with chunk c - 1, whose slot is
+//   refilled; a thread whose text has ended keeps joining the barriers
+//   until the block's longest text ends.
+// * Chunks that miss the horizontal phase run the diagonal step with no
+//   test of the phase, counting d0's top bits; their steps are added to
+//   the distance after the chunk.
+// * Corpus words ahead: each thread holds its next kAhead packed words in
+//   registers and loads word r + kAhead while it steps word r; the first
+//   ones load before the text's length is known.
+// * Longest first: block i takes the candidates of block nblocks - 1 - i,
+//   the longest as the scanner sorts by length; the wrapper picks 64
+//   threads a block over buckets of more than one chunk (the blocks then
+//   outnumber the SMs' slots, and the card balances them as they end) and
+//   up to 256 otherwise (band_kernel.block_threads).
 
 #include <cstdint>
 #include <cuda_runtime.h>
-
-#ifndef RF_BAND_RING
-#define RF_BAND_RING 1
-#endif
-#ifndef RF_BAND_AHEAD
-#define RF_BAND_AHEAD 4
-#endif
-#ifndef RF_BAND_SPLIT
-#define RF_BAND_SPLIT 1
-#endif
-#ifndef RF_BAND_REVERSE
-#define RF_BAND_REVERSE 1
-#endif
-#ifndef RF_BAND_LEAN
-#define RF_BAND_LEAN 1
-#endif
-#ifndef RF_BAND_UNIFORM
-#define RF_BAND_UNIFORM 0
-#endif
 
 namespace {
 
 constexpr int kRows = 256;        // PM entries a table word (a byte value)
 constexpr int kBig = 1 << 29;
 constexpr int kMaxThreads = 256;
-constexpr int kAhead = RF_BAND_AHEAD;
+constexpr int kAhead = 4;         // packed corpus words a thread holds ahead
 constexpr int kSlotBytesMax = 48 * 1024;  // the ring's two slots, in all
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 template <int BW>
 struct Band {
@@ -88,49 +78,21 @@ struct Band {
     int top;    // d0's top bits over the steps of diagonal-only chunks
 };
 
-// Byte u of a packed corpus word: one PRMT
-__device__ __forceinline__ uint32_t byte_of(uint32_t word, int u) {
-#if RF_BAND_LEAN
-    return __byte_perm(word, 0u, 0x4440u | (uint32_t)u);
-#else
-    return (word >> (8 * u)) & 0xFFu;
-#endif
-}
-
-// The BW + 1 PM words of step j's window for char c: from the ring slot
-// `ring` holding rows wb.. (RING), else from the table in device memory.
-template <int BW>
-__device__ __forceinline__ void pm_window(const uint32_t* ring,
-                                          const uint32_t* pm, int ws,
-                                          int wb, int widx0, uint32_t c,
-                                          uint32_t (&pw)[BW + 1]) {
-#if RF_BAND_RING
-    const uint32_t* row = ring + (widx0 - wb) * kRows + c;
-#pragma unroll
-    for (int i = 0; i <= BW; ++i) pw[i] = row[i * kRows];
-#else
-#pragma unroll
-    for (int i = 0; i <= BW; ++i) {
-        const int w = widx0 + i;
-        pw[i] = (w >= 0 && w < ws) ? __ldg(pm + w * kRows + c) : 0u;
-    }
-#endif
-}
-
-// One text step of the band recurrence (band_kernel.py's step); PHASE
-// false runs the diagonal phase's delta with no test of the phase.
+// One text step of the band recurrence (band_kernel.py's step), its PM
+// window read from the ring slot `ring` that holds table rows wb..;
+// PHASE false runs the diagonal phase with no test of the phase.
 template <int BW, bool PHASE>
-__device__ __forceinline__ void band_step(const uint32_t* ring,
-                                          const uint32_t* pm, int ws, int wb,
+__device__ __forceinline__ void band_step(const uint32_t* ring, int wb,
                                           int j, int off, int pstart,
                                           uint32_t c, Band<BW>& st) {
     // PM window of band word k starts at pattern position start0 + 32*k:
     // words widx0 + k and widx0 + k + 1, same shift for every k
     const int start0 = j + off;
-    const int widx0 = start0 >> 5;  // floor division (arithmetic shift)
+    const uint32_t* row = ring + ((start0 >> 5) - wb) * kRows + c;
     const unsigned sh = (unsigned)(start0 & 31);
     uint32_t pw[BW + 1];
-    pm_window<BW>(ring, pm, ws, wb, widx0, c, pw);
+#pragma unroll
+    for (int i = 0; i <= BW; ++i) pw[i] = row[i * kRows];
     uint32_t d0[BW], hp[BW], hn[BW];
     uint32_t carry = 0u;
 #pragma unroll
@@ -143,7 +105,9 @@ __device__ __forceinline__ void band_step(const uint32_t* ring,
         hn[k] = d0[k] & st.vp[k];
     }
     const int kk = j - pstart;
-    if (PHASE && kk >= 0 && kk <= 32 * BW - 2) {     // horizontal phase
+    if (!PHASE) {                                  // diagonal-only chunk
+        st.top += (int)(d0[BW - 1] >> 31);
+    } else if (kk >= 0 && kk <= 32 * BW - 2) {     // horizontal phase
         const int rb = 32 * BW - 2 - kk;
         // the word holding bit rb, by selects (an indexed pick goes to a
         // stack array)
@@ -156,10 +120,8 @@ __device__ __forceinline__ void band_step(const uint32_t* ring,
         }
         st.dist += (int)((hpw >> (rb & 31)) & 1u)
                  - (int)((hnw >> (rb & 31)) & 1u);
-    } else if (PHASE || !RF_BAND_LEAN) {             // diagonal phase
+    } else {                                       // diagonal phase
         st.dist += 1 - (int)(d0[BW - 1] >> 31);
-    } else {      // a diagonal-only chunk: its steps are added after it
-        st.top += (int)(d0[BW - 1] >> 31);
     }
 #pragma unroll
     for (int k = 0; k < BW; ++k) {
@@ -170,24 +132,16 @@ __device__ __forceinline__ void band_step(const uint32_t* ring,
     }
 }
 
-// The thread's steps of one chunk, [j0, min(j0 + S, n)): word r of its
-// column comes from nxt[r % kAhead], which then loads word r + kAhead.
-// UNIFORM walks the block's steps (to jblk, the block's longest text) in
-// every thread, a thread stepping only its own, so that the step index is
-// the same in every thread.
+// Steps [j0, jend) of the block (jend: the chunk's end or the block's
+// longest text), every thread at the same step index and stepping only
+// its own steps, j < n: word r of its column comes from nxt[r % kAhead],
+// which then loads word r + kAhead.
 template <int BW, bool PHASE>
-__device__ __forceinline__ void run_chunk(const uint32_t* ring,
-                                          const uint32_t* pm, int ws, int wb,
-                                          int j0, int S, int n, int jblk,
-                                          int off, int pstart,
-                                          const uint32_t* col, int64_t B,
-                                          uint32_t (&nxt)[kAhead],
+__device__ __forceinline__ void run_chunk(const uint32_t* ring, int wb,
+                                          int j0, int jend, int n, int off,
+                                          int pstart, const uint32_t* col,
+                                          int64_t B, uint32_t (&nxt)[kAhead],
                                           Band<BW>& st) {
-#if RF_BAND_UNIFORM
-    const int jend = min(j0 + S, jblk);
-#else
-    const int jend = min(j0 + S, n);
-#endif
     const int nw = (n + 3) >> 2;
     for (int g = j0 >> 2; 4 * g < jend; g += kAhead) {
 #pragma unroll
@@ -199,93 +153,64 @@ __device__ __forceinline__ void run_chunk(const uint32_t* ring,
             if (j + 4 <= n && j + 4 <= jend) {
 #pragma unroll
                 for (int u = 0; u < 4; ++u)
-                    band_step<BW, PHASE>(ring, pm, ws, wb, j + u, off,
-                                         pstart, byte_of(word, u), st);
+                    band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
+                                         __byte_perm(word, 0u, 0x4440u + u),
+                                         st);
             } else {
                 for (int u = 0; j + u < min(jend, n); ++u)
-                    band_step<BW, PHASE>(ring, pm, ws, wb, j + u, off,
-                                         pstart, byte_of(word, u), st);
+                    band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
+                                         __byte_perm(word, 0u, 0x4440u + u),
+                                         st);
             }
         }
     }
-    if (!PHASE && RF_BAND_LEAN)
-        st.dist += max(min(j0 + S, n) - j0, 0);
+    if (!PHASE) st.dist += max(min(jend, n) - j0, 0);
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           uint32_t bytes) {
-    // bytes < 16 zero-fills the rest; 0 reads nothing
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
-}
-
-#if RF_BAND_RING == 2
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-    const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                 :: "r"(a) : "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
 }
 
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
     uint32_t done = 0;
     while (!done) {
         asm volatile("{\n .reg .pred p;\n"
                      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
                      " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(a), "r"(parity) : "memory");
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
+                     : "memory");
     }
 }
-#endif
 
-// Stage rows wb .. wb + R - 1 of the [ws, 256] table into `slot`, rows
-// outside [0, ws) as zeros.
+// Stage rows wb .. wb + R - 1 of the [ws, 256] table into `slot`: the rows
+// in [0, ws) by one bulk copy that completes on `bar`, the others zeroed.
 __device__ __forceinline__ void stage_rows(uint32_t* slot, const uint32_t* pm,
                                            int ws, int wb, int R,
                                            uint64_t* bar) {
-#if RF_BAND_RING == 1
-    const uint32_t base = (uint32_t)__cvta_generic_to_shared(slot);
-    const int pieces = R * (kRows / 4);           // 16-byte pieces
-    for (int i = threadIdx.x; i < pieces; i += blockDim.x) {
-        const int w = wb + (i >> 6);
-        const bool in = (unsigned)w < (unsigned)ws;
-        cp_async16(base + 16u * i,
-                   in ? pm + (size_t)w * kRows + 4 * (i & 63) : pm,
-                   in ? 16u : 0u);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-#elif RF_BAND_RING == 2
     const int lo = max(wb, 0), hi = max(min(wb + R, ws), lo);
     uint4* s4 = reinterpret_cast<uint4*>(slot);
     const int zlo = (lo - wb) * (kRows / 4), zhi = (hi - wb) * (kRows / 4);
     for (int i = threadIdx.x; i < R * (kRows / 4); i += blockDim.x)
         if (i < zlo || i >= zhi) s4[i] = make_uint4(0u, 0u, 0u, 0u);
+    // the zeros are ordered before a later bulk copy into the slot
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     if (threadIdx.x == 0) {
-        const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
         const uint32_t bytes = (uint32_t)(hi - lo) * kRows * 4u;
         asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                     :: "r"(b), "r"(bytes) : "memory");
-        if (bytes) {
-            const uint32_t d = (uint32_t)__cvta_generic_to_shared(
-                slot + (lo - wb) * kRows);
+                     :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+        if (bytes)
             asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
                          "complete_tx::bytes [%0], [%1], %2, [%3];\n"
-                         :: "r"(d), "l"(pm + (size_t)lo * kRows),
-                            "r"(bytes), "r"(b) : "memory");
-        }
+                         :: "r"(smem_addr(slot + (lo - wb) * kRows)),
+                            "l"(pm + (size_t)lo * kRows), "r"(bytes),
+                            "r"(smem_addr(bar)) : "memory");
     }
-#endif
 }
 
 // PINNED fixes semi at 16*BW - 1 at compile time, which folds the window
 // and probe arithmetic as K3 did before it took a run-time semiwidth.
-#ifndef RF_BAND_MINB
-#define RF_BAND_MINB 1
-#endif
-
 template <int BW, bool PINNED>
-__global__ void __launch_bounds__(kMaxThreads, RF_BAND_MINB)
+__global__ void __launch_bounds__(kMaxThreads)
 lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
                 int semi_arg, const uint32_t* __restrict__ cand,
                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
@@ -295,26 +220,11 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     extern __shared__ uint4 ring4[];
     uint32_t* ring = reinterpret_cast<uint32_t*>(ring4);
     const int slot = R * kRows;
-#if RF_BAND_RING == 2
     __shared__ uint64_t bars[2];
-    if (threadIdx.x == 0) {
-        mbar_init(&bars[0]);
-        mbar_init(&bars[1]);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    }
-    __syncthreads();
-#else
-    uint64_t* bars = nullptr;
-#endif
-#if RF_BAND_REVERSE
-    const int64_t blk = (int64_t)gridDim.x - 1 - blockIdx.x;
-#else
-    const int64_t blk = blockIdx.x;
-#endif
+    __shared__ int nmax_s;
+    const int64_t blk = (int64_t)gridDim.x - 1 - blockIdx.x;  // longest first
     const int64_t b = blk * blockDim.x + threadIdx.x;
     const int lbv = b < B ? lb[b] : 0;
-    const int n = min(lbv, 4 * lb4);
-    const int nw = (n + 3) >> 2;
     const uint32_t* col = cand + (b < B ? b : 0);
     // the first words load whatever the length (within the bucket), so
     // they need not wait for lb[b]
@@ -322,6 +232,19 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
 #pragma unroll
     for (int d = 0; d < kAhead; ++d)
         nxt[d] = (b < B && d < lb4) ? col[(size_t)d * B] : 0u;
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                         :: "r"(smem_addr(&bars[i])) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+        nmax_s = 0;
+    }
+    __syncthreads();
+    stage_rows(ring, pm, ws, off >> 5, R, &bars[0]);
+    const int n = min(lbv, 4 * lb4);
+    const int wmax = __reduce_max_sync(kFull, n);
+    if ((threadIdx.x & 31) == 0) atomicMax(&nmax_s, wmax);
 
     Band<BW> st;
     const int lo = 32 * BW - 1 - semi;     // VP: top semi + 1 bits set
@@ -337,45 +260,25 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int pstart = max(la - semi, 0);
     const int pend = pstart + 32 * BW - 2;
 
-#if RF_BAND_RING
-    stage_rows(ring, pm, ws, (0 + off) >> 5, R, bars);
-#endif
-#if RF_BAND_UNIFORM
-    __shared__ int nmax_s;
-    if (threadIdx.x == 0) nmax_s = 0;
     __syncthreads();
-    const int wmax = __reduce_max_sync(0xFFFFFFFFu, n);
-    if ((threadIdx.x & 31) == 0) atomicMax(&nmax_s, wmax);
-    __syncthreads();
-    const int jblk = nmax_s;
-#else
-    const int jblk = 0;
-#endif
-    bool more = true;
-    for (int c = 0; more; ++c) {
-        const int j0 = c * S;
-        const int wb = (j0 + off) >> 5;       // first row of chunk c
-        const uint32_t* cur = ring + (c & 1) * slot;
-#if RF_BAND_RING == 1
-        asm volatile("cp.async.wait_all;\n" ::: "memory");
-#elif RF_BAND_RING == 2
+    const int nblk = nmax_s;                  // the block's longest text
+    for (int c = 0, j0 = 0; j0 < max(nblk, 1); ++c, j0 += S) {
+        // one barrier a chunk: chunk c has landed, and every thread is done
+        // with chunk c - 1, whose slot is refilled
         mbar_wait(&bars[c & 1], (uint32_t)(c >> 1) & 1u);
-#endif
-        // one barrier a chunk: chunk c has landed for every thread, and
-        // every thread is done with chunk c - 1, whose slot is refilled
-        more = __syncthreads_or(j0 + S < n);
-#if RF_BAND_RING
-        if (more)
+        __syncthreads();
+        if (j0 + S < nblk)
             stage_rows(ring + ((c + 1) & 1) * slot, pm, ws,
-                       (j0 + S + off) >> 5, R, bars + ((c + 1) & 1));
-#endif
-        if (!RF_BAND_UNIFORM && j0 >= n) continue;
-        if (!RF_BAND_SPLIT || (j0 <= pend && pstart < j0 + S))
-            run_chunk<BW, true>(cur, pm, ws, wb, j0, S, n, jblk, off, pstart,
-                                col, B, nxt, st);
+                       (j0 + S + off) >> 5, R, &bars[(c + 1) & 1]);
+        const uint32_t* cur = ring + (c & 1) * slot;
+        const int wb = (j0 + off) >> 5;       // first row of chunk c
+        const int jend = min(j0 + S, nblk);
+        if (j0 <= pend && pstart < j0 + S)
+            run_chunk<BW, true>(cur, wb, j0, jend, n, off, pstart, col, B,
+                                nxt, st);
         else
-            run_chunk<BW, false>(cur, pm, ws, wb, j0, S, n, jblk, off,
-                                 pstart, col, B, nxt, st);
+            run_chunk<BW, false>(cur, wb, j0, jend, n, off, pstart, col, B,
+                                 nxt, st);
     }
     if (b >= B) return;
     int d = (lbv == 0) ? la : st.dist - st.top;
@@ -401,8 +304,7 @@ cudaError_t launch(const uint32_t* pm, int ws, int la, int cut, int semi,
                    cudaStream_t stream) {
     const int64_t blocks = (B + threads - 1) / threads;
     const bool two = (int64_t)S < 4 * (int64_t)lb4;   // more than one chunk
-    const size_t smem = RF_BAND_RING
-        ? (size_t)(two ? 2 : 1) * R * kRows * sizeof(uint32_t) : 0;
+    const size_t smem = (size_t)(two ? 2 : 1) * R * kRows * sizeof(uint32_t);
     lev_band_kernel<BW, PINNED><<<(unsigned)blocks, threads, smem, stream>>>(
         pm, ws, la, cut, semi, cand, lb, out, B, lb4, S, R);
     return cudaGetLastError();
@@ -431,7 +333,8 @@ extern "C" cudaError_t rf_lev_band(const uint32_t* pm, int ws, int la,
                                    int threads, int S, int R,
                                    cudaStream_t stream) {
     // the band register holds 2*semi + 2 <= 32*bw rows; a chunk is whole
-    // groups of kAhead words and starts a row at the same offset
+    // groups of kAhead words and starts a row at the same offset; the bulk
+    // copy takes 16-byte aligned rows
     if (ws < 1 || semi < 0 || 2 * semi + 2 > 32 * bw || lb4 < 0
         || threads < 32 || threads > kMaxThreads || threads % 32
         || S < 32 || S % 32 || S % (4 * kAhead)

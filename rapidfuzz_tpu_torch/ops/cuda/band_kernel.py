@@ -10,7 +10,7 @@ band has a run-time semiwidth ``semi`` and a register of ``bw`` u32 words:
 * ``_stream_kernel`` (``lev_band_long``): the same pinned band over
   buckets of any length (:func:`lev_banded_stream_1v_many`).  The TPU
   streamed the text in 512-char chunks to fit VMEM; a CUDA thread walks
-  its candidate's whole text, so nothing is chunked;
+  its candidate's whole text;
 * ``_kernel`` (``lev_band_rt``): one word, semiwidth = the caller's cutoff
   (up to :data:`MAX_CUTOFF`), which the JAX wrapper takes for queries no
   longer than the pinned band or buckets over :data:`FAST_MAX_LB`.  It is
@@ -30,6 +30,27 @@ were slow on the v5e.  Here each step reads the words around its window
 from the query's ``[W, 256]`` table (the one K1 uses) and joins them with
 a funnel shift; the probe bit is computed in-thread.  So only the first
 :func:`table_words` words of the table are ever read.
+
+What bounds K3 on an H100 and what its design does about it (the source's
+header has the detail):
+
+* its PM window comes from shared memory at every bucket: a block walks
+  the text in chunks of :data:`CHUNK` steps, every thread at the same
+  step, and stages the table rows a chunk reads (:func:`ring_plan`,
+  :func:`chunk_rows`) into one of two slots by a bulk copy while it
+  computes the chunk before, rows outside the table as zeros; one
+  barrier a chunk, which a thread whose text has ended keeps joining
+  until the block's longest text ends;
+* a thread holds its next :data:`AHEAD` packed corpus words in registers;
+* chunks that miss the horizontal phase skip its test a step;
+* blocks start with the last (longest) candidates (:func:`block_map`),
+  of 64 threads over buckets of more than one chunk and up to 256 over
+  shorter ones (:func:`block_threads`).
+
+Over long buckets it is bound by integer issue (14 INT32-lane
+instructions a step at ``bw = 1`` against the bound's 12); where a launch
+holds about one warp a scheduler, as the run-time band over 16,384 texts
+does, by its longest text's chain of steps.
 """
 
 from __future__ import annotations
@@ -92,10 +113,15 @@ def chunk_rows(c: int, bw: int, semi: int, S: int = CHUNK) -> int:
     return (c * S + semi + 1 - 32 * bw) >> 5
 
 
-def block_threads(B: int, sms: int = SMS) -> int:
-    """K3's block size for ``B`` candidates: the largest of
-    :data:`BLOCKS` that gives at least two blocks an SM, else the
-    smallest."""
+def block_threads(B: int, LB: int, sms: int = SMS) -> int:
+    """K3's block size for ``B`` candidates over an ``LB`` bucket: 64
+    threads when the bucket takes more than one chunk (its blocks then
+    outnumber the SMs' slots, and the card balances them as they end: 0.80
+    ms over the 131,072 long texts against 0.93 at 256, ``PERF.md`` §6, PR
+    17), else the largest of :data:`BLOCKS` that gives at least two blocks
+    an SM, else the smallest."""
+    if LB > CHUNK:
+        return BLOCKS[-1]
     for t in BLOCKS:
         if -(-B // t) >= 2 * sms:
             return t
@@ -272,7 +298,7 @@ def _band(q: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, cut: int,
     if B:
         rows, _ = ring_plan(bw, semi, LB)
         threads = block_threads(
-            B, torch.cuda.get_device_properties(dev).multi_processor_count)
+            B, LB, torch.cuda.get_device_properties(dev).multi_processor_count)
         launch(name, "rf_lev_band", dev, tabs.data_ptr(), tabs.shape[0], la,
                cut, semi, bw, cand.data_ptr(), lb.data_ptr(),
                out.data_ptr(), B, cand.shape[0], threads, CHUNK, rows)

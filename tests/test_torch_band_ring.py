@@ -52,8 +52,8 @@ def _ring_band(la, cut, bw, tabs, cand, lb, semi, threads, S=bk.CHUNK):
     chunks = (n.view(-1, threads).max(1).values + S - 1) // S
     nw = (n + 3) // 4
     zero = torch.zeros_like(n)
-    nxt = [torch.where(d < nw, c64[d], zero) if d < c64.shape[0] else zero
-           for d in range(bk.AHEAD)]
+    # the first words load whatever the length, within the bucket
+    nxt = [c64[d] if d < c64.shape[0] else zero for d in range(bk.AHEAD)]
     off = semi + 1 - 32 * bw
     lo = 32 * bw - 1 - semi
     vp = [torch.full_like(n, (M32 << max(lo - 32 * k, 0)) & M32
@@ -217,13 +217,16 @@ def test_ring_plan_covers_every_step(bw, semi):
             assert top == rows - 1
 
 
-@pytest.mark.parametrize("B,threads", [(1, 64), (1000, 64), (16384, 64),
-                                       (50000, 128), (1 << 18, 256)])
-def test_block_map_is_longest_first_bijection(B, threads):
+@pytest.mark.parametrize("B,LB,threads", [(1, 64, 64), (1000, 64, 64),
+                                          (16384, 64, 64), (50000, 64, 128),
+                                          (1 << 18, 64, 256),
+                                          (1 << 18, 257, 64)])
+def test_block_map_is_longest_first_bijection(B, LB, threads):
     """``block_threads`` reaches two blocks an SM where ``B`` allows, and
-    ``block_map`` takes every candidate once, the last block first;
-    results written through it unsort to corpus order."""
-    assert bk.block_threads(B) == threads
+    takes 64 threads over buckets of more than one chunk; ``block_map``
+    takes every candidate once, the last block first, and results written
+    through it unsort to corpus order."""
+    assert bk.block_threads(B, LB) == threads
     order = bk.block_map(B, threads)
     assert order.numel() == -(-B // threads) * threads
     got = order[order >= 0]
