@@ -29,9 +29,10 @@ Phases, each printing one JSON line before the next starts:
    tile form over 2048 only, the run-time band, the streamed bands
    over 2048) at 2,048 candidates, K3's PM ring (its three launch names
    at buckets 64, 1,024, 6,000 and 8,192, pinned bands bw 1-3 and the
-   run-time band at semi 0-15, texts ending one before, at and one past
-   every chunk edge, empty texts, far lengths, queries shorter than the
-   bucket: ``BAND_CASES``) at 2,048 candidates, where the plain
+   run-time band at semi 0-15, walked texts ending one before, at and
+   one past chunk edges, texts just inside and outside the length gate,
+   empty texts, far lengths, queries shorter than the bucket:
+   ``BAND_CASES``) at 2,048 candidates, where the plain
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first tile width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
@@ -181,11 +182,12 @@ Phases, each printing one JSON line before the next starts:
    over the serve corpus, and a 64-char one over the serve and the long
    corpus; K11 on the OCR pair at R = 1, 2, 3, 4 and 8 (ms and ns a text
    step), its plain version on the first 4,096 text chars at R = 4, and
-   beside its bound the one-warp and one-SM figures; K3's three rows
-   with the instructions its layout adds beside the bound (a warp
-   stepping to its longest text) and, for the run-time band, the floor
-   its longest text's chain of steps sets and what one warp over the 32
-   longest texts takes alone;
+   beside its bound the one-warp and one-SM figures; K3's three rows,
+   their bounds over the texts its length gate walks (within the cutoff
+   of the query's length), with the instructions its layout adds beside
+   the bound (a warp stepping to its longest walk) and, for the long
+   rows, the floor their longest walks' chains of steps set: one warp
+   alone over the 32 longest;
 16. rate   — one len-64 query, then 16 per launch, against 67,108,864
    len-64 candidates packed on the device.
 
@@ -302,8 +304,12 @@ INT32_LANES = 132 * 64
 #: least integer operations per unit of work, counting each 3-input logic
 #: op (LOP3) and each shift-and-add as one: K1 per query word and text
 #: step (the Myers word: and, add, 2 x or3, 2 x lop3, and, 2 x shift-or,
-#: 2 carry shifts), K3 per band word and text step (the same plus the
-#: window's funnel shift), K2 per char (7 search probes of compare and
+#: 2 carry shifts), K3 per text step of its one-word band (the timed
+#: rows' bw; INT32-lane instructions in the SASS of lev_band_kernel<1,1>'s
+#: diagonal step: the window's funnel shift, 7 LOP3 (and, or, d0, hp, hn,
+#: vp, vn), the shift of d0 and the distance's update, the add issuing on
+#: the FMA lanes as an IMAD; an earlier count took 12, K1's word plus
+#: the funnel shift), K2 per char (7 search probes of compare and
 #: select, the hit test, the byte pack); K4 per query word and text step
 #: (the Hyyro word: u = s & pm, the 3-input add s + u + carry, its
 #: carry-out, one lop3 for t | (s & ~u)), K5 per band word and text step
@@ -315,7 +321,7 @@ INT32_LANES = 132 * 64
 #: into K1's 3-input or); K7 per query position and text step
 #: WLEV_CELL_OPS)
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
-       "lev_band": 12, "lev_band_rt": 12, "lev_band_long": 12,
+       "lev_band": 10, "lev_band_rt": 10, "lev_band_long": 10,
        "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
        "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
        "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
@@ -421,16 +427,14 @@ TILE_STEP_OPS = {"lev": 120 - 10 - 5 * 3 / 4,
                  "lcs": 101 - 8 - 6 * 3 / 4}
 DAM_BAND_OPS = {3: (13.57, 16.0), 7: (14.57, 19.23), 15: (15.08, 19.26)}
 #: What K3 issues beside its bound's OPS goes beside it
-#: (lev_band*_layout_bound_ms), counted in the SASS of the built library
-#: under alu_blocks' rule: INT32-lane instructions per thread and text step
-#: of lev_band_kernel<1,1>'s unrolled word (4 steps), in chunks with no
-#: horizontal phase ("diag") and in those with it ("phase").  Its
-#: loop-carried chain a step is LEV_BAND_CHAIN dependent instructions (vp
-#: -> and -> add -> lop3 d0 -> shift -> lop3 vp), each ALU_LATENCY cycles
-#: (the integer pipe's dependent-issue latency; not measured here)
-LEV_BAND_STEP_OPS = {"diag": 56 / 4, "phase": 54 / 4}
-LEV_BAND_CHAIN = 5
-ALU_LATENCY = 4
+#: (lev_band*_layout_bound_ms), counted in a full cuobjdump -sass of the
+#: built library under alu_blocks' rule: INT32-lane instructions per
+#: thread and text step of lev_band_kernel<1,1>'s unrolled word (4 steps,
+#: 8 LDS, 4 PRMT), in chunks with no horizontal phase ("diag": 56, of them
+#: 40 the bound's, 12 the window's row, shift and address and 4 the
+#: char's PRMT) and in those with it ("phase": 55, the word when no step
+#: takes the horizontal branch)
+LEV_BAND_STEP_OPS = {"diag": 56 / 4, "phase": 55 / 4}
 #: K10's bound charges every window step the function needs, per query
 #: word, the INT32-lane instructions of an unmasked Hyyro step, counted in
 #: the SASS of the built library: the loop body of K10's role for
@@ -492,7 +496,9 @@ BAND_CASES = (
     (6000, 40, [("lev_band_rt", 7), ("lev_band_long", 15)]),
     (8192, 4001, [("lev_band_rt", 7), ("lev_band_long", 15),
                   ("lev_band_long", 47)]),
-    (8192, 40, [("lev_band_rt", 11), ("lev_band_long", 31)]))
+    (8192, 40, [("lev_band_rt", 11), ("lev_band_long", 31)]),
+    (8192, 4097, [("lev_band_rt", 15), ("lev_band_long", 15)]),
+    (6000, 5990, [("lev_band_rt", 15), ("lev_band_long", 47)]))
 #: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
 #: levenshtein.rs:2139-2161): its distance and the cutoff that must give
 #: None; the pair past the band's ceiling (max_cutoff(8) = 16,383): two
@@ -1144,14 +1150,19 @@ class Smoke:
         any bucket) and ``lev_band_rt`` (the run-time band, semi 0-14 at
         bucket 64 and 0, 7, 11 and 15 past it).  The texts copy windows of
         the query with ~5 % of their chars substituted, two of them the
-        whole query; their lengths are 0, 1, one before, at and one past
-        every chunk edge (``band_kernel.CHUNK``: the PM ring's chunk plan
-        and its barrier), the bucket's end (6,000 ends in a part chunk),
-        the query's +- 40 and near it.  Queries shorter than the bucket
-        (15, 12 and 40 chars) read rows of ws and above as zero; the
-        257-char query's horizontal phase crosses the edge at 256, the
-        4,001-char one's (cutoffs 31 and 47) the edge at 3,840 (BAND_CASES
-        lists the bands)."""
+        whole query and 34 the query cut short or run on by 1-17 chars
+        (distance d at length la -+ d: within the cutoff only if K3's
+        length gate walks them); their lengths are 0, 1, one before, at
+        and one past every chunk edge (``band_kernel.CHUNK``: the PM
+        ring's chunk plan and its barrier), the bucket's end (6,000 ends
+        in a part chunk), the query's +- 40 and near it.  The gate walks
+        only texts within the cutoff of the query's length: those of the
+        257- and 4,097-char queries end at, one before and one past the
+        edges at 256 and 4,096, where their horizontal phases cross them,
+        and the 5,990-char query's reach the 6,000 bucket's end.  Queries
+        shorter than the bucket (15, 12 and 40 chars) read rows of ws and
+        above as zero; the 4,001-char query's horizontal phase (cutoffs 31
+        and 47) crosses the edge at 3,840 (BAND_CASES lists the bands)."""
         torch, lk, bk, kc = self.torch, self.lk, self.bk, self.kc
         at = torch.from_numpy(a).to(self.dev)
         B = N_KERNEL_LONG
@@ -1161,6 +1172,9 @@ class Smoke:
             q = rng.choice(a, la)
             qt = torch.from_numpy(q).to(self.dev)
             fixed = [0, 1, LBk - 1, LBk, max(la - 40, 0), la + 40, la, la]
+            fixed += [la + d for d in range(1, 18)] + [
+                max(la - d, 0) for d in range(1, 18)]
+            whole = slice(6, len(fixed))      # the query, cut or run on
             fixed += [e + d for e in range(bk.CHUNK, LBk + 1, bk.CHUNK)
                       for d in (-1, 0, 1)]
             lens = la + torch.randint(-15, 16, (B,), generator=g,
@@ -1170,11 +1184,11 @@ class Smoke:
             pos = torch.arange(LBk, device=self.dev)[None, :]
             s0 = (torch.rand(B, generator=g, device=self.dev)
                   * (la - lens).clamp(min=0)).long()[:, None]
-            s0[6:8] = 0                       # two whole copies
+            s0[whole] = 0
             chars = qt[(s0 + pos).clamp(max=la - 1)]
             sub = (torch.rand((B, LBk), generator=g, device=self.dev)
                    < 0.05) | (s0 + pos >= la)
-            sub[6:8] = pos >= la
+            sub[whole] = pos >= la
             rnd = at[torch.randint(0, at.numel(), (B, LBk), generator=g,
                                    device=self.dev)]
             chars = torch.where(sub, rnd, chars)
@@ -3651,7 +3665,7 @@ class Smoke:
                            "bytes" if t_bytes >= t_ops else "operations")
 
         def scan_work(name, lbv, words, nq=1, table_words=None):
-            """Bytes and u32 operations of a K1/K3 launch: each candidate's
+            """Bytes and u32 operations of a K1 launch: each candidate's
             packed chars, length and output once, the PM table once, and
             OPS[name] per word and text step."""
             steps = int(lbv.to(torch.int64).sum())
@@ -3688,15 +3702,33 @@ class Smoke:
                            - OPS[f"{kind}_scan"] * W * int(l64.sum()))
             extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
 
-        def band_layout(lbv, la, semi, bw, row):
+        def band_walks(lbv, la, cut):
+            """The steps K3 walks a candidate: its length where the final
+            masks leave its answer open (not empty, within ``cut`` of
+            ``la``), else 0."""
+            l64 = lbv.to(torch.int64)
+            return torch.where((l64 > 0) & ((l64 - la).abs() <= cut), l64, 0)
+
+        def k3_work(name, lbv, la, cut, bw, table_words):
+            """Bytes and u32 operations of a K3 launch over this run's
+            data: every candidate's length and output once, the packed
+            chars of the texts whose answer needs the band (band_walks),
+            the PM table once, and OPS[name] per band word and step of
+            those texts."""
+            n = band_walks(lbv, la, cut)
+            nbytes = (int(((n + 3) // 4).sum()) * 4 + lbv.numel() * 8
+                      + table_words * 1024)
+            return nbytes, OPS[name] * bw * int(n.sum())
+
+        def band_layout(lbv, la, cut, semi, bw, row):
             """``extra[row + "_layout_bound_ms"]``: what K3 issues beyond
             its bound's OPS per band word and step, over this run's data:
-            a warp (32 consecutive candidates) steps to its longest text,
-            LEV_BAND_STEP_OPS["phase"] a step in the chunks that hold the
-            horizontal phase (band_kernel.CHUNK steps each) and ["diag"]
-            in the others."""
-            l64 = lbv.to(torch.int64)
-            nmax = torch.cat([l64, l64.new_zeros((-l64.numel()) % 32)])
+            a warp (32 consecutive candidates) steps to its longest walk
+            (band_walks), LEV_BAND_STEP_OPS["phase"] a step in the chunks
+            that hold the horizontal phase (band_kernel.CHUNK steps each)
+            and ["diag"] in the others."""
+            n = band_walks(lbv, la, cut)
+            nmax = torch.cat([n, n.new_zeros((-n.numel()) % 32)])
             nmax = nmax.view(-1, 32).max(1).values
             S = bk.CHUNK
             pstart = max(la - semi, 0)
@@ -3704,12 +3736,28 @@ class Smoke:
             hz = (nmax.clamp(max=(c1 + 1) * S) - c0 * S).clamp(min=0)
             issue = 32 * (LEV_BAND_STEP_OPS["diag"] * int((nmax - hz).sum())
                           + LEV_BAND_STEP_OPS["phase"] * int(hz.sum()))
-            layout = issue - OPS[row] * bw * int(l64.sum())
+            layout = issue - OPS[row] * bw * int(n.sum())
             extra[f"{row}_layout_bound_ms"] = layout / int_ops_s * 1e3
+
+        def band_chain(sc, la, cut, staged, row):
+            """``extra[row + "_chain_floor_ms"]``: one warp alone over the
+            32 longest walks of ``sc``'s texts (band_walks), the least
+            time a launch over them can take: their steps run one after
+            another."""
+            n = band_walks(sc.lb, la, cut)
+            far = torch.argsort(n, descending=True)[:32]
+            far = far[n[far] > 0]
+            c32, l32 = sc.cand[:, far].contiguous(), sc.lb[far].contiguous()
+            fn = (bk.lev_banded_stream_1v_many if row == "lev_band_long"
+                  else bk.lev_banded_1v_many)
+            extra[f"{row}_chain_floor_ms"] = cuda_ms(
+                torch, lambda: fn(q4k, c32, l32, cutoff=cut, staged=staged),
+                5)
+            extra[f"{row}_chain_steps"] = int(n.max())
 
         lev_layout(lb, lk.words(q.size), "lev_scan")
         lev_layout(lb, 2, "lev_scan_nq", nq=16)
-        band_layout(lb, q.size, 15, 1, "lev_band")
+        band_layout(lb, q.size, 15, 15, 1, "lev_band")
         timed("lev_scan",
               lambda: lk.lev_1v_many(q, cand, lb, staged=(las, tabs)),
               lambda: lk.lev_scan_plain(las, tabs[None], cand, lb)[0], 20,
@@ -3722,7 +3770,7 @@ class Smoke:
               lambda: bk.lev_banded_1v_many(q, cand, lb, cutoff=15,
                                             staged=(las, tabs)),
               lambda: bk.lev_band_plain(q.size, 15, 1, tabs[:ws], cand, lb),
-              20, scan_work("lev_band", lb, 1, table_words=ws))
+              20, k3_work("lev_band", lb, q.size, 15, 1, ws))
         # K2 at the same candidate count: the wide corpus tiled to N_TIMING
         ct = self.wide_chars_t
         reps_w = -(-n // ct.shape[1])
@@ -3743,20 +3791,10 @@ class Smoke:
         ws_long = bk.table_words(q4k.size, LONG_LB)
         ws_odd = bk.table_words(q4k.size, ODD_LB)
         lev_layout(long_sc.lb, 2, "lev_scan_long")
-        band_layout(long_sc.lb, q4k.size, 15, 1, "lev_band_long")
-        band_layout(odd_sc.lb, q4k.size, 15, 1, "lev_band_rt")
-        # the run-time band's longest text walks its steps one after
-        # another: each step's loop-carried chain, LEV_BAND_CHAIN dependent
-        # instructions of ALU_LATENCY cycles
-        extra["lev_band_rt_chain_floor_ms"] = (
-            int(odd_sc.lb.max()) * LEV_BAND_CHAIN * ALU_LATENCY
-            / (clock_mhz * 1e3))
-        # and what one warp takes alone over the 32 longest of those texts
-        far = torch.argsort(odd_sc.lb, descending=True)[:32]
-        c32, l32 = odd_sc.cand[:, far].contiguous(), odd_sc.lb[far]
-        extra["lev_band_rt_warp_ms"] = cuda_ms(
-            torch, lambda: bk.lev_banded_1v_many(q4k, c32, l32, cutoff=15,
-                                                 staged=l4k), 5)
+        band_layout(long_sc.lb, q4k.size, 15, 15, 1, "lev_band_long")
+        band_layout(odd_sc.lb, q4k.size, 15, 15, 1, "lev_band_rt")
+        band_chain(long_sc, q4k.size, 15, l4k, "lev_band_long")
+        band_chain(odd_sc, q4k.size, 15, l4k, "lev_band_rt")
         timed("lev_scan_long",
               lambda: lk.lev_1v_many(q64, long_sc.cand, long_sc.lb,
                                      staged=l64),
@@ -3768,14 +3806,14 @@ class Smoke:
                   q4k, long_sc.cand, long_sc.lb, cutoff=15, staged=l4k),
               lambda: bk.lev_band_plain(q4k.size, 15, 1, l4k[1][:ws_long],
                                         long_sc.cand, long_sc.lb), 3,
-              scan_work("lev_band_long", long_sc.lb, 1,
-                        table_words=ws_long), warm=False)
+              k3_work("lev_band_long", long_sc.lb, q4k.size, 15, 1,
+                        ws_long), warm=False)
         timed("lev_band_rt",
               lambda: bk.lev_banded_1v_many(
                   q4k, odd_sc.cand, odd_sc.lb, cutoff=15, staged=l4k),
               lambda: bk.lev_band_plain(q4k.size, 15, 1, l4k[1][:ws_odd],
                                         odd_sc.cand, odd_sc.lb, semi=15), 5,
-              scan_work("lev_band_rt", odd_sc.lb, 1, table_words=ws_odd),
+              k3_work("lev_band_rt", odd_sc.lb, q4k.size, 15, 1, ws_odd),
               warm=False)
         # K4 and K5: the short scans at the serve corpus, the band at the
         # mid corpus (300-char query, cutoff 15), the long routes at the

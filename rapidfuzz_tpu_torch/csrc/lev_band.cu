@@ -26,38 +26,43 @@
 // rejects them.  Final masks as band_kernel.py:374-376: lb == 0 -> la,
 // |la - lb| > cut -> BIG, dist > cut -> BIG.
 //
-// What bounds it on an H100: integer issue over long buckets (12 INT32-lane
-// operations per band word and step in the bound, 14 issued a step at
-// BW = 1); where a launch holds about one warp a scheduler (the run-time
-// band over 16,384 texts), the serial chain of its longest text's steps.
+// What bounds it on an H100: a text whose answer the final masks fix
+// (empty, or its length more than the cutoff from la) is not walked, so a
+// launch walks only the texts within the cutoff of the query's length:
+// over long buckets a few blocks of the length-sorted corpus, each bound
+// by the serial chain of its longest text's steps; over short buckets,
+// integer issue (at BW = 1, 10 INT32-lane instructions a step in the
+// recurrence, 14 issued with the window's address and the char).
 //
 // Design: one thread per candidate over the [LB/4, B] packed corpus, as
 // K1; the BW + 1 PM words around the window are joined with
 // __funnelshift_r and the probe bit is computed in-thread (the v5e needed
 // host-shifted tables for both).
+// * The length gate.  A thread's walk is its text's length n, or 0 where
+//   the final masks fix its answer; a block whose texts all have n = 0
+//   stages nothing and writes its masks.
 // * The PM ring.  Every row a step reads depends on the step j alone, so
-//   a block walks the text in chunks of S steps, every thread at the same
-//   step index up to the block's longest text (a thread steps only its
-//   own), and the R table rows chunk c reads, from widx0(c*S) (ring_plan in
-//   ops/cuda/band_kernel.py), come from one of two shared-memory slots:
-//   one bulk copy (TMA) a chunk, issued by thread 0 while the block
-//   computes the chunk before and completing on the slot's mbarrier, rows
-//   outside [0, ws) zeroed by the block.  No step reads device memory for
-//   PM or tests a row's range.  One barrier a chunk: after it chunk c's
-//   rows are in and every thread is done with chunk c - 1, whose slot is
-//   refilled; a thread whose text has ended keeps joining the barriers
-//   until the block's longest text ends.
+//   a block walks the text in chunks of kChunk steps, every thread at the
+//   same step index up to the block's longest walk (a thread steps only
+//   its own), and the ring_rows(...) table rows chunk c reads, from
+//   widx0(c*kChunk), come from one of two shared-memory slots: one bulk
+//   copy (TMA) a chunk, issued by thread 0 while the block computes the
+//   chunk before and completing on the slot's mbarrier, rows outside
+//   [0, ws) zeroed by the block.  No step reads device memory for PM or
+//   tests a row's range.  One barrier a chunk: after it chunk c's rows
+//   are in and every thread is done with chunk c - 1, whose slot is
+//   refilled; a thread whose walk has ended keeps joining the barriers
+//   until the block's longest walk ends.
 // * Chunks that miss the horizontal phase run the diagonal step with no
 //   test of the phase, counting d0's top bits; their steps are added to
 //   the distance after the chunk.
 // * Corpus words ahead: each thread holds its next kAhead packed words in
-//   registers and loads word r + kAhead while it steps word r; the first
-//   ones load before the text's length is known.
+//   registers and loads word r + kAhead while it steps word r.
 // * Longest first: block i takes the candidates of block nblocks - 1 - i,
 //   the longest as the scanner sorts by length; the wrapper picks 64
-//   threads a block over buckets of more than one chunk (the blocks then
-//   outnumber the SMs' slots, and the card balances them as they end) and
-//   up to 256 otherwise (band_kernel.block_threads).
+//   threads a block over buckets of more than one chunk (the few texts a
+//   long bucket walks spread over more SMs) and up to 256 otherwise
+//   (band_kernel.block_threads).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,8 +73,22 @@ constexpr int kRows = 256;        // PM entries a table word (a byte value)
 constexpr int kBig = 1 << 29;
 constexpr int kMaxThreads = 256;
 constexpr int kAhead = 4;         // packed corpus words a thread holds ahead
-constexpr int kSlotBytesMax = 48 * 1024;  // the ring's two slots, in all
+constexpr int kChunk = 256;       // text steps a chunk of the PM ring
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// Rows a chunk reads: from widx0(c*kChunk) to widx0(c*kChunk + L - 1) +
+// bw, L = min(kChunk, LB) steps (at least 1); kChunk is a multiple of 32,
+// so every chunk starts at the same offset m in its first row.
+__host__ __device__ constexpr int ring_rows(int bw, int semi, int LB) {
+    return ((((semi + 1 - 32 * bw) % 32) + 32) % 32
+            + (kChunk < LB ? kChunk : (LB > 1 ? LB : 1)) - 1) / 32 + bw + 1;
+}
+
+// a chunk is whole groups of kAhead words; the ring's two slots at their
+// widest (bw = 3, an offset past 0 in the first row) fit the 48 KB a
+// launch takes unasked
+static_assert(kChunk % 32 == 0 && kChunk % (4 * kAhead) == 0, "chunk");
+static_assert(2 * ring_rows(3, 0, kChunk) * kRows * 4 <= 48 * 1024, "ring");
 
 template <int BW>
 struct Band {
@@ -214,7 +233,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
                 int semi_arg, const uint32_t* __restrict__ cand,
                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                int64_t B, int lb4, int S, int R) {
+                int64_t B, int lb4, int R) {
     const int semi = PINNED ? 16 * BW - 1 : semi_arg;
     const int off = semi + 1 - 32 * BW;       // start0 = j + off
     extern __shared__ uint4 ring4[];
@@ -225,13 +244,13 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int64_t blk = (int64_t)gridDim.x - 1 - blockIdx.x;  // longest first
     const int64_t b = blk * blockDim.x + threadIdx.x;
     const int lbv = b < B ? lb[b] : 0;
+    // the walk: none where the final masks fix the answer
+    const int n = (lbv == 0 || abs(la - lbv) > cut) ? 0 : min(lbv, 4 * lb4);
     const uint32_t* col = cand + (b < B ? b : 0);
-    // the first words load whatever the length (within the bucket), so
-    // they need not wait for lb[b]
     uint32_t nxt[kAhead];
 #pragma unroll
     for (int d = 0; d < kAhead; ++d)
-        nxt[d] = (b < B && d < lb4) ? col[(size_t)d * B] : 0u;
+        nxt[d] = 4 * d < n ? col[(size_t)d * B] : 0u;
     if (threadIdx.x == 0) {
 #pragma unroll
         for (int i = 0; i < 2; ++i)
@@ -241,10 +260,8 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
         nmax_s = 0;
     }
     __syncthreads();
-    stage_rows(ring, pm, ws, off >> 5, R, &bars[0]);
-    const int n = min(lbv, 4 * lb4);
     const int wmax = __reduce_max_sync(kFull, n);
-    if ((threadIdx.x & 31) == 0) atomicMax(&nmax_s, wmax);
+    if ((threadIdx.x & 31) == 0 && wmax) atomicMax(&nmax_s, wmax);
 
     Band<BW> st;
     const int lo = 32 * BW - 1 - semi;     // VP: top semi + 1 bits set
@@ -261,19 +278,20 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int pend = pstart + 32 * BW - 2;
 
     __syncthreads();
-    const int nblk = nmax_s;                  // the block's longest text
-    for (int c = 0, j0 = 0; j0 < max(nblk, 1); ++c, j0 += S) {
+    const int nblk = nmax_s;                  // the block's longest walk
+    if (nblk > 0) stage_rows(ring, pm, ws, off >> 5, R, &bars[0]);
+    for (int c = 0, j0 = 0; j0 < nblk; ++c, j0 += kChunk) {
         // one barrier a chunk: chunk c has landed, and every thread is done
         // with chunk c - 1, whose slot is refilled
         mbar_wait(&bars[c & 1], (uint32_t)(c >> 1) & 1u);
         __syncthreads();
-        if (j0 + S < nblk)
+        if (j0 + kChunk < nblk)
             stage_rows(ring + ((c + 1) & 1) * slot, pm, ws,
-                       (j0 + S + off) >> 5, R, &bars[(c + 1) & 1]);
+                       (j0 + kChunk + off) >> 5, R, &bars[(c + 1) & 1]);
         const uint32_t* cur = ring + (c & 1) * slot;
         const int wb = (j0 + off) >> 5;       // first row of chunk c
-        const int jend = min(j0 + S, nblk);
-        if (j0 <= pend && pstart < j0 + S)
+        const int jend = min(j0 + kChunk, nblk);
+        if (j0 <= pend && pstart < j0 + kChunk)
             run_chunk<BW, true>(cur, wb, j0, jend, n, off, pstart, col, B,
                                 nxt, st);
         else
@@ -287,40 +305,30 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     out[b] = d;
 }
 
-// Rows a chunk of S steps reads (ring_plan): from widx0(c*S) to
-// widx0(c*S + L - 1) + BW, L = min(S, LB) steps (at least 1); S is a
-// multiple of 32, so every chunk starts at the same offset m in its first
-// row.
-int ring_rows(int bw, int semi, int S, int LB) {
-    const int m = ((semi + 1 - 32 * bw) % 32 + 32) % 32;
-    const int L = S < LB ? S : (LB > 1 ? LB : 1);
-    return (m + L - 1) / 32 + bw + 1;
-}
-
 template <int BW, bool PINNED>
 cudaError_t launch(const uint32_t* pm, int ws, int la, int cut, int semi,
                    const uint32_t* cand, const int32_t* lb, int32_t* out,
-                   int64_t B, int lb4, int threads, int S, int R,
-                   cudaStream_t stream) {
+                   int64_t B, int lb4, int threads, cudaStream_t stream) {
     const int64_t blocks = (B + threads - 1) / threads;
-    const bool two = (int64_t)S < 4 * (int64_t)lb4;   // more than one chunk
-    const size_t smem = (size_t)(two ? 2 : 1) * R * kRows * sizeof(uint32_t);
+    const int R = ring_rows(BW, semi, 4 * lb4);
+    const int slots = kChunk < 4 * lb4 ? 2 : 1;   // more than one chunk
+    const size_t smem = (size_t)slots * R * kRows * sizeof(uint32_t);
     lev_band_kernel<BW, PINNED><<<(unsigned)blocks, threads, smem, stream>>>(
-        pm, ws, la, cut, semi, cand, lb, out, B, lb4, S, R);
+        pm, ws, la, cut, semi, cand, lb, out, B, lb4, R);
     return cudaGetLastError();
 }
 
 template <int BW>
 cudaError_t launch_band(const uint32_t* pm, int ws, int la, int cut,
                         int semi, const uint32_t* cand, const int32_t* lb,
-                        int32_t* out, int64_t B, int lb4, int threads, int S,
-                        int R, cudaStream_t stream) {
+                        int32_t* out, int64_t B, int lb4, int threads,
+                        cudaStream_t stream) {
     if (semi == 16 * BW - 1)
         return launch<BW, true>(pm, ws, la, cut, semi, cand, lb, out, B, lb4,
-                                threads, S, R, stream);
+                                threads, stream);
     if constexpr (BW == 1)   // the run-time band is one word
         return launch<BW, false>(pm, ws, la, cut, semi, cand, lb, out, B,
-                                 lb4, threads, S, R, stream);
+                                 lb4, threads, stream);
     return cudaErrorInvalidValue;
 }
 
@@ -330,22 +338,17 @@ extern "C" cudaError_t rf_lev_band(const uint32_t* pm, int ws, int la,
                                    int cut, int semi, int bw,
                                    const uint32_t* cand, const int32_t* lb,
                                    int32_t* out, int64_t B, int lb4,
-                                   int threads, int S, int R,
-                                   cudaStream_t stream) {
-    // the band register holds 2*semi + 2 <= 32*bw rows; a chunk is whole
-    // groups of kAhead words and starts a row at the same offset; the bulk
-    // copy takes 16-byte aligned rows
+                                   int threads, cudaStream_t stream) {
+    // the band register holds 2*semi + 2 <= 32*bw rows; the bulk copy
+    // takes 16-byte aligned rows
     if (ws < 1 || semi < 0 || 2 * semi + 2 > 32 * bw || lb4 < 0
         || threads < 32 || threads > kMaxThreads || threads % 32
-        || S < 32 || S % 32 || S % (4 * kAhead)
-        || R < ring_rows(bw, semi, S, 4 * lb4)
-        || 2 * R * kRows * (int)sizeof(uint32_t) > kSlotBytesMax
         || (reinterpret_cast<uintptr_t>(pm) & 15))
         return cudaErrorInvalidValue;
     switch (bw) {
-        case 1: return launch_band<1>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
-        case 2: return launch_band<2>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
-        case 3: return launch_band<3>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, S, R, stream);
+        case 1: return launch_band<1>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, stream);
+        case 2: return launch_band<2>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, stream);
+        case 3: return launch_band<3>(pm, ws, la, cut, semi, cand, lb, out, B, lb4, threads, stream);
         default: return cudaErrorInvalidValue;
     }
 }

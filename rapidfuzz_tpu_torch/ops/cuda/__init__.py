@@ -89,10 +89,8 @@ _SIGNATURES = {
                     _P],
     # chars_t, vocab, out, B, lb4, stream
     "rf_remap_pack": [_P, _P, _P, _I64, _I, _P],
-    # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, threads, S, R,
-    # stream
-    "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _I,
-                    _I, _P],
+    # pm, ws, la, cut, semi, bw, cand, lb, out, B, lb4, threads, stream
+    "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _P],
     # pm, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
     "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
     # pm, ws, bw, cand, lb, out, B, lb4, stream

@@ -34,26 +34,30 @@ a funnel shift; the probe bit is computed in-thread.  So only the first
 What bounds K3 on an H100 and what its design does about it (the source's
 header has the detail):
 
+* a text whose answer the final masks fix (empty, or its length more than
+  the cutoff from the query's) is not walked, and a block with no other
+  stages nothing;
 * its PM window comes from shared memory at every bucket: a block walks
   the text in chunks of :data:`CHUNK` steps, every thread at the same
-  step, and stages the table rows a chunk reads (:func:`ring_plan`,
-  :func:`chunk_rows`) into one of two slots by a bulk copy while it
-  computes the chunk before, rows outside the table as zeros; one
-  barrier a chunk, which a thread whose text has ended keeps joining
-  until the block's longest text ends;
-* a thread holds its next :data:`AHEAD` packed corpus words in registers;
+  step, and stages the table rows a chunk reads into one of two slots by
+  a bulk copy while it computes the chunk before, rows outside the table
+  as zeros; one barrier a chunk, which a thread whose walk has ended
+  keeps joining until the block's longest walk ends;
+* a thread holds its next few packed corpus words in registers;
 * chunks that miss the horizontal phase skip its test a step;
-* blocks start with the last (longest) candidates (:func:`block_map`),
-  of 64 threads over buckets of more than one chunk and up to 256 over
-  shorter ones (:func:`block_threads`).
+* blocks start with the last (longest) candidates, of 64 threads over
+  buckets of more than one chunk and up to 256 over shorter ones
+  (:func:`block_threads`).
 
-Over long buckets it is bound by integer issue (14 INT32-lane
-instructions a step at ``bw = 1`` against the bound's 12); where a launch
-holds about one warp a scheduler, as the run-time band over 16,384 texts
-does, by its longest text's chain of steps.
+Over short buckets it is bound by integer issue (14 INT32-lane
+instructions a step at ``bw = 1``, 10 of them the recurrence); over long
+ones, where only the texts near the query's length are walked, by the
+serial chain of a block's longest walk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -66,8 +70,7 @@ MAX_CUTOFF = 15        # one-word band (the TPU's dynamic kernel)
 MAX_CUTOFF_FAST = 47   # pinned band of up to 3 words
 FLAT_MAX_STEPS = 512   # the TPU's flat-unroll budget (kept for routing)
 FAST_MAX_LB = 1024     # the TPU's bucket cap of the pinned band (routing)
-CHUNK = 256            # text steps a chunk of K3's PM ring (S)
-AHEAD = 4              # packed corpus words a K3 thread holds ahead
+CHUNK = 256            # text steps a chunk of K3's PM ring (kChunk)
 BLOCKS = (256, 128, 64)  # K3's block sizes, largest first
 SMS = 132              # the H100's SMs (the block plan's default)
 
@@ -87,39 +90,15 @@ def table_words(la: int, LB: int) -> int:
     return min(words(la), (LB + 16) // 32 + 2)
 
 
-def ring_plan(bw: int, semi: int, LB: int, S: int = CHUNK):
-    """K3's PM ring for a ``bw``-word band of semiwidth ``semi`` over a
-    bucket of ``LB`` chars, in chunks of ``S`` text steps (a multiple of
-    32 and of ``4 * AHEAD``) -> ``(rows, slots)``: the table rows a chunk
-    stages (:func:`chunk_rows`) and the ring's slots (2 when the bucket
-    takes more than one chunk: chunk ``c + 1`` lands while ``c`` runs).
-    Step ``j`` reads rows ``widx0(j) .. widx0(j) + bw``, ``widx0(j) =
-    (j + semi + 1 - 32*bw) // 32``; a chunk of ``L = min(S, LB)`` steps
-    starts ``m = (semi + 1 - 32*bw) % 32`` into its first row (every chunk
-    alike, ``S`` being a multiple of 32), so it spans
-    ``(m + L - 1) // 32 + bw + 1`` rows."""
-    if S % 32 or S % (4 * AHEAD) or S <= 0:
-        raise ValueError(f"chunk of {S} steps: not a multiple of 32 and "
-                         f"{4 * AHEAD}")
-    m = (semi + 1 - 32 * bw) % 32
-    rows = (m + max(1, min(S, LB)) - 1) // 32 + bw + 1
-    return rows, 2 if S < LB else 1
-
-
-def chunk_rows(c: int, bw: int, semi: int, S: int = CHUNK) -> int:
-    """First table row chunk ``c`` (steps ``c*S ..``) stages: ``widx0(c*S)``;
-    it stages :func:`ring_plan`'s ``rows`` rows from there, those outside
-    ``[0, ws)`` as zeros."""
-    return (c * S + semi + 1 - 32 * bw) >> 5
-
-
 def block_threads(B: int, LB: int, sms: int = SMS) -> int:
     """K3's block size for ``B`` candidates over an ``LB`` bucket: 64
-    threads when the bucket takes more than one chunk (its blocks then
-    outnumber the SMs' slots, and the card balances them as they end: 0.80
-    ms over the 131,072 long texts against 0.93 at 256, ``PERF.md`` §6, PR
-    17), else the largest of :data:`BLOCKS` that gives at least two blocks
-    an SM, else the smallest."""
+    threads when the bucket takes more than one chunk (the few texts near
+    the query's length that a long bucket walks then spread over more SMs,
+    and a block waits on fewer of them at its barriers; with every text
+    walked, 0.80 ms over 131,072 texts of up to 8,192 chars against 0.93
+    at 256 on an H100, ``PERF.md`` §6), else the largest of
+    :data:`BLOCKS` that gives at least two blocks an SM, else the
+    smallest."""
     if LB > CHUNK:
         return BLOCKS[-1]
     for t in BLOCKS:
@@ -128,15 +107,11 @@ def block_threads(B: int, LB: int, sms: int = SMS) -> int:
     return BLOCKS[-1]
 
 
-def block_map(B: int, threads: int) -> torch.Tensor:
-    """The candidate each of K3's threads takes, in launch order (block
-    ``i``, thread ``t`` at ``i * threads + t``): block ``i`` takes the
-    candidates of block ``nblocks - 1 - i``, so the last (longest) start
-    first; ``-1`` past ``B``."""
-    nb = -(-B // threads)
-    idx = (torch.arange(nb - 1, -1, -1)[:, None] * threads
-           + torch.arange(threads)[None, :]).reshape(-1)
-    return torch.where(idx < B, idx, -1)
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """SMs of card ``index``, asked once (asked every launch, it took
+    ~0.06 ms of host time a call)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _vp0(bw: int, semi: int) -> list[int]:
@@ -296,10 +271,8 @@ def _band(q: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, cut: int,
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        rows, _ = ring_plan(bw, semi, LB)
-        threads = block_threads(
-            B, LB, torch.cuda.get_device_properties(dev).multi_processor_count)
+        threads = block_threads(B, LB, _sm_count(dev.index))
         launch(name, "rf_lev_band", dev, tabs.data_ptr(), tabs.shape[0], la,
                cut, semi, bw, cand.data_ptr(), lb.data_ptr(),
-               out.data_ptr(), B, cand.shape[0], threads, CHUNK, rows)
+               out.data_ptr(), B, cand.shape[0], threads)
     return out

@@ -34,6 +34,14 @@ from rapidfuzz_tpu_torch.utils import codec
 # one intra-op thread: the test workers share the machine's cores
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """Each test under ``torch.inference_mode()``: no autograd records on
+    the plain versions' per-step tensors."""
+    with torch.inference_mode():
+        yield
+
 JAX_B = 4096    # one grid cell of the JAX kernel
 PORT_B = 1024   # the port's plain version on the first PORT_B of them
 

@@ -11,6 +11,7 @@ across a checkpoint resume.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 from jax.sharding import Mesh
@@ -19,6 +20,14 @@ from rapidfuzz_tpu.distance import levenshtein as jlev
 from rapidfuzz_tpu.parallel.scan import CorpusScanner as JaxScanner
 from rapidfuzz_tpu_torch.parallel import CorpusScanner
 from rapidfuzz_tpu_torch.utils import codec
+
+
+@pytest.fixture(autouse=True)
+def _inference_mode():
+    """Each test under ``torch.inference_mode()``: no autograd records on
+    the plain versions' per-step tensors."""
+    with torch.inference_mode():
+        yield
 
 
 def _rand(rng, alphabet, lo, hi):
