@@ -8,13 +8,12 @@
 // (_jaro_run), which serves buckets over 1024 chars by streaming 512-char
 // text chunks through a second grid axis with the text flags of a whole
 // candidate block in a (ceil(LB/32), sub, 128) VMEM scratch.  That
-// scratch capped the TPU's buckets at 16,384 chars
-// (JARO_STREAM_MAX_LB) and its queries by a VMEM budget
-// (jaro_stream_query_fits): both were VMEM limits.  A thread here walks
-// its own candidate's text from global memory at any length and keeps
-// its state in registers or in a device scratch of any size, so one
-// kernel serves every bucket and every query, and the wrapper counts
-// launches over 1024-char buckets apart (jaro_scan_long).
+// scratch capped the TPU's buckets at 16,384 chars (JARO_STREAM_MAX_LB)
+// and its queries by a VMEM budget (jaro_stream_query_fits): both were
+// VMEM limits.  A thread here walks its own candidate's text from global
+// memory at any length and keeps its state in registers and shared
+// memory, so one kernel serves every bucket and every query; the wrapper
+// counts launches over 1024-char buckets apart (jaro_scan_long).
 //
 // What it computes (jaro_kernel.py:56-196; the reference's
 // jaro.rs:422-514), with the query as the pattern P and the candidate as
@@ -31,63 +30,99 @@
 //   chars differ counts one (the host halves the count).
 // The output is [2, NQ, B] int32: common, then the raw transpositions.
 // P[p] == c is bit p % 32 of the query's PM word p / 32 at row c (K1's
-// table), so byte and local mode and the never-matching sentinel of the
-// scanner's query encoding behave exactly as on the TPU, and no pattern
-// char is materialised.
+// table); the cursor form's tables are derived from that table by the
+// wrapper, so byte and local mode and the never-matching sentinel of the
+// scanner's query encoding behave exactly as on the TPU.
 //
 // Two facts keep the state small.  The window [j - bound, j + bound]
 // never reaches past len1 - 1 while j < len2 (len1 < la only when
-// len1 = lb + bound), so it needs no mask of len1 (the TPU's lenmask).
-// The prefix pairs prefix text char j with pattern char j, so the prefix
-// adds nothing to the transpositions: both passes start at pref with the
-// prefix bits set in the pattern flags and left out of the pop.
+// len1 = lb + bound), so it needs no mask of len1 (the TPU's lenmask),
+// and its lower end j - bound stays below la.  The prefix pairs prefix
+// text char j with pattern char j, so it adds nothing to the
+// transpositions: both passes start at pref with the prefix claimed and
+// left out of the pop.
 //
-// What bounds it on an H100: integer issue.  A text step of pass 1 costs
-// per query word an and-not of the PM word with the window and the
-// claimed bits, the lowest-bit claim (negate, and, or under the "not yet
-// found" predicate) and the window's slide (one funnel shift); the corpus
-// is read 1 byte per char.  Each thread stops pass 1 once every pattern
-// position in len1 is claimed and pass 2 at its last flagged char, so a
-// short query against a long text (64 chars against 8,192) runs a few
-// hundred steps, not the bucket.
+// What bounds it on an H100: integer issue and, for long queries, the
+// chain of shared-memory loads a text step makes.  The corpus is read 1
+// byte per char; each thread stops pass 1 once every pattern position in
+// len1 is claimed, so a short query against a long text (64 chars against
+// 8,192) runs a few hundred steps, not the bucket.
 //
-// Design:
-// * one thread per candidate, candidates along blockIdx.x, the query
-//   along blockIdx.y (the NQ form), so the queries share the corpus lines
-//   the L2 holds;
-// * the packed corpus keeps the JAX layout [LB/4, B] u32, a coalesced
-//   load of 4 chars per 4 text steps;
-// * register form (W <= kMaxRegW = 8 words, template on W): the PM table
-//   ([W, 256] u32) in shared memory, the window and the pattern flags in
-//   registers.  The text flags (one bit per text char, the TPU's
-//   ceil(LB/32) words) are not kept: pass 2 reruns pass 1's flagging
-//   beside the pop, from the same state, so the thread needs 3W words
-//   (window, replayed flags, the flags left to pop) whatever the bucket,
-//   and no memory plan, for about twice pass 1's operations (its SASS
-//   issues as many INT32 instructions a step in the replay as in pass 1);
-// * scratch form (W > 8): the pattern flags and a text-flag bitmap live
-//   in a [NQ, W + ceil(LB/32), nb] u32 scratch, coalesced by candidate,
-//   over the chunk [b0, b0 + nb) of candidates the wrapper sizes to its
-//   memory plan; the PM table is read through the read-only cache.  Pass
-//   1 visits only the words the window covers, skips a word whose PM row
-//   holds no char c, and stops at the first claim; there the flags
-//   already cost a memory access per word, so one bit per text char,
-//   written once per 32 steps, is cheaper than a replay, and pass 2 pops
-//   the claimed positions with a cursor over the final pattern flags
-//   (the lowest remaining bit only rises), one step per char;
+// Design (one thread per candidate, candidates along blockIdx.x, the
+// query along blockIdx.y, the last blocks, whose texts the scanner's
+// length sort makes the longest, started first; the packed corpus keeps
+// the JAX layout [LB/4, B] u32, and each thread holds the next packed
+// word in a register, loaded a word before its chars are used):
+// * register form (W <= kMaxRegW = 8 query words, template on W): the PM
+//   table ([W, 256] u32) in shared memory, the window and the pattern
+//   flags in registers.  Pass 1 claims with an and-not and a lowest-bit
+//   pick per word and writes each flagged text char (one byte) to the
+//   thread's own 32W-byte slot in shared memory, laid out [k/4][thread]
+//   so that a warp's stores hit 32 banks.  Pass 2 walks the claimed
+//   pattern bits in order and pops one stored char for each: no second
+//   walk of the corpus.
+// * cursor form (longer queries): a walk of per-char cursors over the
+//   query's positions.  Per query, the wrapper stages from the PM table
+//   the sorted positions of each PM row that has any (CSR: a row's
+//   positions then a sentinel above every position; the rows numbered
+//   by a slot map), and the row of each position; a block copies them to
+//   shared memory.  Per candidate, shared memory holds one cursor per
+//   row (an index into the positions) and the pattern-flag bitmap.  Text
+//   char c at step j moves c's cursor past positions under
+//   lo = max(j - bound, pref) and claims the position there if it is at
+//   most j + bound.  This is the greedy rule exactly: a position of c is
+//   only claimed by a text char c, the window's lower end only rises, so
+//   every position below the cursor is claimed or below the window for
+//   good, and the cursor's position is the lowest claimable one.  The
+//   cursors advance at most la times over a pair, so a step costs O(1)
+//   shared loads amortised, not O(W) words.  The prefix is found on the
+//   same cursors (P[j] == T[j] iff c's cursor sits on j).  Pass 2
+//   replays the walk from reset cursors and pops the lowest claimed
+//   position left for each claim, counting the pairs whose row differs.
+//   The block size is chosen per launch to keep most threads resident
+//   (plan_cursor); the tables live in shared memory while they take at
+//   most a quarter of it, past that they are read through L1.
 // * la == 0 or lb == 0 gives (0, 0);
-// * every offset into the corpus, the output and the scratch is 64-bit
-//   (row * B, row * nb); only per-candidate lengths, the row count lb4
-//   and the query length are 32-bit.
+// * every offset into the corpus and the output is 64-bit (row * B);
+//   only per-candidate lengths, the row count lb4 and the query length
+//   are 32-bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef RF_JARO_AHEAD
+#define RF_JARO_AHEAD 1        // corpus words held ahead (0: loaded at use)
+#endif
+#ifndef RF_JARO_HEAD
+#define RF_JARO_HEAD 0         // a cursor holds its position beside its index
+#endif
+#ifndef RF_JARO_UNROLL
+#define RF_JARO_UNROLL 1       // a packed word's four slots loaded together
+#endif
+#ifndef RF_JARO_CARVE
+#define RF_JARO_CARVE 0        // the SM's shared memory carved out in full
+#endif
+#ifndef RF_JARO_SMEM_TAB
+#define RF_JARO_SMEM_TAB 1     // cursor tables in shared memory when they fit
+#endif
+#ifndef RF_JARO_ATOM
+#define RF_JARO_ATOM 1         // pattern flag set by atomicOr
+#endif
+#ifndef RF_JARO_REV
+#define RF_JARO_REV 1          // last (longest) blocks first
+#endif
+#ifndef RF_JARO_NOP2
+#define RF_JARO_NOP2 0         // timing only: no pass 2 (wrong transpositions)
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;     // PM entries: every byte value
-constexpr int kMaxRegW = 8;    // state in registers up to this many words
+constexpr int kRows = 256;          // PM entries: every byte value
+constexpr int kMaxRegW = 8;         // register form up to this many words
+constexpr int kSmemBlock = 232448;  // shared memory a block may opt into
+constexpr int kSmemSM = 233472;     // shared memory an SM holds
+constexpr int kSmemReserve = 1024;  // the runtime's share of it per block
+constexpr int kMaxThreads = 256;    // threads a block, at most
 
 // bits [0, n) of a u32, n clamped to [0, 32]
 __device__ __forceinline__ uint32_t below(int n) {
@@ -104,11 +139,74 @@ struct Pair {
     }
 };
 
-// text char j of the candidate whose packed column starts at col
-__device__ __forceinline__ uint32_t char_at(const uint32_t* __restrict__ col,
-                                            int64_t B, int j) {
-    return (col[(size_t)(j >> 2) * B] >> (8 * (j & 3))) & 0xFFu;
+// this thread's candidate: blocks in reverse order, so that the last
+// blocks, whose texts the scanner's length sort makes the longest, start
+// first
+__device__ __forceinline__ int64_t candidate(int T) {
+#if RF_JARO_REV
+    return (int64_t)(gridDim.x - 1 - blockIdx.x) * T + threadIdx.x;
+#else
+    return (int64_t)blockIdx.x * T + threadIdx.x;
+#endif
 }
+
+// the two outputs of this thread's pair (addresses worked out at the end,
+// so that no register holds them through the walks)
+__device__ __forceinline__ void put(int32_t* out, int64_t B, int T,
+                                    int common, int trans) {
+    const int64_t b = candidate(T);
+    out[(size_t)blockIdx.y * B + b] = common;
+    out[((size_t)gridDim.y + blockIdx.y) * B + b] = trans;
+}
+
+// a candidate's text chars in order, the next N packed words held ahead
+// of their use (N = 0: each loaded at its first char); rows past the text
+// are not read
+template <int N>
+struct Text {
+    const uint32_t* col;
+    int64_t B;
+    int rows;
+    uint32_t word, next[N > 0 ? N : 1];
+    __device__ Text(const uint32_t* c, int64_t b, int len)
+        : col(c), B(b), rows((len + 3) >> 2), word(0u) {}
+    __device__ __forceinline__ uint32_t row(int r) const {
+        return r < rows ? col[(size_t)r * B] : 0u;
+    }
+    // position the stream so that the next at() is char j
+    __device__ __forceinline__ void start(int j) {
+        if (N == 0) {
+            if (j & 3) word = row(j >> 2);
+            return;
+        }
+        const int r = (j >> 2) + ((j & 3) ? 1 : 0);
+        if (j & 3) word = row(j >> 2);
+#pragma unroll
+        for (int i = 0; i < (N > 0 ? N : 1); ++i) next[i] = row(r + i);
+    }
+    __device__ __forceinline__ uint32_t at(int j) {
+        if ((j & 3) == 0) {
+            if (N == 0) {
+                word = row(j >> 2);
+            } else {
+                word = next[0];
+#pragma unroll
+                for (int i = 0; i + 1 < N; ++i) next[i] = next[i + 1];
+                next[N > 0 ? N - 1 : 0] = row((j >> 2) + N);
+            }
+        }
+        return (word >> (8 * (j & 3))) & 0xFFu;
+    }
+};
+
+// ------------------------------------------------------- register form
+
+template <int W>
+struct RegPlan {
+    // the stored chars take 32 W bytes a thread: 128 threads past 4
+    // words keep a block's shared memory under 48 KB
+    static constexpr int kThreads = W <= 4 ? 256 : 128;
+};
 
 // length of the common prefix of pattern and text, at most lim: P[j] ==
 // T[j] is bit j % 32 of PM word j / 32 at row T[j]
@@ -125,8 +223,6 @@ __device__ __forceinline__ int common_prefix(const uint32_t* __restrict__ pm,
     }
     return p;
 }
-
-// ------------------------------------------------------- register form
 
 // the window [j - bound, j + bound] as W words
 template <int W>
@@ -163,227 +259,407 @@ __device__ __forceinline__ bool claim(const uint32_t* pmw, const uint32_t* wm,
     return found;
 }
 
-// pop the lowest claimed position left in rem; true if its pattern char
-// equals the text char (PM words pmw)
-template <int W>
-__device__ __forceinline__ bool pop_matches(const uint32_t* pmw,
-                                            uint32_t* rem) {
-    bool done = false, match = false;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-        if (!done && rem[w]) {
-            const uint32_t low = rem[w] & (0u - rem[w]);
-            match = (pmw[w] & low) != 0u;
-            rem[w] ^= low;
-            done = true;
-        }
-    }
-    return match;
-}
-
-template <int W>
-__global__ void __launch_bounds__(kThreads)
+template <int W, int N>
+__global__ void __launch_bounds__(RegPlan<W>::kThreads)
 jaro_scan_reg(const uint32_t* __restrict__ pm_all,
               const int32_t* __restrict__ las,
               const uint32_t* __restrict__ cand,
               const int32_t* __restrict__ lb, int32_t* __restrict__ out,
               int64_t B, int lb4) {
+    constexpr int T = RegPlan<W>::kThreads;
     __shared__ uint32_t pm[W * kRows];
+    // flagged text chars past the prefix: char k of thread t in byte
+    // k % 4 of word [k / 4][t]
+    __shared__ uint32_t held[8 * W * T];
     const int q = blockIdx.y;
     const uint32_t* src = pm_all + (size_t)q * W * kRows;
-    for (int i = threadIdx.x; i < W * kRows; i += kThreads) pm[i] = src[i];
+    for (int i = threadIdx.x; i < W * kRows; i += T) pm[i] = src[i];
     __syncthreads();
 
-    const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+    const int t = threadIdx.x;
+    const int64_t b = candidate(T);
     if (b >= B) return;
     const int la = las[q];
     const int n = min(lb[b], 4 * lb4);
-    int32_t* common_out = out + (size_t)q * B + b;
-    int32_t* trans_out = common_out + (size_t)gridDim.y * B;
     if (la == 0 || n == 0) {
-        *common_out = 0;
-        *trans_out = 0;
+        put(out, B, T, 0, 0);
         return;
     }
     const Pair J(la, n);
     const uint32_t* col = cand + b;
     const int pref = common_prefix(pm, col, B, min(J.len1, J.len2));
 
-    // pass 1: flag
+    // pass 1: flag, storing each flagged text char
     uint32_t pf[W], wm[W], pmw[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) pf[w] = below(pref - 32 * w);
     window_at<W>(wm, pref, J.bound);
-    int common = pref;
-    // (pref may be the text's whole length, one row past its last)
-    uint32_t word = pref < J.len2 ? col[(size_t)(pref >> 2) * B] : 0u;
-    for (int j = pref; j < J.len2 && common < J.len1; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
+    Text<N> text(col, B, J.len2);
+    text.start(pref);
+    int k = 0;
+    uint32_t acc = 0u;
+    for (int j = pref; j < J.len2 && pref + k < J.len1; ++j) {
+        const uint32_t c = text.at(j);
 #pragma unroll
         for (int w = 0; w < W; ++w) pmw[w] = pm[w * kRows + c];
-        common += claim<W>(pmw, wm, pf);
+        if (claim<W>(pmw, wm, pf)) {
+            acc |= c << (8 * (k & 3));
+            if ((k & 3) == 3) {
+                held[(k >> 2) * T + t] = acc;
+                acc = 0u;
+            }
+            ++k;
+        }
         window_slide<W>(wm, j + 1 <= J.bound);
     }
+    if (k & 3) held[(k >> 2) * T + t] = acc;
 
-    // pass 2: replay the flagging; each flagged text char pops the lowest
-    // claimed pattern position left
-    int trans = 0, left = common - pref;
-    if (left) {
-        uint32_t rem[W], pf2[W];
+    // pass 2: the claimed positions past the prefix in pattern order, the
+    // k-th against the k-th stored char
+    int trans = 0, i = 0;
+    uint32_t hw = 0u;
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-            pf2[w] = below(pref - 32 * w);
-            rem[w] = pf[w] & ~pf2[w];
-        }
-        window_at<W>(wm, pref, J.bound);
-        word = col[(size_t)(pref >> 2) * B];
-        for (int j = pref; left && j < J.len2; ++j) {
-            if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-            const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-#pragma unroll
-            for (int w = 0; w < W; ++w) pmw[w] = pm[w * kRows + c];
-            if (claim<W>(pmw, wm, pf2)) {
-                trans += !pop_matches<W>(pmw, rem);
-                --left;
-            }
-            window_slide<W>(wm, j + 1 <= J.bound);
+    for (int w = 0; w < W; ++w) {
+        uint32_t m = pf[w] & ~below(pref - 32 * w);
+        while (m) {
+            const uint32_t low = m & (0u - m);
+            m ^= low;
+            if ((i & 3) == 0) hw = held[(i >> 2) * T + t];
+            const uint32_t c = (hw >> (8 * (i & 3))) & 0xFFu;
+            trans += !(pm[w * kRows + c] & low);
+            ++i;
         }
     }
-    *common_out = common;
-    *trans_out = trans;
+    put(out, B, T, pref + k, trans);
 }
 
-// -------------------------------------------------------- scratch form
+// --------------------------------------------------------- cursor form
 
-__global__ void __launch_bounds__(kThreads)
-jaro_scan_generic(const uint32_t* __restrict__ pm_all,
-                  const int32_t* __restrict__ las,
-                  const uint32_t* __restrict__ cand,
-                  const int32_t* __restrict__ lb, int32_t* __restrict__ out,
-                  uint32_t* __restrict__ scratch, int64_t B, int64_t b0,
-                  int64_t nb, int lb4, int W) {
+// The staged tables of one query, `stride` bytes (the wrapper's
+// cursor_tables), Idx u16 or u32 by the query's words (idx16):
+//   int16 slot[256]           row c's slot, -1 where it holds no position
+//   Idx   off[smax]           slot s's first position index (padded)
+//   Idx   pos[32 W + smax + 1] each slot's positions ascending, then the
+//                             sentinel (Idx's largest value)
+//   u8    pch[32 W]           the row of each position (0 where none)
+// each part starting at a multiple of 16 bytes
+__host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
+
+struct CursorLayout {
+    int off, pos, pch, stride;
+    __host__ __device__ CursorLayout(int W, int smax, int isz) {
+        off = 2 * kRows;
+        pos = off + align16(isz * smax);
+        pch = pos + align16(isz * (32 * W + smax + 1));
+        stride = pch + 32 * W;
+    }
+};
+
+__host__ __device__ constexpr bool idx16(int W) {
+    return 32 * W + kRows + 1 < 0xFFFF;
+}
+
+// a row's cursor: the index k of its next position and, with
+// RF_JARO_HEAD, that position pos[k] beside it, one vector load
+template <typename Idx> struct alignas(2 * sizeof(Idx)) Cur { Idx k, p; };
+
+// per-candidate shared memory of the cursor form: a cursor a row [smax][T]
+// (rounded to a word), u32 pattern flags [W][T]
+__host__ __device__ inline int cursor_bytes(int W, int smax, int isz) {
+    return (isz * smax * (RF_JARO_HEAD ? 2 : 1) + 3) / 4 * 4 + 4 * W;
+}
+
+// the cursor walk from text char j until `left` claims are made or len2:
+// text char c moves its row's cursor past the positions under
+// lo = max(j - bound, pref) and claims the one there if it is at most
+// min(j + bound, la - 1), calling on_claim(position, c); returns the
+// claims made
+template <typename Idx, typename C, typename OnClaim>
+__device__ __forceinline__ int cursor_walk(Text<RF_JARO_AHEAD>& text,
+                                           const int16_t* slot,
+                                           const Idx* pos, C* cur, int T,
+                                           int j, int len2, int left,
+                                           int bound, int pref, int la,
+                                           OnClaim on_claim) {
+    const uint32_t top = (uint32_t)(la - 1);
+    int made = 0;
+    text.start(j);
+    auto step = [&](int s, uint32_t c, int jj) {
+        if (s < 0) return;
+        const uint32_t lo = (uint32_t)max(jj - bound, pref);
+        const uint32_t hi = min((uint32_t)(jj + bound), top);
+        C* e = cur + (size_t)s * T;
+#if RF_JARO_HEAD
+        const C v = *e;
+        uint32_t k = v.k, p = v.p;
+#else
+        uint32_t k = *e, p = pos[k];
+#endif
+        while (p < lo) p = pos[++k];
+        if (p <= hi) {
+#if RF_JARO_HEAD
+            *e = C{(Idx)(k + 1), pos[k + 1]};
+#else
+            *e = (Idx)(k + 1);
+#endif
+            on_claim(p, c);
+            ++made;
+        } else {
+#if RF_JARO_HEAD
+            if (k != v.k) *e = C{(Idx)k, (Idx)p};
+#else
+            *e = (Idx)k;
+#endif
+        }
+    };
+#if RF_JARO_UNROLL
+    // a packed word at a time: its four rows' slots loaded together
+    while (j < len2 && made < left) {
+        text.at(j);
+        const uint32_t w = text.word;
+        int s4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s4[i] = slot[(w >> (8 * i)) & 0xFFu];
+        const int i0 = j & 3;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            if (i >= i0 && j < len2 && made < left) {
+                step(s4[i], (w >> (8 * i)) & 0xFFu, j);
+                ++j;
+            }
+        }
+    }
+#else
+    for (; j < len2 && made < left; ++j) {
+        const uint32_t c = text.at(j);
+        step(slot[c], c, j);
+    }
+#endif
+    return made;
+}
+
+template <typename Idx, bool kSharedTab>
+__global__ void __launch_bounds__(kMaxThreads)
+jaro_scan_cursor(const uint8_t* __restrict__ tab_all,
+                 const int32_t* __restrict__ las,
+                 const uint32_t* __restrict__ cand,
+                 const int32_t* __restrict__ lb, int32_t* __restrict__ out,
+                 int64_t B, int lb4, int W, int smax) {
+#if RF_JARO_HEAD
+    using C = Cur<Idx>;
+#else
+    using C = Idx;
+#endif
+    extern __shared__ uint4 smem[];
+    const int T = blockDim.x, t = threadIdx.x;
+    const CursorLayout L(W, smax, sizeof(Idx));
     const int q = blockIdx.y;
-    const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= nb) return;
-    const int64_t b = b0 + i;
-    const uint32_t* pm = pm_all + (size_t)q * W * kRows;
+    const uint8_t* tab = tab_all + (size_t)q * L.stride;
+    uint8_t* base = reinterpret_cast<uint8_t*>(smem);
+    if (kSharedTab) {
+        const uint4* s4 = reinterpret_cast<const uint4*>(tab);
+        for (int i = t; i < L.stride / 16; i += T) smem[i] = s4[i];
+        tab = base;
+        base += L.stride;
+        __syncthreads();
+    }
+    const int16_t* slot = reinterpret_cast<const int16_t*>(tab);
+    const Idx* off = reinterpret_cast<const Idx*>(tab + L.off);
+    const Idx* pos = reinterpret_cast<const Idx*>(tab + L.pos);
+    const uint8_t* pch = tab + L.pch;
+    C* cur = reinterpret_cast<C*>(base) + t;
+    uint32_t* pf = reinterpret_cast<uint32_t*>(
+        base + (size_t)T * ((sizeof(C) * smax + 3) / 4 * 4)) + t;
+
+    const int64_t b = candidate(T);
+    if (b >= B) return;
     const int la = las[q];
     const int n = min(lb[b], 4 * lb4);
-    int32_t* common_out = out + (size_t)q * B + b;
-    int32_t* trans_out = common_out + (size_t)gridDim.y * B;
     if (la == 0 || n == 0) {
-        *common_out = 0;
-        *trans_out = 0;
+        put(out, B, T, 0, 0);
         return;
     }
     const Pair J(la, n);
     const uint32_t* col = cand + b;
-    // this query's block of the scratch: pattern flags in rows [0, W),
-    // the text-flag bitmap in rows [W, W + TW)
-    const int TW = (4 * lb4 + 31) / 32;
-    uint32_t* pf = scratch + (size_t)q * (W + TW) * nb + i;
-    uint32_t* tf = pf + (size_t)W * nb;
-    const int pref = common_prefix(pm, col, B, min(J.len1, J.len2));
-    for (int w = 0; w < (J.len1 + 31) / 32; ++w)
-        pf[(size_t)w * nb] = below(pref - 32 * w);
+    auto reset = [&]() {
+        for (int s = 0; s < smax; ++s) {
+#if RF_JARO_HEAD
+            cur[(size_t)s * T] = C{off[s], pos[off[s]]};
+#else
+            cur[(size_t)s * T] = off[s];
+#endif
+        }
+    };
+    reset();
+    for (int w = 0; w < (J.len1 + 31) / 32; ++w) pf[(size_t)w * T] = 0u;
 
-    // pass 1: flag, visiting only the window's words, from the lowest
-    int common = pref, j = pref;
-    uint32_t tfw = 0u;
-    uint32_t word = pref < J.len2 ? col[(size_t)(pref >> 2) * B] : 0u;
-    for (; j < J.len2 && common < J.len1; ++j) {
-        if ((j & 3) == 0) word = col[(size_t)(j >> 2) * B];
-        const uint32_t c = (word >> (8 * (j & 3))) & 0xFFu;
-        const int lo = max(j - J.bound, 0), hi = j + J.bound;
-        const int wlo = lo >> 5, whi = min(hi >> 5, W - 1);
-        bool found = false;
-        for (int w = wlo; w <= whi && !found; ++w) {
-            uint32_t m = __ldg(pm + w * kRows + c);
-            if (w == wlo) m &= ~below(lo & 31);
-            if (w == (hi >> 5)) m &= below((hi & 31) + 1);
-            if (!m) continue;
-            const uint32_t f = pf[(size_t)w * nb], avail = m & ~f;
-            if (avail) {
-                pf[(size_t)w * nb] = f | (avail & (0u - avail));
-                found = true;
-            }
-        }
-        if (found) {
-            tfw |= 1u << (j & 31);
-            ++common;
-        }
-        if ((j & 31) == 31) {
-            tf[(size_t)(j >> 5) * nb] = tfw;
-            tfw = 0u;
-        }
+    // the common prefix: P[j] == T[j] iff T[j]'s cursor sits on j (every
+    // position of that row below j is a prefix position, passed already)
+    Text<RF_JARO_AHEAD> text(col, B, J.len2);
+    text.start(0);
+    int pref = 0;
+    const int plim = min(J.len1, J.len2);
+    while (pref < plim) {
+        const int s = slot[text.at(pref)];
+        if (s < 0) break;
+        C* e = cur + (size_t)s * T;
+#if RF_JARO_HEAD
+        const C v = *e;
+        if ((int)v.p != pref) break;
+        *e = C{(Idx)(v.k + 1), pos[v.k + 1]};
+#else
+        const Idx k = *e;
+        if ((int)pos[k] != pref) break;
+        *e = (Idx)(k + 1);
+#endif
+        ++pref;
     }
-    if (j > pref && (j & 31) != 0) tf[(size_t)((j - 1) >> 5) * nb] = tfw;
+    for (int w = 0; w < pref / 32; ++w) pf[(size_t)w * T] = 0xFFFFFFFFu;
+    if (pref & 31) pf[(size_t)(pref >> 5) * T] = below(pref & 31);
 
-    // pass 2: each flagged text char pops the lowest claimed pattern
-    // position left, by a cursor over the final pattern flags
-    int trans = 0, left = common - pref;
+    // pass 1: each text char claims at its row's cursor
+    const int common = pref + cursor_walk<Idx>(
+        text, slot, pos, cur, T, pref, J.len2, J.len1 - pref, J.bound, pref,
+        la, [&](uint32_t p, uint32_t) {
+#if RF_JARO_ATOM
+            atomicOr(pf + (size_t)(p >> 5) * T, 1u << (p & 31));
+#else
+            pf[(size_t)(p >> 5) * T] |= 1u << (p & 31);
+#endif
+        });
+
+    // pass 2: the walk again from reset cursors; the k-th claim pops the
+    // k-th claimed pattern position past the prefix, by a cursor over the
+    // flags, and counts one where the rows differ
+    int trans = 0;
+    const int left = RF_JARO_NOP2 ? 0 : common - pref;
     if (left) {
         int cw = pref >> 5;
-        uint32_t cur = pf[(size_t)cw * nb] & ~below(pref & 31);
-        for (j = pref; left; ++j) {
-            if ((j & 31) == 0 || j == pref) tfw = tf[(size_t)(j >> 5) * nb];
-            if (!(tfw >> (j & 31))) {       // no flag left in this word
-                j |= 31;
-                continue;
-            }
-            if (!((tfw >> (j & 31)) & 1u)) continue;
-            while (!cur) cur = pf[(size_t)(++cw) * nb];
-            const uint32_t low = cur & (0u - cur);
-            cur ^= low;
-            trans += !(__ldg(pm + cw * kRows + char_at(col, B, j)) & low);
-            --left;
+        uint32_t fw = pf[(size_t)cw * T] & ~below(pref & 31);
+        reset();
+        cursor_walk<Idx>(text, slot, pos, cur, T, pref, J.len2, left,
+                         J.bound, pref, la, [&](uint32_t, uint32_t c) {
+            while (!fw) fw = pf[(size_t)(++cw) * T];
+            const uint32_t low = fw & (0u - fw);
+            fw ^= low;
+            trans += pch[32 * cw + __ffs(low) - 1] != c;
+        });
+    }
+    put(out, B, T, common, trans);
+}
+
+// block size and table placement of a cursor launch: the tables in shared
+// memory while they take at most a quarter of a block's; the multiple of
+// 32 threads up to 256 (else the largest power of two below 32) that keeps
+// the most threads resident on an SM, the smaller on a tie.  Returns the
+// dynamic shared memory a block takes, or -1 when one candidate's state
+// does not fit.
+int plan_cursor(int W, int smax, int isz, int stride, int* threads,
+                bool* shared_tab) {
+    const int per = cursor_bytes(W, smax, isz);
+    *shared_tab = RF_JARO_SMEM_TAB && isz == 2 && stride <= kSmemBlock / 4;
+    const int tabs = *shared_tab ? stride : 0;
+    int best = 0, best_t = 0;
+    for (int T = 32; T <= kMaxThreads; T += 32) {
+        const long bytes = tabs + (long)T * per;
+        if (bytes > kSmemBlock) break;
+        long blocks = kSmemSM / (bytes + kSmemReserve);
+        blocks = blocks < 32 ? blocks : 32;     // blocks an SM holds
+        const long res = blocks * T < 2048 ? blocks * T : 2048;
+        if (res > best) {
+            best = (int)res;
+            best_t = T;
         }
     }
-    *common_out = common;
-    *trans_out = trans;
+    for (int T = 16; !best_t && T >= 1; T /= 2)
+        if (tabs + (long)T * per <= kSmemBlock) best_t = T;
+    if (!best_t) return -1;
+    *threads = best_t;
+    return tabs + best_t * per;
+}
+
+template <typename Idx, bool kSharedTab>
+cudaError_t launch_cursor(const uint8_t* tab, const int32_t* las,
+                          const uint32_t* cand, const int32_t* lb,
+                          int32_t* out, int64_t B, int lb4, int W, int smax,
+                          int T, int bytes, int nq, cudaStream_t stream) {
+    auto kernel = jaro_scan_cursor<Idx, kSharedTab>;
+    static int opted = -1;
+    if (bytes > opted) {
+        // the SM's shared memory before its L1, so that plan_cursor's
+        // blocks fit
+        cudaError_t e = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+#if RF_JARO_CARVE
+        if (e == cudaSuccess)
+            e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                cudaSharedmemCarveoutMaxShared);
+#endif
+        if (e != cudaSuccess) return e;
+        opted = bytes;
+    }
+    const dim3 grid((unsigned)((B + T - 1) / T), nq);
+    kernel<<<grid, T, bytes, stream>>>(tab, las, cand, lb, out, B, lb4, W,
+                                       smax);
+    return cudaGetLastError();
 }
 
 template <int W>
 cudaError_t launch_reg(const uint32_t* pm, const int32_t* las,
                        const uint32_t* cand, const int32_t* lb, int32_t* out,
                        int64_t B, int lb4, int nq, cudaStream_t stream) {
-    const dim3 grid((unsigned)((B + kThreads - 1) / kThreads), nq);
-    jaro_scan_reg<W><<<grid, kThreads, 0, stream>>>(pm, las, cand, lb, out,
-                                                    B, lb4);
+    constexpr int T = RegPlan<W>::kThreads;
+    const dim3 grid((unsigned)((B + T - 1) / T), nq);
+    jaro_scan_reg<W, RF_JARO_AHEAD><<<grid, T, 0, stream>>>(pm, las, cand, lb,
+                                                           out, B, lb4);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// out is [2, nq, B] int32 (common, transpositions).  The register form
-// (W <= 8) runs over all B candidates at once and takes b0 = 0, nb = B;
-// the scratch form runs over candidates [b0, b0 + nb) with a scratch of
-// nq * (W + ceil(4*lb4/32)) * nb u32.
-extern "C" cudaError_t rf_jaro_scan(const uint32_t* pm, const int32_t* las,
-                                    const uint32_t* cand, const int32_t* lb,
-                                    int32_t* out, uint32_t* scratch,
-                                    int64_t B, int64_t b0, int64_t nb,
-                                    int lb4, int W, int nq,
+// out is [2, nq, B] int32 (common, transpositions).  With tab null, the
+// register form over the PM tables pm [nq, W, 256] (W <= 8); else the
+// cursor form over the staged tables tab [nq, stride] bytes
+// (cursor_tables: smax rows with positions at most, u16 indices while
+// idx16(W)), at any W.
+extern "C" cudaError_t rf_jaro_scan(const uint32_t* pm, const uint8_t* tab,
+                                    int stride, int smax,
+                                    const int32_t* las, const uint32_t* cand,
+                                    const int32_t* lb, int32_t* out,
+                                    int64_t B, int lb4, int W, int nq,
                                     cudaStream_t stream) {
-    if (W <= kMaxRegW && (b0 != 0 || nb != B)) return cudaErrorInvalidValue;
-    switch (W) {
-        case 1: return launch_reg<1>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 2: return launch_reg<2>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 3: return launch_reg<3>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 4: return launch_reg<4>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 5: return launch_reg<5>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 6: return launch_reg<6>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 7: return launch_reg<7>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        case 8: return launch_reg<8>(pm, las, cand, lb, out, B, lb4, nq, stream);
-        default: break;
+    if (B < 1 || nq < 1 || W < 1) return cudaErrorInvalidValue;
+    if (tab == nullptr) {
+        switch (W) {
+            case 1: return launch_reg<1>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 2: return launch_reg<2>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 3: return launch_reg<3>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 4: return launch_reg<4>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 5: return launch_reg<5>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 6: return launch_reg<6>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 7: return launch_reg<7>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            case 8: return launch_reg<8>(pm, las, cand, lb, out, B, lb4, nq, stream);
+            default: return cudaErrorInvalidValue;
+        }
     }
     static_assert(kMaxRegW == 8, "the switch above instantiates W <= 8");
-    if (W < 1 || scratch == nullptr || b0 < 0 || nb < 1 || b0 + nb > B)
+    const int isz = idx16(W) ? 2 : 4;
+    if (smax < 0 || smax > kRows ||
+        CursorLayout(W, smax, isz).stride != stride ||
+        reinterpret_cast<uintptr_t>(tab) % 16)
         return cudaErrorInvalidValue;
-    const dim3 grid((unsigned)((nb + kThreads - 1) / kThreads), nq);
-    jaro_scan_generic<<<grid, kThreads, 0, stream>>>(pm, las, cand, lb, out,
-                                                     scratch, B, b0, nb, lb4,
-                                                     W);
-    return cudaGetLastError();
+    int T;
+    bool shared_tab;
+    const int bytes = plan_cursor(W, smax, isz, stride, &T, &shared_tab);
+    if (bytes < 0) return cudaErrorInvalidValue;
+    if (isz == 4)
+        return launch_cursor<uint32_t, false>(tab, las, cand, lb, out, B,
+                                              lb4, W, smax, T, bytes, nq,
+                                              stream);
+    if (shared_tab)
+        return launch_cursor<uint16_t, true>(tab, las, cand, lb, out, B, lb4,
+                                             W, smax, T, bytes, nq, stream);
+    return launch_cursor<uint16_t, false>(tab, las, cand, lb, out, B, lb4, W,
+                                          smax, T, bytes, nq, stream);
 }

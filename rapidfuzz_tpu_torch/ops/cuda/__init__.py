@@ -101,9 +101,8 @@ _SIGNATURES = {
     # pm, la, ins, del, sub, cand, lb, out, edge, B, b0, nb, lb4, stream
     "rf_wlev_scan": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _I64, _I64, _I64,
                      _I, _P],
-    # pm, las, cand, lb, out, scratch, B, b0, nb, lb4, W, nq, stream
-    "rf_jaro_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
-                     _P],
+    # pm, tab, stride, smax, las, cand, lb, out, B, lb4, W, nq, stream
+    "rf_jaro_scan": [_P, _P, _I, _I, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     # pm, la, cand, lb, out, scratch, B, b0, nb, lb4, stream
     "rf_dam_scan": [_P, _I, _P, _P, _P, _P, _I64, _I64, _I64, _I, _P],
     # pm, ws, la, kband, cand, lb, out, B, lb4, stream

@@ -21,10 +21,24 @@ candidate the text.  The kernel returns integer components; the caller
 finishes them into f64 similarities on the host
 (``distance.jaro.sim_from_components``), the transpositions halved there.
 
-Queries of more than :data:`MAX_REG_W` words keep each candidate's pattern
-flags and a text-flag bitmap in a ``[NQ, W + ceil(LB/32), chunk]`` u32
-scratch: the wrapper launches over chunks of candidates whose scratch
-stays within :data:`SCRATCH_BYTES`, read at each call, one launch each.
+Two forms.  Up to :data:`MAX_REG_W` query words a thread keeps the window
+and the pattern flags in registers and writes each flagged text char to
+its own slot in shared memory, so that pass 2 pops the stored chars
+against the claimed pattern bits without walking the corpus again.
+Longer queries walk per-char cursors over the query's positions
+(:func:`cursor_tables`, staged from the PM table once a launch): text char
+``c`` at step ``j`` moves ``c``'s cursor past the positions under
+``max(j - bound, pref)`` and claims the one there if it is at most
+``j + bound``.  That is the greedy rule exactly, since a position of ``c``
+is claimed only by a text char ``c`` and the window's lower end only
+rises, so every position below a cursor is claimed or out of reach for
+good; the cursors advance at most ``la`` times a pair, so a step costs
+O(1) shared-memory loads amortised where the TPU kernel's costs O(W)
+words.  Each candidate's cursors and pattern flags live in shared memory
+(about 560 bytes at 4,001 chars over 27 symbols); nothing is kept in
+device memory per candidate, so no launch is chunked.  A candidate's
+state must fit one block's shared memory (227 KB: queries of about 1.8
+million chars); past that the launch is refused.
 
 The wrapper runs the kernel when handed CUDA tensors and the plain PyTorch
 version (:func:`jaro_scan_plain`) when handed CPU tensors; it never falls
@@ -42,11 +56,8 @@ from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
                          words)
 
-MAX_REG_W = 8            # K8 keeps its state in registers up to this many
-                         # query words; longer queries use a scratch
-SCRATCH_BYTES = 1 << 30  # bound of one launch's scratch (the scanner's
-                         # memory plan)
-BLOCK = 256              # candidates per CUDA block
+MAX_REG_W = 8    # K8's register form up to this many query words; the
+                 # cursor form past them
 
 
 def _below(n: torch.Tensor) -> torch.Tensor:
@@ -155,6 +166,81 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     return torch.cat(outs, -1).to(torch.int32)
 
 
+def idx16(W: int) -> bool:
+    """Whether the cursor form indexes a ``W``-word query's positions with
+    u16 (else u32): every index and the sentinel stay below 0xFFFF."""
+    return 32 * W + PM_ROWS + 1 < 0xFFFF
+
+
+def cursor_layout(W: int, smax: int):
+    """Byte offsets of one query's cursor tables (``off``, ``pos``, ``pch``)
+    and their stride, each part at a multiple of 16 bytes (the C entry's
+    ``CursorLayout``)."""
+    isz = 2 if idx16(W) else 4
+    off = 2 * PM_ROWS
+    pos = off + -(-isz * smax // 16) * 16
+    pch = pos + -(-isz * (32 * W + smax + 1) // 16) * 16
+    return off, pos, pch, pch + 32 * W
+
+
+def _as_bytes(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``[NQ, n]`` int64 values below ``2**(8*size)`` -> ``[NQ, n*size]``
+    uint8, little-endian."""
+    bits = 8 * size
+    x = torch.where(x >= 1 << (bits - 1), x - (1 << bits), x)
+    return x.to({1: torch.int8, 2: torch.int16, 4: torch.int32}[size]
+                ).contiguous().view(torch.uint8)
+
+
+def cursor_tables(tabs: torch.Tensor):
+    """The cursor form's tables of each query, derived from its PM table
+    ``tabs [NQ, W, 256]`` on its device -> (``[NQ, stride/4]`` int32 bytes,
+    ``smax``), ``smax`` the most rows with positions of any query.
+
+    Per query, at :func:`cursor_layout`'s offsets: ``slot [256]`` int16,
+    row ``c``'s number among the rows with positions (-1 for none);
+    ``off [smax]``, each such row's first index into ``pos``;
+    ``pos [32 W + smax + 1]``, each row's positions ascending and then a
+    sentinel (the index type's largest value, above every position and
+    window end), the rest sentinels; ``pch [32 W]`` u8, the row of each
+    position (0 where none).  Indices are u16 while :func:`idx16`, else
+    u32.  A PM table sets each position in at most one row (one char a
+    position), so a position's row is the sum of the rows holding it."""
+    NQ, W, rows = tabs.shape
+    dev = tabs.device
+    P = 32 * W
+    isz = 2 if idx16(W) else 4
+    u = tabs.to(torch.int64) & M32
+    bits = (u[..., None] >> torch.arange(32, device=dev)) & 1
+    bits = bits.permute(0, 2, 1, 3).reshape(NQ, rows, P)   # [NQ, row, p]
+    counts = bits.sum(2)
+    present = counts > 0
+    smax = int(present.sum(1).max()) if NQ else 0
+    slot = torch.where(present, present.cumsum(1) - 1, -1)
+    # a row's first index: the positions and sentinels of the rows before
+    start = counts.cumsum(1) - counts + slot.clamp(min=0)
+    PP = P + smax + 1
+    sent = (1 << (8 * isz)) - 1
+    pos = torch.full((NQ, PP + 1), sent, dtype=torch.int64, device=dev)
+    idx = torch.where(bits == 1, start[..., None] + bits.cumsum(2) - 1, PP)
+    pos.scatter_(1, idx.reshape(NQ, -1),
+                 torch.arange(P, device=dev).repeat(NQ, rows))
+    off = torch.full((NQ, smax + 1), PP - 1, dtype=torch.int64, device=dev)
+    off.scatter_(1, torch.where(present, slot, smax), start)
+    pch = (bits * torch.arange(rows, device=dev)[:, None]).sum(1)
+    o_off, o_pos, o_pch, stride = cursor_layout(W, smax)
+    parts = [(_as_bytes(slot, 2), o_off), (_as_bytes(off[:, :smax], isz),
+                                           o_pos),
+             (_as_bytes(pos[:, :PP], isz), o_pch),
+             (pch.to(torch.uint8), stride)]
+    out, at = [], 0
+    for part, end in parts:
+        out += [part, torch.zeros((NQ, end - at - part.shape[1]),
+                                  dtype=torch.uint8, device=dev)]
+        at = end
+    return torch.cat(out, 1).view(torch.int32), smax
+
+
 def _jaro_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
     """K8 over stacked queries -> ``[2, NQ, B]`` int32 (kernel on CUDA
     tensors, plain version on CPU tensors)."""
@@ -178,20 +264,14 @@ def _jaro_scan(las, tabs, cand, lb, name: str) -> torch.Tensor:
         return out
     lb4 = cand.shape[0]
     if W <= MAX_REG_W:
-        launch(name, "rf_jaro_scan", dev, tabs.data_ptr(), las.data_ptr(),
-               cand.data_ptr(), lb.data_ptr(), out.data_ptr(), None, B, 0, B,
-               lb4, W, NQ)
+        launch(name, "rf_jaro_scan", dev, tabs.data_ptr(), None, 0, 0,
+               las.data_ptr(), cand.data_ptr(), lb.data_ptr(),
+               out.data_ptr(), B, lb4, W, NQ)
         return out
-    # pattern flags and the text-flag bitmap, [NQ, W + TW, chunk] u32
-    # coalesced by candidate, bounded by SCRATCH_BYTES: one launch per
-    # chunk of candidates
-    per = 4 * NQ * (W + -(-4 * lb4 // 32))
-    chunk = min(B, max(BLOCK, SCRATCH_BYTES // per // BLOCK * BLOCK))
-    scratch = torch.empty(per // 4 * chunk, dtype=torch.int32, device=dev)
-    for b0 in range(0, B, chunk):
-        launch(name, "rf_jaro_scan", dev, tabs.data_ptr(), las.data_ptr(),
-               cand.data_ptr(), lb.data_ptr(), out.data_ptr(),
-               scratch.data_ptr(), B, b0, min(chunk, B - b0), lb4, W, NQ)
+    tab, smax = cursor_tables(tabs)
+    launch(name, "rf_jaro_scan", dev, tabs.data_ptr(), tab.data_ptr(),
+           tab.shape[1] * 4, smax, las.data_ptr(), cand.data_ptr(),
+           lb.data_ptr(), out.data_ptr(), B, lb4, W, NQ)
     return out
 
 
