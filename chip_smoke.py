@@ -11,8 +11,9 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``; K1's, K3's, K4's and K6's per
-   kernel instance, the run failing if a K3, K4 or K6 instance spills)
+   registers and spills (``ptxas -v``; K1's, K3's, K4's, K6's and K8's
+   per kernel instance, the run failing if a K3, K4, K6 or K8 instance
+   spills)
    and, for K1, K3, K4, K6 and K7-K11, each kernel's SASS instruction
    count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
@@ -46,11 +47,13 @@ Phases, each printing one JSON line before the next starts:
    in byte and local mode, and over buckets of 1,056-8,192 chars at
    993-1,024 (a full strip), 1,025-1,100 (also over several chunks of a
    small edge-buffer budget) and ~2,100 chars (three strips); K8 (the
-   Jaro components) in its register form at one and two
-   words and its scratch form at the first scratch width (also launched
-   over several chunks of a small scratch budget), at 262,144 candidates
-   in byte and local mode, 16 queries per launch, and over 2048-, 8192-
-   and 16,400-char buckets, over near copies with adjacent swaps planted;
+   Jaro components) in its register form at one, two and five words
+   (the stored-char pass 2) and its cursor form at 8, 9, 10, 17, 126 and
+   625 words (the last with its tables read through L1), at 262,144
+   candidates in byte and local mode, 16 queries per launch (also in
+   cursor form), and over 2048-, 8192- and 16,400-char buckets, over near copies with adjacent swaps planted, prefixes over
+   the whole shorter string, texts of chars in no query row, empty texts
+   and a sentinel char in every query;
    K9 (Damerau-Levenshtein) in its full form at queries of 0-4,001 chars
    (a tile of 32 query columns a lane: 1, 2, 4, 5, 10 and 32 lanes a
    candidate, and strips of 1,024 columns at 1,025, 2,100 and 4,001
@@ -175,7 +178,9 @@ Phases, each printing one JSON line before the next starts:
    the second launched over chunks of the 1 GiB edge-buffer plan), its
    plain version on a slice of the candidates where the whole shape would
    take it over 10 s, each with its layout beside the bound as K1's; K8
-   also at 300 and 4,001 chars over the long corpus; K9 also at
+   also at 300 and 4,001 chars over the long corpus (its cursor form,
+   each with its launches, its plain version on every LONG_SLICE-th text
+   and its bound over the steps this data needs); K9 also at
    32 chars (one lane a candidate) and at radius 3 and 15 over the serve
    corpus and at 300 chars over the long corpus, its full form's layout
    (hand-offs, ramps, padded columns) beside its bound; K10 with a 12-char query
@@ -195,7 +200,7 @@ Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
 8, 9, 10, 11, 12, 13 and 14 and read after each, so the counts are those
 of the nine main paths alone; every kernel must have launched in them.
-The done line also counts the main paths' K1, K4 and K6 launches and
+The done line also counts the main paths' K1, K4, K6 and K8 launches and
 their candidates by query words (``launches_by_words``: [launches,
 candidates] per W).  Each
 phase's line gives its seconds and those of its oracle checks
@@ -287,7 +292,7 @@ LEV_SHORTEST = 64
 #: positions of W and of the launch's candidate count among each C entry
 #: point's arguments
 WORDS_ARG = {"rf_lev_scan": (10, 8), "rf_lcs_scan": (9, 7),
-             "rf_osa_scan": (10, 8)}
+             "rf_osa_scan": (10, 8), "rf_jaro_scan": (10, 8)}
 #: the Jaro service's prefix weight (the default) and the library's
 JARO_PW = 0.1
 JARO_LIB_PW = 0.2
@@ -359,12 +364,21 @@ WLEV_TILE_STEP_OPS = 122 - 100 - 1 - 3 * 3 / 4
 #: The steps are those this run's data needs: pass 1 from the end of the
 #: common prefix until every pattern position is claimed or len2, pass 2
 #: until the last flagged char (jaro_scan_plain(..., steps=True)).
-#: K8's register form does not store the text flags but replays pass 1's
-#: flagging in pass 2 (13 and 22 INT32-lane instructions a step in the
-#: SASS without the pop: JARO_REPLAY_OPS); its time at the peak rate is
-#: reported beside the bound (*_replay_bound_ms), not in it
+#: (The counts are those of the register form before it stored its
+#: flagged chars; the bound is the function's work, whatever the form.)
 JARO_OPS = {"pass1": (9, 5), "flag_test": 2, "pop": (1, 5)}
-JARO_REPLAY_OPS = (9, 4)
+#: K8's cursor form (past MAX_REG_W words): INT32-lane instructions per
+#: pass-1 step, beyond it per claim, and per pop of pass 2, counted (as
+#: alu_blocks counts them) in the SASS of the built library's
+#: jaro_scan_cursor<u16, tables in shared memory>: its pass-1 loop takes
+#: a packed word a time, 60 instructions for the four steps without a
+#: claim or a skip (the char's row, the window's ends, the cursor's
+#: compare, the exits, the word's load and its four rows' lookups), 2
+#: more a claim (the flag's bit and word for the atomic or); a pop takes
+#: 9 (the flag word's lowest bit by BREV and FLO, the row's compare, the
+#: counts).  Its replay of pass 1 in pass 2 goes beside the bound
+#: (*_replay_bound_ms), not in it
+JARO_CURSOR_OPS = {"step": 60 / 4, "claim": 2, "pop": 9}
 LCS_BAND_STEP_OPS = 1
 #: K9's bound charges every DP cell the least INT32-lane operations its
 #: unrolled row bodies take for it, counted in the SASS of the built
@@ -753,14 +767,15 @@ class Smoke:
         self.torch.cuda.synchronize()
 
     def count_words(self, on: bool) -> None:
-        """Count K1's, K4's and K6's launches and their candidates also
-        by query words (``self.words``) while ``on``: the launch function
-        their wrappers call (``lev_kernel.tile_launches``) is wrapped, and
-        restored when ``on`` is false."""
-        lk = self.lk
+        """Count K1's, K4's, K6's and K8's launches and their candidates
+        also by query words (``self.words``) while ``on``: the launch
+        function their wrappers call (``lev_kernel.tile_launches``'s and
+        ``jaro_kernel``'s) is wrapped, and restored when ``on`` is
+        false."""
+        lk, jk = self.lk, self.jk
         inner = getattr(lk.launch, "inner", lk.launch)
         if not on:
-            lk.launch = inner
+            lk.launch = jk.launch = inner
             return
 
         def launch(name, entry, dev, *args):
@@ -772,7 +787,7 @@ class Smoke:
                 tally[1] += args[nb]
 
         launch.inner = inner
-        lk.launch = launch
+        lk.launch = jk.launch = launch
 
     def emit_phase(self, obj) -> None:
         """A phase's JSON line, with the seconds its oracle checks took."""
@@ -1454,18 +1469,48 @@ class Smoke:
     def jaro_kernel_cases(self, rng, alph, salt):
         """K8 against its plain version, (common, transpositions) bit for
         bit, over near copies of the query with adjacent swaps planted
-        (across query bits 31/32 and packed 4-char rows): ``jaro_scan``
-        in register form at W = 1 and 2 and in scratch form at the first
-        scratch width, over N_KERNEL candidates in byte and local mode,
-        the scratch form once more over chunks of a scratch budget a
-        quarter of the candidates' (several launches, each at its own
-        candidate offset); ``jaro_scan_nq`` for a one-word group holding
-        an empty query and a two-word group; ``jaro_scan_long`` at W = 2
-        and at the first scratch width over 2048-char buckets, at W = 2
-        over 8192, at N_KERNEL_LONG candidates, and at both over
-        HUGE_LB-char buckets (past the TPU's cap) at N_HUGE.  Every case
-        must count some transposition."""
-        torch, lk, jk, kc = self.torch, self.lk, self.jk, self.kc
+        (across query bits 31/32 and packed 4-char rows; unedited copies
+        end pass 1 by their claims, edited ones at len2), joined by the
+        query cut short (a prefix over the whole text), the query run on
+        (a prefix over the whole query), a text of chars in no row of the
+        query's table (every cursor list empty) and an empty text; each
+        query holds a char outside its table's domain (the scanner's
+        never-matching sentinel: 300 in byte mode, 200 in local mode).
+        ``jaro_scan`` in register form at W = 1, 2 and 5 (its stored-char
+        pass 2, up to its widest) and in cursor form at W = 8 and 17,
+        over N_KERNEL candidates in byte and local mode; ``jaro_scan_nq`` for a one-word
+        group holding an empty query, a two-word group and a ten-word
+        group (the cursor form); ``jaro_scan_long`` in register form at
+        W = 2 over 2048- and HUGE_LB-char buckets (past the TPU's cap) and
+        in cursor form at W = 9, 17 (2048), 10 and 126 (8192) and 625
+        (HUGE_LB: ~20,000 chars, its tables past a quarter of the shared
+        memory, read through L1), at N_KERNEL_LONG candidates (N_HUGE, 32
+        at W = 625, at HUGE_LB).  Every case must
+        count some transposition."""
+        torch, lk, jk = self.torch, self.lk, self.jk
+
+        def query(a, mode, W):
+            q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
+            q[int(rng.integers(0, q.size))] = 300 if mode == "byte" else 200
+            return q
+
+        def texts(q, a, mode, B, lbm):
+            """B near copies of ``q`` and the four texts above, packed."""
+            cand, lb = self.mutants(self.gen(salt), q, a, B, lbm, swaps=True)
+            dom = 256 if mode == "byte" else 128
+            absent = np.setdiff1d(np.arange(dom), a)
+            n = min(q.size, lbm)
+            rows = [q[: max(1, n - 5)],
+                    np.r_[q, rng.choice(a, lbm)][:lbm],
+                    rng.choice(absent, min(lbm, 2 * q.size)), q[:0]]
+            chars = np.full((len(rows), lbm), -1, np.int32)
+            for i, t in enumerate(rows):
+                chars[i, : t.size] = np.where(t < dom, t, 7)
+            extra = lk.prepare_corpus(
+                torch.from_numpy(chars).to(self.dev),
+                torch.tensor([t.size for t in rows], dtype=torch.int32))
+            return (torch.cat([cand, extra[0]], 1).contiguous(),
+                    torch.cat([lb, extra[1]]).contiguous())
 
         def case(name, q, mode, cand, lb, what):
             las, tabs = lk.stage_query(q, mode, self.dev)
@@ -1475,33 +1520,15 @@ class Smoke:
             if not bool((got[1] > 0).any()):
                 raise AssertionError(f"{name} {what}: no transposition")
 
-        W_s = jk.MAX_REG_W + 1
-        for W in (1, 2, W_s):
-            lbm = LB if W <= 2 else 320
+        for W in (1, 2, 5, 8, 17):
+            lbm = LB if W <= 2 else 64 * ((40 * W + 63) // 64)
             for mode in ("byte", "local"):
                 salt += 1
                 a = alph[mode]
-                q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
-                cand, lb = self.mutants(self.gen(salt), q, a, N_KERNEL, lbm,
-                                        swaps=True)
+                q = query(a, mode, W)
+                cand, lb = texts(q, a, mode, N_KERNEL, lbm)
                 case("jaro_scan", q, mode, cand, lb, f"W={W} {mode}")
-                if W == W_s and mode == "local":
-                    per = 4 * (W + lbm // 32)
-                    budget = per * (N_KERNEL // 4)
-                    chunk = budget // per // jk.BLOCK * jk.BLOCK
-                    before = kc.LAUNCHES["jaro_scan"]
-                    plan = jk.SCRATCH_BYTES
-                    jk.SCRATCH_BYTES = budget
-                    try:
-                        case("jaro_scan", q, mode, cand, lb,
-                             f"W={W} over chunks of {chunk}")
-                    finally:
-                        jk.SCRATCH_BYTES = plan
-                    if kc.LAUNCHES["jaro_scan"] - before != \
-                            -(-N_KERNEL // chunk):
-                        raise AssertionError("K8 scratch: wrong number of "
-                                             "chunk launches")
-        for W in (1, 2):
+        for W in (1, 2, 10):
             salt += 1
             a = alph["byte"]
             q0 = rng.choice(a, 32 * W)
@@ -1510,21 +1537,27 @@ class Smoke:
                          for _ in range(15)]
             if W == 1:
                 qs[3] = np.empty(0, np.int64)
-            cand, lb = self.mutants(self.gen(salt), q0, a, N_KERNEL, LB,
-                                    swaps=True)
+            cand, lb = texts(q0, a, "byte",
+                             N_KERNEL if W <= 2 else N_KERNEL_LONG,
+                             LB if W <= 2 else 512)
             las, tabs = lk.stage_queries(qs, "byte", self.dev)
             self.compare("jaro_scan_nq", torch.stack(jk.jaro_nq_many(
                 qs, cand, lb)), jk.jaro_scan_plain(las, tabs, cand, lb),
                          f"16 queries W={W}")
-        for LBl, W, B in ((2048, 2, N_KERNEL_LONG), (2048, W_s, N_KERNEL_LONG),
-                          (LONG_LB, 2, N_KERNEL_LONG), (HUGE_LB, 2, N_HUGE),
-                          (HUGE_LB, W_s, N_HUGE)):
+        for LBl, W, B, mode in ((2048, 2, N_KERNEL_LONG, "byte"),
+                                (2048, 9, N_KERNEL_LONG, "local"),
+                                (2048, 17, N_KERNEL_LONG, "byte"),
+                                (LONG_LB, 10, N_KERNEL_LONG, "byte"),
+                                (LONG_LB, 126, N_KERNEL_LONG, "local"),
+                                (HUGE_LB, 2, N_HUGE, "byte"),
+                                (HUGE_LB, 625, 32, "byte")):
             salt += 1
-            a = alph["byte"]
-            q = rng.choice(a, 32 * (W - 1) + 1 + int(rng.integers(0, 32)))
-            cand, lb = self.mutants(self.gen(salt), q, a, B, LBl, swaps=True)
+            a = alph[mode]
+            q = query(a, mode, W)
+            cand, lb = texts(q, a, mode, B, LBl)
             lb[:8] = LBl                      # the bucket's last rows
-            case("jaro_scan_long", q, "byte", cand, lb, f"LB={LBl} W={W}")
+            case("jaro_scan_long", q, mode, cand, lb,
+                 f"LB={LBl} W={W} {mode}")
         return salt
 
     def dam_kernel_cases(self, rng, alph, salt):
@@ -3976,26 +4009,98 @@ class Smoke:
         # data needs (the plain version's step rows over the whole shape)
         jk = self.jk
 
-        def jaro_work(lbv, words, nq, st, row):
+        def jaro_work(lbv, words, nq, st, row, tab_bytes=0):
             """Bytes and operations of a K8 launch: the packed chars each
             candidate's passes reach (read once), its length, two int32
-            outputs per query, the PM tables once; pass 1's JARO_OPS per
-            query word and step, the flag test per pass-2 step and the pop
-            per flagged char.  The replay's operations go to
-            ``extra[row + "_replay_bound_ms"]``."""
+            outputs per query, the PM tables once (and the cursor form's
+            staged tables, ``tab_bytes``); per pass-1 step JARO_OPS's (its
+            register form's per query word and step) or, given
+            ``tab_bytes``, JARO_CURSOR_OPS's, the flag test per pass-2
+            step and the pop per flagged char.  The cursor form's replay of
+            pass 1 goes to ``extra[row + "_replay_bound_ms"]``."""
             reach = st[4].to(torch.int64).amax(0)
             nbytes = (int(((reach + 3) // 4).sum()) * 4
-                      + lbv.numel() * 4 * (1 + 2 * nq) + nq * words * 1024)
-            (w1, s1), (wp, sp) = JARO_OPS["pass1"], JARO_OPS["pop"]
+                      + lbv.numel() * 4 * (1 + 2 * nq) + nq * words * 1024
+                      + tab_bytes)
             steps1, steps2, pops = (int(st[i].to(torch.int64).sum())
                                     for i in (2, 3, 5))
-            ops = ((w1 * words + s1) * steps1
-                   + JARO_OPS["flag_test"] * steps2 + (wp * words + sp) * pops)
-            wr, sr = JARO_REPLAY_OPS
-            extra[f"{row}_replay_bound_ms"] = \
-                (wr * words + sr) * steps2 / int_ops_s * 1e3
+            if tab_bytes:
+                step, claim = JARO_CURSOR_OPS["step"], JARO_CURSOR_OPS["claim"]
+                pop = JARO_CURSOR_OPS["pop"]
+                extra[f"{row}_replay_bound_ms"] = \
+                    (step * steps2 + claim * pops) / int_ops_s * 1e3
+            else:
+                (w1, s1), (wp, sp) = JARO_OPS["pass1"], JARO_OPS["pop"]
+                step, claim, pop = w1 * words + s1, 0, wp * words + sp
+            ops = (step * steps1 + JARO_OPS["flag_test"] * steps2
+                   + (claim + pop) * pops)
             extra[f"{row}_steps"] = [steps1, steps2, pops]
             return nbytes, ops
+
+        def jaro_cursor_steps(qk, st):
+            """``jaro_scan_plain(..., steps=True)``'s rows for one long
+            query over the whole long corpus (common, 0, pass-1 steps,
+            pass-2 steps, chars reached, flagged chars past the prefix),
+            by the cursor walk in plain PyTorch over the staged tables: a
+            step finds the char's first position at or above the window's
+            lower end by one search of the positions sorted by (row,
+            position), O(B) a step where the plain version's is O(W B)."""
+            la, W = qk.size, st[1].shape[0]
+            tab, smax = jk.cursor_tables(st[1][None])
+            o_off, o_pos, _, _ = jk.cursor_layout(W, smax)
+            raw = tab[0].view(torch.uint8)
+            isz = 2 if jk.idx16(W) else 4
+            wide = torch.int16 if isz == 2 else torch.int32
+            PP = 32 * W + smax + 1
+            slot = raw[:o_off].view(torch.int16).to(torch.int64)
+            off = raw[o_off:o_off + isz * smax].view(wide).to(torch.int64)
+            pos = (raw[o_pos:o_pos + isz * PP].view(wide).to(torch.int64)
+                   & ((1 << (8 * isz)) - 1))
+            sent = (1 << (8 * isz)) - 1
+            row_of = torch.cumsum(pos == sent, 0) - (pos == sent).long()
+            key = row_of * (1 << 32) + pos
+            qrow = torch.full((32 * W + 1,), -2, dtype=torch.int64,
+                              device=self.dev)
+            real = pos != sent
+            qrow[pos[real]] = row_of[real]
+            cand, lbv = long_sc.cand, long_sc.lb
+            n = lbv.to(torch.int64)
+            bound = (torch.clamp(n, min=la) // 2 - 1).clamp(min=0)
+            len1, len2 = torch.clamp(n + bound, max=la), \
+                torch.clamp(la + bound, max=n)
+            plim = torch.minimum(len1, len2)
+            z = torch.zeros_like(n)
+            pref, common, it1, last = z.clone(), z.clone(), z.clone(), z - 1
+            cur = off[None, :].repeat(n.numel(), 1) if smax else None
+            still = plim > 0
+            for j in range(int(len2.max())):
+                if j % 64 == 63 and not bool(
+                        (still | ((common < len1) & (j < len2))).any()):
+                    break
+                c = (cand[j >> 2].to(torch.int64) >> (8 * (j & 3))) & 255
+                sc = slot[c]
+                if j < la:
+                    still = still & (j < plim) & (sc >= 0) & (qrow[j] == sc)
+                    pref += still
+                    common += still
+                act = (j >= pref) & (j < len2) & (common < len1)
+                it1 += act
+                has = act & (sc >= 0)
+                if smax == 0:
+                    continue
+                s0 = sc.clamp(min=0)[:, None]
+                k0 = cur.gather(1, s0)[:, 0]
+                lo = torch.maximum(j - bound, pref)
+                k = torch.maximum(k0, torch.searchsorted(
+                    key, s0[:, 0] * (1 << 32) + lo))
+                claim = has & (pos[k] <= torch.clamp(j + bound, max=la - 1))
+                cur.scatter_(1, s0, torch.where(has, k + claim, k0)[:, None])
+                common += claim
+                last = torch.where(claim, j, last)
+            it2 = torch.where(last >= 0, last + 1 - pref, 0)
+            return torch.stack([common, z, it1, it2,
+                                pref + torch.maximum(it1, it2),
+                                common - pref])[:, None], tab.numel() * 4
 
         st = jk.jaro_scan_plain(las, tabs[None], cand, lb, steps=True)
         timed("jaro_scan",
@@ -4221,13 +4326,41 @@ class Smoke:
                 (self.kc.LAUNCHES[name] - before) // 3
             lev_layout(long_sc.lb, W, f"{name}_{key}", kind=kind)
             del sl_cand, sl_lb
-        # K8 over the long corpus at the other query widths of the long
-        # phase: 300 chars and ~4,000 (its scratch form), kernel times only
-        for key in ("q300", "q4k"):
-            st = lk.stage_query(enc[key], "local", self.dev)
-            extra[f"jaro_scan_long_{key}_ms"] = cuda_ms(
-                torch, lambda: jk.jaro_1v_many(enc[key], long_sc.cand,
-                                               long_sc.lb, staged=st), 2)
+        # K8's cursor form over the long corpus at the other query widths
+        # of the long phase, 300 and ~4,000 chars, each held against its
+        # plain version on every LONG_SLICE[key]-th text; the bound's steps
+        # from jaro_cursor_steps over every text, its rows on that slice
+        # held against the plain version's own step rows
+        for key, reps in (("q300", 3), ("q4k", 2)):
+            qk = enc[key]
+            st = s300 if key == "q300" else l4k
+            every = LONG_SLICE[key]
+            sl_cand = long_sc.cand[:, ::every].contiguous()
+            sl_lb = long_sc.lb[::every].contiguous()
+            steps, tab_bytes = jaro_cursor_steps(qk, st)
+            ref = []
+
+            def plain():
+                ref.append(jk.jaro_scan_plain(st[0], st[1][None], sl_cand,
+                                              sl_lb, steps=True))
+                return ref[-1][:2]
+
+            row = f"jaro_scan_long_{key}"
+            before = self.kc.LAUNCHES["jaro_scan_long"]
+            timed("jaro_scan_long",
+                  lambda: torch.stack(jk.jaro_1v_many(
+                      qk, long_sc.cand, long_sc.lb, staged=st))[:, None],
+                  plain, reps,
+                  jaro_work(long_sc.lb, lk.words(qk.size), 1, steps, row,
+                            tab_bytes), warm=False, every=every, row=row)
+            extra[f"{row}_launches"] = \
+                (self.kc.LAUNCHES["jaro_scan_long"] - before) // (reps + 1)
+            rows_ = [0, 2, 3, 4, 5]
+            if not torch.equal(steps[rows_, :, ::every],
+                               ref[-1][rows_].to(torch.int64)):
+                raise AssertionError(f"jaro_cursor_steps {key} != the plain "
+                                     "version's step rows")
+            del sl_cand, sl_lb, steps, ref
         # K10: the serve corpus with a 12-char piece of the query (the
         # partial phase's /topk), the kernels line's row; then the 64-char
         # query over the serve corpus (nearly every candidate shorter: the
@@ -4478,7 +4611,7 @@ def main(argv=None) -> int:
     kc.load()
     tiles = {f"ptxas_{k}": ptxas_kernels(kc.ptxas_report.get(f"{k}.cu", ""),
                                          k)
-             for k in ("osa_scan", "lcs_scan", "lev_band")}
+             for k in ("osa_scan", "lcs_scan", "lev_band", "jaro_scan")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
@@ -4497,12 +4630,13 @@ def main(argv=None) -> int:
           "ptxas_lev_pair": ptxas_kernels(
               kc.ptxas_report.get("lev_pair.cu", ""), "lev_pair"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
-    # no instance of K3, K4 or K6 spills (a fresh build reports every one)
+    # no instance of K3, K4, K6 or K8 spills (a fresh build reports every
+    # one)
     spilled = {k: v for t in tiles.values() for k, v in t.items()
                if v["spill_bytes"]}
     if kc.build_seconds is not None and (
             spilled or not all(tiles.values())):
-        raise AssertionError(f"K3/K4/K6 instances spill or were not "
+        raise AssertionError(f"K3/K4/K6/K8 instances spill or were not "
                              f"reported: {spilled or tiles}")
     smoke.phase_kernels()
     smoke.count_words(True)

@@ -42,18 +42,19 @@
 // transpositions: both passes start at pref with the prefix claimed and
 // left out of the pop.
 //
-// What bounds it on an H100: integer issue and, for long queries, the
-// chain of shared-memory loads a text step makes.  The corpus is read 1
-// byte per char; each thread stops pass 1 once every pattern position in
-// len1 is claimed, so a short query against a long text (64 chars against
+// What bounds it on an H100: integer issue in the register form; in the
+// cursor form the chain of shared-memory loads a text step makes (the
+// row's cursor, then its position) and the replay of the walk in pass 2.
+// The corpus is read 1 byte per char, a packed word held a word ahead of
+// its use; each thread stops pass 1 once every pattern position in len1
+// is claimed, so a short query against a long text (64 chars against
 // 8,192) runs a few hundred steps, not the bucket.
 //
 // Design (one thread per candidate, candidates along blockIdx.x, the
 // query along blockIdx.y, the last blocks, whose texts the scanner's
 // length sort makes the longest, started first; the packed corpus keeps
-// the JAX layout [LB/4, B] u32, and each thread holds the next packed
-// word in a register, loaded a word before its chars are used):
-// * register form (W <= kMaxRegW = 8 query words, template on W): the PM
+// the JAX layout [LB/4, B] u32):
+// * register form (W <= kMaxRegW = 5 query words, template on W): the PM
 //   table ([W, 256] u32) in shared memory, the window and the pattern
 //   flags in registers.  Pass 1 claims with an and-not and a lowest-bit
 //   pick per word and writes each flagged text char (one byte) to the
@@ -61,27 +62,29 @@
 //   so that a warp's stores hit 32 banks.  Pass 2 walks the claimed
 //   pattern bits in order and pops one stored char for each: no second
 //   walk of the corpus.
-// * cursor form (longer queries): a walk of per-char cursors over the
-//   query's positions.  Per query, the wrapper stages from the PM table
-//   the sorted positions of each PM row that has any (CSR: a row's
-//   positions then a sentinel above every position; the rows numbered
-//   by a slot map), and the row of each position; a block copies them to
-//   shared memory.  Per candidate, shared memory holds one cursor per
-//   row (an index into the positions) and the pattern-flag bitmap.  Text
-//   char c at step j moves c's cursor past positions under
-//   lo = max(j - bound, pref) and claims the position there if it is at
-//   most j + bound.  This is the greedy rule exactly: a position of c is
-//   only claimed by a text char c, the window's lower end only rises, so
-//   every position below the cursor is claimed or below the window for
-//   good, and the cursor's position is the lowest claimable one.  The
-//   cursors advance at most la times over a pair, so a step costs O(1)
-//   shared loads amortised, not O(W) words.  The prefix is found on the
-//   same cursors (P[j] == T[j] iff c's cursor sits on j).  Pass 2
-//   replays the walk from reset cursors and pops the lowest claimed
-//   position left for each claim, counting the pairs whose row differs.
-//   The block size is chosen per launch to keep most threads resident
-//   (plan_cursor); the tables live in shared memory while they take at
-//   most a quarter of it, past that they are read through L1.
+// * cursor form (longer queries; it beats the register form from 6 words
+//   on an H100): per query, the wrapper stages from the PM table the
+//   sorted positions of each PM row that has any (CSR: a row's positions
+//   then a sentinel above every position; the rows numbered by a slot
+//   map) and the row of each position, and a block copies them to shared
+//   memory.  Per candidate, shared memory holds one cursor per row (an
+//   index into the positions) and the pattern-flag bitmap.  Text char c
+//   at step j moves c's cursor past positions under lo = max(j - bound,
+//   pref) and claims the position there if it is at most j + bound.
+//   This is the greedy rule exactly: a position of c is only claimed by
+//   a text char c and the window's lower end only rises, so every
+//   position below the cursor is claimed or below the window for good,
+//   and the cursor's position is the lowest claimable one.  The cursors
+//   advance at most la times over a pair, so a step costs O(1) shared
+//   loads amortised, not O(W) words.  The prefix is found on the same
+//   cursors (P[j] == T[j] iff c's cursor sits on j).  Pass 2 replays the
+//   walk from reset cursors and pops the lowest claimed position left for
+//   each claim, counting the pairs whose row differs.  The block size is
+//   chosen per launch to keep the most threads resident (plan_cursor);
+//   the tables live in shared memory while they take at most a quarter
+//   of it (queries up to ~18,000 chars), past that they are read through
+//   L1.  A candidate's cursors and flags must fit one block (227 KB:
+//   queries up to ~1.8 million chars); past that the launch is refused.
 // * la == 0 or lb == 0 gives (0, 0);
 // * every offset into the corpus and the output is 64-bit (row * B);
 //   only per-candidate lengths, the row count lb4 and the query length
@@ -90,35 +93,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef RF_JARO_AHEAD
-#define RF_JARO_AHEAD 1        // corpus words held ahead (0: loaded at use)
-#endif
-#ifndef RF_JARO_HEAD
-#define RF_JARO_HEAD 0         // a cursor holds its position beside its index
-#endif
-#ifndef RF_JARO_UNROLL
-#define RF_JARO_UNROLL 1       // a packed word's four slots loaded together
-#endif
-#ifndef RF_JARO_CARVE
-#define RF_JARO_CARVE 0        // the SM's shared memory carved out in full
-#endif
-#ifndef RF_JARO_SMEM_TAB
-#define RF_JARO_SMEM_TAB 1     // cursor tables in shared memory when they fit
-#endif
-#ifndef RF_JARO_ATOM
-#define RF_JARO_ATOM 1         // pattern flag set by atomicOr
-#endif
-#ifndef RF_JARO_REV
-#define RF_JARO_REV 1          // last (longest) blocks first
-#endif
-#ifndef RF_JARO_NOP2
-#define RF_JARO_NOP2 0         // timing only: no pass 2 (wrong transpositions)
-#endif
-
 namespace {
 
 constexpr int kRows = 256;          // PM entries: every byte value
-constexpr int kMaxRegW = 8;         // register form up to this many words
+constexpr int kMaxRegW = 5;         // register form up to this many words
 constexpr int kSmemBlock = 232448;  // shared memory a block may opt into
 constexpr int kSmemSM = 233472;     // shared memory an SM holds
 constexpr int kSmemReserve = 1024;  // the runtime's share of it per block
@@ -143,11 +121,7 @@ struct Pair {
 // blocks, whose texts the scanner's length sort makes the longest, start
 // first
 __device__ __forceinline__ int64_t candidate(int T) {
-#if RF_JARO_REV
     return (int64_t)(gridDim.x - 1 - blockIdx.x) * T + threadIdx.x;
-#else
-    return (int64_t)blockIdx.x * T + threadIdx.x;
-#endif
 }
 
 // the two outputs of this thread's pair (addresses worked out at the end,
@@ -159,41 +133,31 @@ __device__ __forceinline__ void put(int32_t* out, int64_t B, int T,
     out[((size_t)gridDim.y + blockIdx.y) * B + b] = trans;
 }
 
-// a candidate's text chars in order, the next N packed words held ahead
-// of their use (N = 0: each loaded at its first char); rows past the text
-// are not read
-template <int N>
+// a candidate's text chars in order, the next packed word held a word
+// ahead of its use; rows past the text are not read
 struct Text {
     const uint32_t* col;
     int64_t B;
     int rows;
-    uint32_t word, next[N > 0 ? N : 1];
+    uint32_t word, next;
     __device__ Text(const uint32_t* c, int64_t b, int len)
-        : col(c), B(b), rows((len + 3) >> 2), word(0u) {}
+        : col(c), B(b), rows((len + 3) >> 2), word(0u), next(0u) {}
     __device__ __forceinline__ uint32_t row(int r) const {
         return r < rows ? col[(size_t)r * B] : 0u;
     }
     // position the stream so that the next at() is char j
     __device__ __forceinline__ void start(int j) {
-        if (N == 0) {
-            if (j & 3) word = row(j >> 2);
-            return;
+        if (j & 3) {
+            word = row(j >> 2);
+            next = row((j >> 2) + 1);
+        } else {
+            next = row(j >> 2);
         }
-        const int r = (j >> 2) + ((j & 3) ? 1 : 0);
-        if (j & 3) word = row(j >> 2);
-#pragma unroll
-        for (int i = 0; i < (N > 0 ? N : 1); ++i) next[i] = row(r + i);
     }
     __device__ __forceinline__ uint32_t at(int j) {
         if ((j & 3) == 0) {
-            if (N == 0) {
-                word = row(j >> 2);
-            } else {
-                word = next[0];
-#pragma unroll
-                for (int i = 0; i + 1 < N; ++i) next[i] = next[i + 1];
-                next[N > 0 ? N - 1 : 0] = row((j >> 2) + N);
-            }
+            word = next;
+            next = row((j >> 2) + 1);
         }
         return (word >> (8 * (j & 3))) & 0xFFu;
     }
@@ -259,7 +223,7 @@ __device__ __forceinline__ bool claim(const uint32_t* pmw, const uint32_t* wm,
     return found;
 }
 
-template <int W, int N>
+template <int W>
 __global__ void __launch_bounds__(RegPlan<W>::kThreads)
 jaro_scan_reg(const uint32_t* __restrict__ pm_all,
               const int32_t* __restrict__ las,
@@ -294,7 +258,7 @@ jaro_scan_reg(const uint32_t* __restrict__ pm_all,
 #pragma unroll
     for (int w = 0; w < W; ++w) pf[w] = below(pref - 32 * w);
     window_at<W>(wm, pref, J.bound);
-    Text<N> text(col, B, J.len2);
+    Text text(col, B, J.len2);
     text.start(pref);
     int k = 0;
     uint32_t acc = 0u;
@@ -359,61 +323,27 @@ __host__ __device__ constexpr bool idx16(int W) {
     return 32 * W + kRows + 1 < 0xFFFF;
 }
 
-// a row's cursor: the index k of its next position and, with
-// RF_JARO_HEAD, that position pos[k] beside it, one vector load
-template <typename Idx> struct alignas(2 * sizeof(Idx)) Cur { Idx k, p; };
-
-// per-candidate shared memory of the cursor form: a cursor a row [smax][T]
-// (rounded to a word), u32 pattern flags [W][T]
+// per-candidate shared memory of the cursor form: a cursor a row,
+// Idx [smax][T] (rounded to a word), and u32 pattern flags [W][T]
 __host__ __device__ inline int cursor_bytes(int W, int smax, int isz) {
-    return (isz * smax * (RF_JARO_HEAD ? 2 : 1) + 3) / 4 * 4 + 4 * W;
+    return (isz * smax + 3) / 4 * 4 + 4 * W;
 }
 
 // the cursor walk from text char j until `left` claims are made or len2:
 // text char c moves its row's cursor past the positions under
 // lo = max(j - bound, pref) and claims the one there if it is at most
 // min(j + bound, la - 1), calling on_claim(position, c); returns the
-// claims made
-template <typename Idx, typename C, typename OnClaim>
-__device__ __forceinline__ int cursor_walk(Text<RF_JARO_AHEAD>& text,
-                                           const int16_t* slot,
-                                           const Idx* pos, C* cur, int T,
+// claims made.  A packed word at a time: the rows of its four chars are
+// looked up together, off the chain of cursor loads.
+template <typename Idx, typename OnClaim>
+__device__ __forceinline__ int cursor_walk(Text& text, const int16_t* slot,
+                                           const Idx* pos, Idx* cur, int T,
                                            int j, int len2, int left,
                                            int bound, int pref, int la,
                                            OnClaim on_claim) {
     const uint32_t top = (uint32_t)(la - 1);
     int made = 0;
     text.start(j);
-    auto step = [&](int s, uint32_t c, int jj) {
-        if (s < 0) return;
-        const uint32_t lo = (uint32_t)max(jj - bound, pref);
-        const uint32_t hi = min((uint32_t)(jj + bound), top);
-        C* e = cur + (size_t)s * T;
-#if RF_JARO_HEAD
-        const C v = *e;
-        uint32_t k = v.k, p = v.p;
-#else
-        uint32_t k = *e, p = pos[k];
-#endif
-        while (p < lo) p = pos[++k];
-        if (p <= hi) {
-#if RF_JARO_HEAD
-            *e = C{(Idx)(k + 1), pos[k + 1]};
-#else
-            *e = (Idx)(k + 1);
-#endif
-            on_claim(p, c);
-            ++made;
-        } else {
-#if RF_JARO_HEAD
-            if (k != v.k) *e = C{(Idx)k, (Idx)p};
-#else
-            *e = (Idx)k;
-#endif
-        }
-    };
-#if RF_JARO_UNROLL
-    // a packed word at a time: its four rows' slots loaded together
     while (j < len2 && made < left) {
         text.at(j);
         const uint32_t w = text.word;
@@ -423,18 +353,23 @@ __device__ __forceinline__ int cursor_walk(Text<RF_JARO_AHEAD>& text,
         const int i0 = j & 3;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-            if (i >= i0 && j < len2 && made < left) {
-                step(s4[i], (w >> (8 * i)) & 0xFFu, j);
-                ++j;
+            if (i < i0 || j >= len2 || made >= left) continue;
+            if (s4[i] >= 0) {
+                const uint32_t lo = (uint32_t)max(j - bound, pref);
+                const uint32_t hi = min((uint32_t)(j + bound), top);
+                Idx* cs = cur + (size_t)s4[i] * T;
+                uint32_t k = *cs, p = pos[k];
+                while (p < lo) p = pos[++k];
+                const bool hit = p <= hi;
+                *cs = (Idx)(k + hit);
+                if (hit) {
+                    on_claim(p, (w >> (8 * i)) & 0xFFu);
+                    ++made;
+                }
             }
+            ++j;
         }
     }
-#else
-    for (; j < len2 && made < left; ++j) {
-        const uint32_t c = text.at(j);
-        step(slot[c], c, j);
-    }
-#endif
     return made;
 }
 
@@ -445,11 +380,6 @@ jaro_scan_cursor(const uint8_t* __restrict__ tab_all,
                  const uint32_t* __restrict__ cand,
                  const int32_t* __restrict__ lb, int32_t* __restrict__ out,
                  int64_t B, int lb4, int W, int smax) {
-#if RF_JARO_HEAD
-    using C = Cur<Idx>;
-#else
-    using C = Idx;
-#endif
     extern __shared__ uint4 smem[];
     const int T = blockDim.x, t = threadIdx.x;
     const CursorLayout L(W, smax, sizeof(Idx));
@@ -467,9 +397,9 @@ jaro_scan_cursor(const uint8_t* __restrict__ tab_all,
     const Idx* off = reinterpret_cast<const Idx*>(tab + L.off);
     const Idx* pos = reinterpret_cast<const Idx*>(tab + L.pos);
     const uint8_t* pch = tab + L.pch;
-    C* cur = reinterpret_cast<C*>(base) + t;
+    Idx* cur = reinterpret_cast<Idx*>(base) + t;
     uint32_t* pf = reinterpret_cast<uint32_t*>(
-        base + (size_t)T * ((sizeof(C) * smax + 3) / 4 * 4)) + t;
+        base + (size_t)T * ((sizeof(Idx) * smax + 3) / 4 * 4)) + t;
 
     const int64_t b = candidate(T);
     if (b >= B) return;
@@ -480,65 +410,46 @@ jaro_scan_cursor(const uint8_t* __restrict__ tab_all,
         return;
     }
     const Pair J(la, n);
-    const uint32_t* col = cand + b;
-    auto reset = [&]() {
-        for (int s = 0; s < smax; ++s) {
-#if RF_JARO_HEAD
-            cur[(size_t)s * T] = C{off[s], pos[off[s]]};
-#else
-            cur[(size_t)s * T] = off[s];
-#endif
-        }
-    };
-    reset();
+    for (int s = 0; s < smax; ++s) cur[(size_t)s * T] = off[s];
     for (int w = 0; w < (J.len1 + 31) / 32; ++w) pf[(size_t)w * T] = 0u;
 
     // the common prefix: P[j] == T[j] iff T[j]'s cursor sits on j (every
     // position of that row below j is a prefix position, passed already)
-    Text<RF_JARO_AHEAD> text(col, B, J.len2);
+    Text text(cand + b, B, J.len2);
     text.start(0);
     int pref = 0;
     const int plim = min(J.len1, J.len2);
     while (pref < plim) {
         const int s = slot[text.at(pref)];
         if (s < 0) break;
-        C* e = cur + (size_t)s * T;
-#if RF_JARO_HEAD
-        const C v = *e;
-        if ((int)v.p != pref) break;
-        *e = C{(Idx)(v.k + 1), pos[v.k + 1]};
-#else
-        const Idx k = *e;
+        Idx* cs = cur + (size_t)s * T;
+        const Idx k = *cs;
         if ((int)pos[k] != pref) break;
-        *e = (Idx)(k + 1);
-#endif
+        *cs = (Idx)(k + 1);
         ++pref;
     }
     for (int w = 0; w < pref / 32; ++w) pf[(size_t)w * T] = 0xFFFFFFFFu;
     if (pref & 31) pf[(size_t)(pref >> 5) * T] = below(pref & 31);
 
-    // pass 1: each text char claims at its row's cursor
+    // pass 1: each text char claims at its row's cursor; the flag is set
+    // by an atomic or, which no later instruction waits on
     const int common = pref + cursor_walk<Idx>(
         text, slot, pos, cur, T, pref, J.len2, J.len1 - pref, J.bound, pref,
         la, [&](uint32_t p, uint32_t) {
-#if RF_JARO_ATOM
             atomicOr(pf + (size_t)(p >> 5) * T, 1u << (p & 31));
-#else
-            pf[(size_t)(p >> 5) * T] |= 1u << (p & 31);
-#endif
         });
 
     // pass 2: the walk again from reset cursors; the k-th claim pops the
     // k-th claimed pattern position past the prefix, by a cursor over the
     // flags, and counts one where the rows differ
     int trans = 0;
-    const int left = RF_JARO_NOP2 ? 0 : common - pref;
-    if (left) {
+    if (common > pref) {
         int cw = pref >> 5;
         uint32_t fw = pf[(size_t)cw * T] & ~below(pref & 31);
-        reset();
-        cursor_walk<Idx>(text, slot, pos, cur, T, pref, J.len2, left,
-                         J.bound, pref, la, [&](uint32_t, uint32_t c) {
+        for (int s = 0; s < smax; ++s) cur[(size_t)s * T] = off[s];
+        cursor_walk<Idx>(text, slot, pos, cur, T, pref, J.len2,
+                         common - pref, J.bound, pref, la,
+                         [&](uint32_t, uint32_t c) {
             while (!fw) fw = pf[(size_t)(++cw) * T];
             const uint32_t low = fw & (0u - fw);
             fw ^= low;
@@ -557,7 +468,7 @@ jaro_scan_cursor(const uint8_t* __restrict__ tab_all,
 int plan_cursor(int W, int smax, int isz, int stride, int* threads,
                 bool* shared_tab) {
     const int per = cursor_bytes(W, smax, isz);
-    *shared_tab = RF_JARO_SMEM_TAB && isz == 2 && stride <= kSmemBlock / 4;
+    *shared_tab = isz == 2 && stride <= kSmemBlock / 4;
     const int tabs = *shared_tab ? stride : 0;
     int best = 0, best_t = 0;
     for (int T = 32; T <= kMaxThreads; T += 32) {
@@ -584,18 +495,10 @@ cudaError_t launch_cursor(const uint8_t* tab, const int32_t* las,
                           int32_t* out, int64_t B, int lb4, int W, int smax,
                           int T, int bytes, int nq, cudaStream_t stream) {
     auto kernel = jaro_scan_cursor<Idx, kSharedTab>;
-    static int opted = -1;
+    static int opted = 48 * 1024;
     if (bytes > opted) {
-        // the SM's shared memory before its L1, so that plan_cursor's
-        // blocks fit
-        cudaError_t e = cudaFuncSetAttribute(
+        const cudaError_t e = cudaFuncSetAttribute(
             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-#if RF_JARO_CARVE
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                cudaSharedmemCarveoutMaxShared);
-#endif
         if (e != cudaSuccess) return e;
         opted = bytes;
     }
@@ -611,15 +514,14 @@ cudaError_t launch_reg(const uint32_t* pm, const int32_t* las,
                        int64_t B, int lb4, int nq, cudaStream_t stream) {
     constexpr int T = RegPlan<W>::kThreads;
     const dim3 grid((unsigned)((B + T - 1) / T), nq);
-    jaro_scan_reg<W, RF_JARO_AHEAD><<<grid, T, 0, stream>>>(pm, las, cand, lb,
-                                                           out, B, lb4);
+    jaro_scan_reg<W><<<grid, T, 0, stream>>>(pm, las, cand, lb, out, B, lb4);
     return cudaGetLastError();
 }
 
 }  // namespace
 
 // out is [2, nq, B] int32 (common, transpositions).  With tab null, the
-// register form over the PM tables pm [nq, W, 256] (W <= 8); else the
+// register form over the PM tables pm [nq, W, 256] (W <= 5); else the
 // cursor form over the staged tables tab [nq, stride] bytes
 // (cursor_tables: smax rows with positions at most, u16 indices while
 // idx16(W)), at any W.
@@ -637,13 +539,10 @@ extern "C" cudaError_t rf_jaro_scan(const uint32_t* pm, const uint8_t* tab,
             case 3: return launch_reg<3>(pm, las, cand, lb, out, B, lb4, nq, stream);
             case 4: return launch_reg<4>(pm, las, cand, lb, out, B, lb4, nq, stream);
             case 5: return launch_reg<5>(pm, las, cand, lb, out, B, lb4, nq, stream);
-            case 6: return launch_reg<6>(pm, las, cand, lb, out, B, lb4, nq, stream);
-            case 7: return launch_reg<7>(pm, las, cand, lb, out, B, lb4, nq, stream);
-            case 8: return launch_reg<8>(pm, las, cand, lb, out, B, lb4, nq, stream);
             default: return cudaErrorInvalidValue;
         }
     }
-    static_assert(kMaxRegW == 8, "the switch above instantiates W <= 8");
+    static_assert(kMaxRegW == 5, "the switch above instantiates W <= 5");
     const int isz = idx16(W) ? 2 : 4;
     if (smax < 0 || smax > kRows ||
         CursorLayout(W, smax, isz).stride != stride ||

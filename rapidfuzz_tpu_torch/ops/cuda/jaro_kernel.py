@@ -33,7 +33,7 @@ Longer queries walk per-char cursors over the query's positions
 is claimed only by a text char ``c`` and the window's lower end only
 rises, so every position below a cursor is claimed or out of reach for
 good; the cursors advance at most ``la`` times a pair, so a step costs
-O(1) shared-memory loads amortised where the TPU kernel's costs O(W)
+O(1) shared-memory loads amortised where a bit-parallel step costs O(W)
 words.  Each candidate's cursors and pattern flags live in shared memory
 (about 560 bytes at 4,001 chars over 27 symbols); nothing is kept in
 device memory per candidate, so no launch is chunked.  A candidate's
@@ -56,8 +56,8 @@ from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
                          words)
 
-MAX_REG_W = 8    # K8's register form up to this many query words; the
-                 # cursor form past them
+MAX_REG_W = 5    # K8's register form up to this many query words; the
+                 # cursor form past them (faster from 6 words on an H100)
 
 
 def _below(n: torch.Tensor) -> torch.Tensor:
@@ -73,8 +73,9 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     int32 (common chars, raw transpositions).
 
     The recurrence of ``jaro_kernel._kernel``, one text step at a time
-    over ``[NQ, W, B]`` u32 words: the window ``[j - bound, j + bound]``,
-    the prefix step (``pref == j`` and ``P[j] == T[j]``, claimed in both
+    over ``[NQ, W, B]`` u32 words: the window ``[j - bound, j + bound]``
+    (slid up a bit a step, as the kernel's register form slides it), the
+    prefix step (``pref == j`` and ``P[j] == T[j]``, claimed in both
     flag sets), the claim of the lowest available pattern bit in the
     first word that has one, the text flags kept per step; then the
     second walk, each flagged text char popping the lowest remaining
@@ -87,8 +88,17 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
     past the prefix (pass 2's pops), the work its bound counts.  On the
     CPU the candidates go in slices of at most ``PLAIN_GRAIN / (NQ * W)``,
     so a step's tensors stay under PyTorch's grain size and run on one
-    thread."""
+    thread; the steps run under ``torch.inference_mode()`` and the result
+    is returned as an ordinary tensor."""
+    with torch.inference_mode():
+        out = _plain(las, tabs, cand, lb, steps)
+    return out.clone()
+
+
+def _plain(las, tabs, cand, lb, steps):
+    """:func:`jaro_scan_plain`'s steps."""
     NQ, W, _ = tabs.shape
+    P = 32 * W
     B = lb.numel()
     dev = lb.device
     tab = padded_tables(tabs)                            # [NQ, W, 257]
@@ -109,20 +119,24 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
         it1 = torch.zeros_like(bound)
         last = torch.full_like(bound, -1)
         flags, prefixing = [], True
-        # no step claims past a pair's len2 or once all its len1 pattern
-        # positions are claimed (checked every 64 steps), and no pass-2
-        # step pops past its last flagged char
+        # the window [j - bound, j + bound] at j = 0, slid up a bit a step
+        # (bit 0 kept while its lower end is clamped at 0); no step claims
+        # past a pair's len2 or once all its len1 pattern positions are
+        # claimed (checked every 64 steps), and no pass-2 step pops past
+        # its last flagged char
+        wm = _below(bound[:, None] + 1 - base)
         stop = int(len2.max()) if len2.numel() else 0
         for j, ch in enumerate(text_steps(cs, ls)):
             if j >= stop or (j % 64 == 63 and not bool(
                     ((claimed < len1) & (j < len2)).any())):
                 break
+            if j:
+                wm = ((wm << 1) & M32) | torch.cat(
+                    [(j <= bound)[:, None].to(torch.int64),
+                     wm[:, :-1] >> 31], 1)
             pm = tab.index_select(2, ch)                 # [NQ, W, b]
-            lo = (j - bound).clamp(min=0)[:, None]
-            hi = (j + bound + 1)[:, None]
-            wm = _below(hi - base) & (M32 ^ _below(lo - base))
-            in_pref = torch.zeros_like(pref, dtype=torch.bool)
-            if j < 32 * W and prefixing:
+            in_pref = None
+            if j < P and prefixing:
                 bit = (pm[:, j >> 5] >> (j & 31)) & 1
                 in_pref = (pref == j) & (bit == 1) & (j < len1) & (j < len2)
                 pf[:, j >> 5] |= in_pref.to(torch.int64) << (j & 31)
@@ -131,7 +145,7 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
                 prefixing = bool(in_pref.any())
             avail = pm & wm & (M32 ^ pf)
             nz = avail != 0
-            first = nz & (nz.cumsum(1) == 1)
+            first = nz if W == 1 else nz & (nz.cumsum(1) == 1)
             act = (pref <= j) & (j < len2)
             hit = nz.any(1) & act
             pf |= torch.where(first & hit[:, None], avail & -avail, 0)
@@ -139,7 +153,7 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
                 it1 += act & (claimed < len1)
             claimed = claimed + hit
             last = torch.where(hit, j, last)
-            flags.append(hit | in_pref)
+            flags.append(hit if in_pref is None else hit | in_pref)
         common = popcount(pf).sum(1)
         rem = pf
         t = torch.zeros_like(bound)
@@ -148,8 +162,9 @@ def jaro_scan_plain(las: torch.Tensor, tabs: torch.Tensor,
             if j >= stop:
                 break
             pm = tab.index_select(2, ch)
-            nz = rem != 0
-            low = torch.where(nz & (nz.cumsum(1) == 1), rem & -rem, 0)
+            low = rem & -rem
+            if W > 1:
+                low = torch.where((rem != 0).cumsum(1) == 1, low, 0)
             match = ((pm & low) != 0).any(1)
             act = flags[j]
             rem = torch.where(act[:, None], rem ^ low, rem)
@@ -210,27 +225,31 @@ def cursor_tables(tabs: torch.Tensor):
     dev = tabs.device
     P = 32 * W
     isz = 2 if idx16(W) else 4
-    u = tabs.to(torch.int64) & M32
-    bits = (u[..., None] >> torch.arange(32, device=dev)) & 1
+    bits = (tabs[..., None] >> torch.arange(32, dtype=torch.int32,
+                                            device=dev)) & 1
     bits = bits.permute(0, 2, 1, 3).reshape(NQ, rows, P)   # [NQ, row, p]
     counts = bits.sum(2)
     present = counts > 0
     smax = int(present.sum(1).max()) if NQ else 0
-    slot = torch.where(present, present.cumsum(1) - 1, -1)
-    # a row's first index: the positions and sentinels of the rows before
-    start = counts.cumsum(1) - counts + slot.clamp(min=0)
+    slot = torch.where(present, present.cumsum(1) - 1, -1)    # [NQ, row]
+    pch = (bits * torch.arange(rows, device=dev)[:, None]).sum(1)  # [NQ, p]
+    # the positions sorted by (row, position), those in no row last; the
+    # i-th goes to index i + its row's slot (a sentinel after each row)
+    p = torch.arange(P, device=dev)
+    order = torch.where(bits.any(1), pch * P + p, rows * P + p).argsort(1)
+    dest = p + slot.gather(1, pch.gather(1, order))
     PP = P + smax + 1
     sent = (1 << (8 * isz)) - 1
-    pos = torch.full((NQ, PP + 1), sent, dtype=torch.int64, device=dev)
-    idx = torch.where(bits == 1, start[..., None] + bits.cumsum(2) - 1, PP)
-    pos.scatter_(1, idx.reshape(NQ, -1),
-                 torch.arange(P, device=dev).repeat(NQ, rows))
+    total = counts.sum(1, keepdim=True)
+    pos = torch.full((NQ, PP + P), sent, dtype=torch.int64, device=dev)
+    pos.scatter_(1, torch.where(p < total, dest, PP + p), order)
+    # a row's first index: the positions and sentinels of the rows before
+    start = counts.cumsum(1) - counts + slot.clamp(min=0)
     off = torch.full((NQ, smax + 1), PP - 1, dtype=torch.int64, device=dev)
     off.scatter_(1, torch.where(present, slot, smax), start)
-    pch = (bits * torch.arange(rows, device=dev)[:, None]).sum(1)
     o_off, o_pos, o_pch, stride = cursor_layout(W, smax)
-    parts = [(_as_bytes(slot, 2), o_off), (_as_bytes(off[:, :smax], isz),
-                                           o_pos),
+    parts = [(_as_bytes(slot, 2), o_off),
+             (_as_bytes(off[:, :smax], isz), o_pos),
              (_as_bytes(pos[:, :PP], isz), o_pch),
              (pch.to(torch.uint8), stride)]
     out, at = [], 0

@@ -125,9 +125,9 @@ class CorpusScanner:
     stays within ``wlev_kernel.SCRATCH_BYTES`` (1 GiB): a 300-char query
     over 1M strings needs none, a 4,001-char query over 131,072 texts of
     bucket 8192 is 4 GiB of edges, 4 launches.  A Jaro scan adds two
-    int32 outputs, queries over 256 chars a ``[W + LB/32, chunk]`` u32
-    scratch within ``jaro_kernel.SCRATCH_BYTES``, and the host keeps 4
-    chars and the length of each candidate.  A Damerau scan reads the same
+    int32 outputs (queries over 160 chars keep their cursors and flags in
+    shared memory, and a few KB of staged tables per query), and the
+    host keeps 4 chars and the length of each candidate.  A Damerau scan reads the same
     packed corpus (no second copy, where the JAX scanner stages its band's
     own layout) and keeps its DP state in registers; queries over 1,024
     chars add an edge buffer of 12 bytes per text row and candidate

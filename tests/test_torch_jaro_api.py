@@ -230,7 +230,7 @@ def _spy_names(mp):
 
 def test_long_buckets_against_oracle(monkeypatch):
     """A 2048-char bucket (whole 512-char chunks: the JAX scanner's
-    streamed route) with a 40-char query and a 300-char one (K8's scratch
+    streamed route) with a 40-char query and a 300-char one (K8's cursor
     form) planted in long texts, and a 16,400-char bucket (past the JAX
     stream cap of 16,384: its XLA route) with the 40-char query:
     distances, a cutoff and top-k
@@ -367,7 +367,7 @@ def cuda_device():
                                        ("jaro_scan_nq", 56),
                                        ("jaro_scan_long", 56)])
 def test_jaro_kernel_matches_plain_on_card(cuda_device, kernel, la):
-    """Each K8 launch route, in register and scratch form, equals its
+    """Each K8 launch route, in register and cursor form, equals its
     plain PyTorch version on the card and moves its launch counter."""
     rng = np.random.default_rng(11)
     a = np.r_[0, 97, 98, 99, 200, 255]

@@ -190,7 +190,7 @@ def scan_corpus():
 
 @pytest.mark.parametrize("la", [27, 50, 300])
 def test_jaro_components_match_xla(scan_corpus, la):
-    """One, two and ten query words (the last in K8's scratch form) at
+    """One, two and ten query words (the last in K8's cursor form) at
     bucket 260: every candidate's components equal to the XLA
     ``jaro_components``."""
     strings, q50 = scan_corpus
