@@ -11,10 +11,10 @@ Phases, each printing one JSON line before the next starts:
    power limit and maximum SM clock;
 2. build   — nvcc builds the kernels from ``rapidfuzz_tpu_torch/csrc``,
    one process per source, all at once, and reports each kernel's
-   registers and spills (``ptxas -v``; K1's, K3's, K4's, K6's and K8's
-   per kernel instance, the run failing if a K3, K4, K6 or K8 instance
-   spills)
-   and, for K1, K3, K4, K6 and K7-K11, each kernel's SASS instruction
+   registers and spills (``ptxas -v``; K1's, K3's, K4's, K5's, K6's and
+   K8's per kernel instance, the run failing if a K3, K4, K5, K6 or K8
+   instance spills)
+   and, for K1, K3-K11, each kernel's SASS instruction
    count and commonest opcodes (``cuobjdump``);
 3. kernels — each kernel route against its plain PyTorch version on the
    card, bit for bit: K1 at W = 1, 2, 3 and 8 (registers), its tile
@@ -37,7 +37,10 @@ Phases, each printing one JSON line before the next starts:
    versions' per-step Python loops stay within seconds; K4 (the LCS scan)
    at W = 1, 2, 8 and 17 (its first tile width), 16 queries per
    launch, K5 (the LCS band) at indel cutoffs 3-47 with rows far out of
-   band, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first tile width)
+   band, and its exact stop and PM ring (``LCS_BAND_CASES``: buckets 128,
+   1,024, 2,048 and 8,192, texts one before, at and one past each stop
+   la + 16*bw and every chunk edge, a stop at a chunk edge, a 4,001-char
+   query over 8,192 at bw 1 and 2) at 2,048 candidates, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first tile width)
    and 16 queries per launch over near copies with adjacent swaps planted
    across query words and packed 4-char rows, and over 2048- and
    8192-char buckets; K7 (weighted Levenshtein) under the tables
@@ -200,9 +203,9 @@ Kernel launch counters are zeroed just before phase 4 and read after phase
 5, zeroed again just before phase 7 and read after it, just before phases
 8, 9, 10, 11, 12, 13 and 14 and read after each, so the counts are those
 of the nine main paths alone; every kernel must have launched in them.
-The done line also counts the main paths' K1, K4, K6 and K8 launches and
-their candidates by query words (``launches_by_words``: [launches,
-candidates] per W).  Each
+The done line also counts the main paths' K1, K4, K5, K6 and K8 launches
+and their candidates by query words (``launches_by_words``: [launches,
+candidates] per W; K5's per "W/bw", query words and band words).  Each
 phase's line gives its seconds and those of its oracle checks
 (``oracle_s``), the kernels phase's also per family of cases and the wlev,
 jaro, dam and partial phases' per part.
@@ -318,9 +321,13 @@ INT32_LANES = 132 * 64
 #: select, the hit test, the byte pack); K4 per query word and text step
 #: (the Hyyro word: u = s & pm, the 3-input add s + u + carry, its
 #: carry-out, one lop3 for t | (s & ~u)), K5 per band word and text step
-#: (the window's funnel shift, and, the 3-input add, its carry-out, the
-#: lop3 t | (s ^ u), the slide's funnel shift), plus LCS_BAND_STEP_OPS
-#: once per text step for the accumulator; K6 per query word and text step
+#: at the timed rows' one band word (INT32-lane instructions in the SASS
+#: of lcs_band_kernel<1>'s unrolled word: the window's funnel shift, and,
+#: the lop3 t | (s ^ u), the slide's funnel shift; the add issues on the
+#: FMA lanes as an IMAD, and at 2-3 words its carry chain takes ~1.7 more
+#: a word; an earlier count took 6 and 1), plus LCS_BAND_STEP_OPS once
+#: per text step for the accumulator (a lop3, and a 3-input add for two
+#: steps); K6 per query word and text step
 #: (K1's 11, plus the and-not t = ~d0_prev & pm, the funnel shift of t
 #: with the lower word's t, and the and with pm_prev; the or into d0 folds
 #: into K1's 3-input or); K7 per query position and text step
@@ -328,7 +335,7 @@ INT32_LANES = 132 * 64
 OPS = {"lev_scan": 11, "lev_scan_nq": 11, "lev_scan_long": 11,
        "lev_band": 10, "lev_band_rt": 10, "lev_band_long": 10,
        "remap_pack": 24, "lcs_scan": 4, "lcs_scan_nq": 4,
-       "lcs_scan_long": 4, "lcs_band": 6, "lcs_band_long": 6,
+       "lcs_scan_long": 4, "lcs_band": 4, "lcs_band_long": 4,
        "osa_scan": 14, "osa_scan_nq": 14, "osa_scan_long": 14,
        "wlev_scan": 100 / 32, "wlev_scan_long": 100 / 32}
 #: K7's bound charges every DP cell the INT32-lane instructions of the
@@ -379,7 +386,7 @@ JARO_OPS = {"pass1": (9, 5), "flag_test": 2, "pop": (1, 5)}
 #: counts).  Its replay of pass 1 in pass 2 goes beside the bound
 #: (*_replay_bound_ms), not in it
 JARO_CURSOR_OPS = {"step": 60 / 4, "claim": 2, "pop": 9}
-LCS_BAND_STEP_OPS = 1
+LCS_BAND_STEP_OPS = 1.5
 #: K9's bound charges every DP cell the least INT32-lane operations its
 #: unrolled row bodies take for it, counted in the SASS of the built
 #: library (the build line's sass row_blocks: the non-IMAD instructions of
@@ -513,6 +520,24 @@ BAND_CASES = (
     (8192, 40, [("lev_band_rt", 11), ("lev_band_long", 31)]),
     (8192, 4097, [("lev_band_rt", 15), ("lev_band_long", 15)]),
     (6000, 5990, [("lev_band_rt", 15), ("lev_band_long", 47)]))
+#: K5's ring cases (lcs_band_cases): (bucket, query length, PM mode,
+#: [(launch name, indel cutoff)]); a walk stops at min(lb, la + 16 * bw):
+#: at 76-108 steps inside the 128 bucket and past it (la 120), at the
+#: chunk edge 256 (la 240, bw 1), one past the edge at 512 (la 497), at
+#: row 14's query length (300), one before the 512 edge (la 495) over
+#: 2,048, at the 2,048 bucket's end (la 2,040), and for the 4,001-char
+#: query over 8,192 (ws 126, past the 48 words the parent kept in shared
+#: memory) at bw 1 and 2
+LCS_BAND_CASES = (
+    (128, 60, "byte", [("lcs_band", c) for c in (3, 15, 31, 47)]),
+    (128, 120, "local", [("lcs_band", 15), ("lcs_band", 47)]),
+    (1024, 240, "byte", [("lcs_band", c) for c in (15, 31, 47)]),
+    (1024, 497, "local", [("lcs_band", 15)]),
+    (1024, 300, "byte", [("lcs_band", 15)]),
+    (2048, 495, "byte", [("lcs_band_long", 15), ("lcs_band_long", 31)]),
+    (2048, 2040, "byte", [("lcs_band_long", 15)]),
+    (8192, 40, "byte", [("lcs_band_long", 7)]),
+    (8192, 4001, "byte", [("lcs_band_long", 15), ("lcs_band_long", 31)]))
 #: the OCR pair (tests/fixtures/ocr.npz, the reference's proof fixture,
 #: levenshtein.rs:2139-2161): its distance and the cutoff that must give
 #: None; the pair past the band's ceiling (max_cutoff(8) = 16,383): two
@@ -767,15 +792,16 @@ class Smoke:
         self.torch.cuda.synchronize()
 
     def count_words(self, on: bool) -> None:
-        """Count K1's, K4's, K6's and K8's launches and their candidates
-        also by query words (``self.words``) while ``on``: the launch
-        function their wrappers call (``lev_kernel.tile_launches``'s and
-        ``jaro_kernel``'s) is wrapped, and restored when ``on`` is
-        false."""
-        lk, jk = self.lk, self.jk
+        """Count K1's, K4's, K5's, K6's and K8's launches and their
+        candidates also by query words (``self.words``; K5's by query
+        words and band words, "W/bw") while ``on``: the launch function
+        their wrappers call (``lev_kernel.tile_launches``'s,
+        ``jaro_kernel``'s and ``lcs_band_kernel``'s) is wrapped, and
+        restored when ``on`` is false."""
+        lk, jk, cbk = self.lk, self.jk, self.cbk
         inner = getattr(lk.launch, "inner", lk.launch)
         if not on:
-            lk.launch = jk.launch = inner
+            lk.launch = jk.launch = cbk.launch = inner
             return
 
         def launch(name, entry, dev, *args):
@@ -783,11 +809,16 @@ class Smoke:
             if entry in WORDS_ARG:
                 w, nb = WORDS_ARG[entry]
                 tally = self.words[name][args[w]]
-                tally[0] += 1
-                tally[1] += args[nb]
+            elif entry == "rf_lcs_band":     # K5: query words / band words
+                nb = 7
+                tally = self.words[name][f"{-(-args[2] // 32)}/{args[3]}"]
+            else:
+                return
+            tally[0] += 1
+            tally[1] += args[nb]
 
         launch.inner = inner
-        lk.launch = jk.launch = launch
+        lk.launch = jk.launch = cbk.launch = launch
 
     def emit_phase(self, obj) -> None:
         """A phase's JSON line, with the seconds its oracle checks took."""
@@ -936,6 +967,7 @@ class Smoke:
                                                           s)),
                 ("band", lambda s: self.band_cases(rng, alph["byte"], s)),
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
+                ("lcs_band", lambda s: self.lcs_band_cases(rng, alph, s)),
                 ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
                 ("jaro", lambda s: self.jaro_kernel_cases(rng, alph, s)),
@@ -1192,25 +1224,7 @@ class Smoke:
             whole = slice(6, len(fixed))      # the query, cut or run on
             fixed += [e + d for e in range(bk.CHUNK, LBk + 1, bk.CHUNK)
                       for d in (-1, 0, 1)]
-            lens = la + torch.randint(-15, 16, (B,), generator=g,
-                                      device=self.dev)
-            lens[: len(fixed)] = torch.tensor(fixed, device=self.dev)
-            lens = lens.clamp(0, LBk)
-            pos = torch.arange(LBk, device=self.dev)[None, :]
-            s0 = (torch.rand(B, generator=g, device=self.dev)
-                  * (la - lens).clamp(min=0)).long()[:, None]
-            s0[whole] = 0
-            chars = qt[(s0 + pos).clamp(max=la - 1)]
-            sub = (torch.rand((B, LBk), generator=g, device=self.dev)
-                   < 0.05) | (s0 + pos >= la)
-            sub[whole] = pos >= la
-            rnd = at[torch.randint(0, at.numel(), (B, LBk), generator=g,
-                                   device=self.dev)]
-            chars = torch.where(sub, rnd, chars)
-            chars = torch.where(pos < lens[:, None], chars, -1)
-            cand, lb = lk.prepare_corpus(chars.to(torch.int32),
-                                         lens.to(torch.int32))
-            del chars, sub, rnd
+            cand, lb = self.window_copies(g, qt, at, B, LBk, fixed, whole)
             _, tabs = lk.stage_query(q, "byte", self.dev)
             ws = bk.table_words(la, LBk)
             for name, cut in calls:
@@ -1234,6 +1248,98 @@ class Smoke:
                                          "no candidate accepted")
         return salt
 
+    def window_copies(self, g, qt, at, B, LBk, fixed, whole):
+        """``B`` packed texts of a ``LBk`` bucket that copy windows of the
+        query ``qt`` with ~5 % of their chars substituted from ``at``:
+        the first lengths ``fixed``, the rest the query's +- 15, the
+        slice ``whole`` of them from the query's start (its whole, cut or
+        run on with random chars), the others from a random start."""
+        torch = self.torch
+        la = qt.numel()
+        lens = la + torch.randint(-15, 16, (B,), generator=g,
+                                  device=self.dev)
+        lens[: len(fixed)] = torch.tensor(fixed, device=self.dev)
+        lens = lens.clamp(0, LBk)
+        pos = torch.arange(LBk, device=self.dev)[None, :]
+        s0 = (torch.rand(B, generator=g, device=self.dev)
+              * (la - lens).clamp(min=0)).long()[:, None]
+        s0[whole] = 0
+        chars = qt[(s0 + pos).clamp(max=la - 1)]
+        sub = (torch.rand((B, LBk), generator=g, device=self.dev)
+               < 0.05) | (s0 + pos >= la)
+        sub[whole] = pos >= la
+        rnd = at[torch.randint(0, at.numel(), (B, LBk), generator=g,
+                               device=self.dev)]
+        chars = torch.where(sub, rnd, chars)
+        chars = torch.where(pos < lens[:, None], chars, -1)
+        return self.lk.prepare_corpus(chars.to(torch.int32),
+                                      lens.to(torch.int32))
+
+    def lcs_band_cases(self, rng, alph, salt):
+        """K5's two launch names against ``lcs_band_plain`` (LCS_BAND_CASES,
+        N_KERNEL_LONG candidates each), every call's route checked by its
+        launch count and every candidate's value compared, and against
+        K4's full LCS: equal where the indel distance is within the
+        cutoff, at most it elsewhere, and below it on some row under a
+        one-word band (rows far out of band: the query behind 64 chars of
+        its alphabet, the last N_KERNEL_LONG // 256).  The texts copy windows of the query
+        (window_copies); their lengths are 0, 1, the bucket's end and one
+        before, one before, at and one past each call's stop la + 16*bw
+        and every chunk edge (``band_kernel.CHUNK``: the PM ring's chunk
+        plan and barrier), the query's +- 1-17 and +- 40 (the whole query,
+        cut or run on), and near it.  Queries shorter than the bucket read
+        rows of ws and above as zero; the 4,001-char query's table (126
+        words) is staged chunk by chunk like every other."""
+        torch, lk, kc, ck, cbk = self.torch, self.lk, self.kc, self.ck, \
+            self.cbk
+        B = N_KERNEL_LONG
+        for LBk, la, mode, calls in LCS_BAND_CASES:
+            salt += 1
+            g = self.gen(salt)
+            a = alph[mode]
+            q = rng.choice(a, la)
+            qt = torch.from_numpy(q).to(self.dev)
+            stops = sorted({la + 16 * cbk.band_words(c) for _, c in calls})
+            fixed = [0, 1, LBk - 1, LBk, max(la - 40, 0), la + 40, la, la]
+            fixed += [la + d for d in range(1, 18)] + [
+                max(la - d, 0) for d in range(1, 18)]
+            whole = slice(6, len(fixed))      # the query, cut or run on
+            fixed += [e + d for e in stops for d in (-1, 0, 1)]
+            fixed += [e + d for e in range(self.bk.CHUNK, LBk + 1,
+                                           self.bk.CHUNK)
+                      for d in (-1, 0, 1)]
+            cand, lb = self.window_copies(g, qt, torch.from_numpy(a).to(
+                self.dev), B, LBk, fixed, whole)
+            far = np.r_[rng.choice(a, 64), q][:LBk]
+            nfar = B // 256
+            self.plant_rows(cand, lb, torch.from_numpy(far).to(self.dev),
+                            nfar)
+            _, tabs = lk.stage_query(q, mode, self.dev)
+            ws = cbk.table_words(la, LBk)
+            full = ck.lcs_1v_many(q, cand, lb, mode=mode)
+            indel = la + lb - 2 * full
+            for name, cut in calls:
+                fn = (cbk.lcs_banded_stream_1v_many
+                      if name == "lcs_band_long" else cbk.lcs_banded_1v_many)
+                before = dict(kc.LAUNCHES)
+                got = fn(q, cand, lb, cutoff=cut, mode=mode)
+                if kc.LAUNCHES[name] != before[name] + 1 or sum(
+                        kc.LAUNCHES.values()) != sum(before.values()) + 1:
+                    raise AssertionError(f"K5 LB={LBk} la={la} cut={cut}: "
+                                         f"not routed to {name}")
+                bw = cbk.band_words(cut)
+                what = f"ring LB={LBk} la={la} {mode} cut={cut} bw={bw}"
+                self.compare(name, got, cbk.lcs_band_plain(
+                    bw, tabs[:ws], cand, lb, la), what)
+                ok = indel <= cut
+                if not (ok.any() and torch.equal(got[ok], full[ok])
+                        and bool((got <= full).all())
+                        and (cut > 15 or bool((got < full).any()))):
+                    raise AssertionError(f"K5 {what}: not exact within the "
+                                         "band, or no row within it, or "
+                                         "none under the full LCS")
+        return salt
+
     def lcs_kernel_cases(self, rng, alph, salt):
         """K4 and K5 against their plain versions: ``lcs_scan`` at W = 1,
         2, 8 and 17 (the first tile width) and ``lcs_scan_nq`` over
@@ -1241,10 +1347,10 @@ class Smoke:
         at W = 2 and 10 over 2048-char buckets and at W = 2 over 8192;
         ``lcs_band`` at indel cutoffs 3, 15, 31 and 47 (bw 1-3) over near
         copies of a 100-char query with candidates far out of band (bucket
-        128); the streamed band at bw 1 and 2 over a 2048-char bucket (its
-        PM table read through the cache over the long corpus is held by
-        the timing phase).  Every candidate's value is compared, the
-        band's underestimates for rows out of band included."""
+        128, N_KERNEL candidates: 256-thread blocks); the streamed band at
+        bw 1 and 2 over a 2048-char bucket (lcs_band_cases holds K5's stop
+        and ring).  Every candidate's value is compared, the band's
+        underestimates for rows out of band included."""
         torch, lk, ck, cbk = self.torch, self.lk, self.ck, self.cbk
         for W in (1, 2, 8, ck.MAX_REG_W + 1):
             for mode in ("byte", "local"):
@@ -3853,10 +3959,23 @@ class Smoke:
         # long corpus
         ck, cbk = self.ck, self.cbk
 
-        def band_work(name, lbv, bw, table_words):
-            nbytes, _ = scan_work(name, lbv, bw, table_words=table_words)
-            steps = int(lbv.to(torch.int64).sum())
-            return nbytes, (OPS[name] * bw + LCS_BAND_STEP_OPS) * steps
+        def band_work(name, lbv, la, bw, table_words, row=None):
+            """Bytes and u32 operations of a K5 launch over this run's
+            data: every candidate's length and output once, the PM table
+            once, and the packed chars and OPS[name] per band word (plus
+            LCS_BAND_STEP_OPS) of the min(lb, la + 16*bw) steps the
+            exact stop leaves; the bound over every text's whole length
+            goes beside it (extra[row + "_full_walk_bound_ms"])."""
+            l64 = lbv.to(torch.int64)
+            per = OPS[name] * bw + LCS_BAND_STEP_OPS
+            fixed = lbv.numel() * 8 + table_words * 1024
+            full = (int(((l64 + 3) // 4).sum()) * 4 + fixed,
+                    per * int(l64.sum()))
+            extra[f"{row or name}_full_walk_bound_ms"] = max(
+                full[0] / HBM_BYTES_S, full[1] / int_ops_s) * 1e3
+            n = l64.clamp(max=la + 16 * bw)
+            return (int(((n + 3) // 4).sum()) * 4 + fixed,
+                    per * int(n.sum()))
 
         timed("lcs_scan",
               lambda: ck.lcs_1v_many(q, cand, lb, staged=(las, tabs)),
@@ -3874,8 +3993,8 @@ class Smoke:
               lambda: cbk.lcs_banded_1v_many(qm, mid.cand, mid.lb,
                                              cutoff=15, staged=lm),
               lambda: cbk.lcs_band_plain(1, lm[1][:ws_mid], mid.cand,
-                                         mid.lb), 10,
-              band_work("lcs_band", mid.lb, 1, ws_mid))
+                                         mid.lb, qm.size), 10,
+              band_work("lcs_band", mid.lb, qm.size, 1, ws_mid))
         timed("lcs_scan_long",
               lambda: ck.lcs_1v_many(q64, long_sc.cand, long_sc.lb,
                                      staged=l64),
@@ -3886,8 +4005,8 @@ class Smoke:
               lambda: cbk.lcs_banded_stream_1v_many(
                   q4k, long_sc.cand, long_sc.lb, cutoff=15, staged=l4k),
               lambda: cbk.lcs_band_plain(1, l4k[1][:ws_long], long_sc.cand,
-                                         long_sc.lb), 3,
-              band_work("lcs_band_long", long_sc.lb, 1, ws_long),
+                                         long_sc.lb, q4k.size), 3,
+              band_work("lcs_band_long", long_sc.lb, q4k.size, 1, ws_long),
               warm=False)
         # K6 as K1: the short scans at the serve corpus, the long scan with
         # the len-64 query over the long corpus
@@ -4611,7 +4730,8 @@ def main(argv=None) -> int:
     kc.load()
     tiles = {f"ptxas_{k}": ptxas_kernels(kc.ptxas_report.get(f"{k}.cu", ""),
                                          k)
-             for k in ("osa_scan", "lcs_scan", "lev_band", "jaro_scan")}
+             for k in ("osa_scan", "lcs_scan", "lev_band", "lcs_band",
+                       "jaro_scan")}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": kc.build_seconds, "library": kc.library_path(),
           "ptxas": ptxas_summary(kc.ptxas_report),
@@ -4621,6 +4741,7 @@ def main(argv=None) -> int:
           **tiles, "sass_osa_scan": sass_histogram(kc, "osa_scan"),
           "sass_lcs_scan": sass_histogram(kc, "lcs_scan"),
           "sass_lev_band": sass_histogram(kc, "lev_band"),
+          "sass_lcs_band": sass_histogram(kc, "lcs_band"),
           "ptxas_wlev_scan": ptxas_kernels(
               kc.ptxas_report.get("wlev_scan.cu", ""), "wlev_scan"),
           "sass_wlev_scan": sass_histogram(kc, "wlev_scan"),
@@ -4630,13 +4751,13 @@ def main(argv=None) -> int:
           "ptxas_lev_pair": ptxas_kernels(
               kc.ptxas_report.get("lev_pair.cu", ""), "lev_pair"),
           "sass_lev_pair": sass_histogram(kc, "lev_pair")})
-    # no instance of K3, K4, K6 or K8 spills (a fresh build reports every
-    # one)
+    # no instance of K3, K4, K5, K6 or K8 spills (a fresh build reports
+    # every one)
     spilled = {k: v for t in tiles.values() for k, v in t.items()
                if v["spill_bytes"]}
     if kc.build_seconds is not None and (
             spilled or not all(tiles.values())):
-        raise AssertionError(f"K3/K4/K6/K8 instances spill or were not "
+        raise AssertionError(f"K3/K4/K5/K6/K8 instances spill or were not "
                              f"reported: {spilled or tiles}")
     smoke.phase_kernels()
     smoke.count_words(True)

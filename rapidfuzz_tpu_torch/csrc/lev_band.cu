@@ -63,32 +63,21 @@
 //   threads a block over buckets of more than one chunk (the few texts a
 //   long bucket walks spread over more SMs) and up to 256 otherwise
 //   (band_kernel.block_threads).
+// The ring, its barriers and the words ahead are band_ring.cuh's, which
+// K5 (lcs_band.cu) shares.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "band_ring.cuh"
+
 namespace {
 
-constexpr int kRows = 256;        // PM entries a table word (a byte value)
+using namespace band_ring;
+
 constexpr int kBig = 1 << 29;
 constexpr int kMaxThreads = 256;
 constexpr int kAhead = 4;         // packed corpus words a thread holds ahead
-constexpr int kChunk = 256;       // text steps a chunk of the PM ring
-constexpr unsigned kFull = 0xFFFFFFFFu;
-
-// Rows a chunk reads: from widx0(c*kChunk) to widx0(c*kChunk + L - 1) +
-// bw, L = min(kChunk, LB) steps (at least 1); kChunk is a multiple of 32,
-// so every chunk starts at the same offset m in its first row.
-__host__ __device__ constexpr int ring_rows(int bw, int semi, int LB) {
-    return ((((semi + 1 - 32 * bw) % 32) + 32) % 32
-            + (kChunk < LB ? kChunk : (LB > 1 ? LB : 1)) - 1) / 32 + bw + 1;
-}
-
-// a chunk is whole groups of kAhead words; the ring's two slots at their
-// widest (bw = 3, an offset past 0 in the first row) fit the 48 KB a
-// launch takes unasked
-static_assert(kChunk % 32 == 0 && kChunk % (4 * kAhead) == 0, "chunk");
-static_assert(2 * ring_rows(3, 0, kChunk) * kRows * 4 <= 48 * 1024, "ring");
 
 template <int BW>
 struct Band {
@@ -151,79 +140,38 @@ __device__ __forceinline__ void band_step(const uint32_t* ring, int wb,
     }
 }
 
-// Steps [j0, jend) of the block (jend: the chunk's end or the block's
-// longest text), every thread at the same step index and stepping only
-// its own steps, j < n: word r of its column comes from nxt[r % kAhead],
-// which then loads word r + kAhead.
+// The steps of one packed word (walk_words's step): band_step<BW, PHASE>
+// over the chunk's ring slot.
+template <int BW, bool PHASE>
+struct WordSteps {
+    const uint32_t* ring;
+    int wb, off, pstart;
+    Band<BW>& st;
+
+    __device__ __forceinline__ void full(uint32_t word, int j) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
+                                 __byte_perm(word, 0u, 0x4440u + u), st);
+    }
+    __device__ __forceinline__ void part(uint32_t word, int j, int m) {
+        for (int u = 0; u < m; ++u)
+            band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
+                                 __byte_perm(word, 0u, 0x4440u + u), st);
+    }
+};
+
+// Steps [j0, jend) of the block: PHASE false for a chunk that misses the
+// horizontal phase, whose steps are added to the distance after it.
 template <int BW, bool PHASE>
 __device__ __forceinline__ void run_chunk(const uint32_t* ring, int wb,
                                           int j0, int jend, int n, int off,
                                           int pstart, const uint32_t* col,
                                           int64_t B, uint32_t (&nxt)[kAhead],
                                           Band<BW>& st) {
-    const int nw = (n + 3) >> 2;
-    for (int g = j0 >> 2; 4 * g < jend; g += kAhead) {
-#pragma unroll
-        for (int d = 0; d < kAhead; ++d) {
-            const int r = g + d;
-            const uint32_t word = nxt[d];
-            if (r + kAhead < nw) nxt[d] = col[(size_t)(r + kAhead) * B];
-            const int j = 4 * r;
-            if (j + 4 <= n && j + 4 <= jend) {
-#pragma unroll
-                for (int u = 0; u < 4; ++u)
-                    band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
-                                         __byte_perm(word, 0u, 0x4440u + u),
-                                         st);
-            } else {
-                for (int u = 0; j + u < min(jend, n); ++u)
-                    band_step<BW, PHASE>(ring, wb, j + u, off, pstart,
-                                         __byte_perm(word, 0u, 0x4440u + u),
-                                         st);
-            }
-        }
-    }
+    WordSteps<BW, PHASE> step{ring, wb, off, pstart, st};
+    walk_words(j0, jend, n, col, B, nxt, step);
     if (!PHASE) st.dist += max(min(jend, n) - j0, 0);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done = 0;
-    while (!done) {
-        asm volatile("{\n .reg .pred p;\n"
-                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     " selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity)
-                     : "memory");
-    }
-}
-
-// Stage rows wb .. wb + R - 1 of the [ws, 256] table into `slot`: the rows
-// in [0, ws) by one bulk copy that completes on `bar`, the others zeroed.
-__device__ __forceinline__ void stage_rows(uint32_t* slot, const uint32_t* pm,
-                                           int ws, int wb, int R,
-                                           uint64_t* bar) {
-    const int lo = max(wb, 0), hi = max(min(wb + R, ws), lo);
-    uint4* s4 = reinterpret_cast<uint4*>(slot);
-    const int zlo = (lo - wb) * (kRows / 4), zhi = (hi - wb) * (kRows / 4);
-    for (int i = threadIdx.x; i < R * (kRows / 4); i += blockDim.x)
-        if (i < zlo || i >= zhi) s4[i] = make_uint4(0u, 0u, 0u, 0u);
-    // the zeros are ordered before a later bulk copy into the slot
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-        const uint32_t bytes = (uint32_t)(hi - lo) * kRows * 4u;
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                     :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-        if (bytes)
-            asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
-                         "complete_tx::bytes [%0], [%1], %2, [%3];\n"
-                         :: "r"(smem_addr(slot + (lo - wb) * kRows)),
-                            "l"(pm + (size_t)lo * kRows), "r"(bytes),
-                            "r"(smem_addr(bar)) : "memory");
-    }
 }
 
 // PINNED fixes semi at 16*BW - 1 at compile time, which folds the window
@@ -238,9 +186,7 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int off = semi + 1 - 32 * BW;       // start0 = j + off
     extern __shared__ uint4 ring4[];
     uint32_t* ring = reinterpret_cast<uint32_t*>(ring4);
-    const int slot = R * kRows;
-    __shared__ uint64_t bars[2];
-    __shared__ int nmax_s;
+    __shared__ Ring rs;
     const int64_t blk = (int64_t)gridDim.x - 1 - blockIdx.x;  // longest first
     const int64_t b = blk * blockDim.x + threadIdx.x;
     const int lbv = b < B ? lb[b] : 0;
@@ -248,20 +194,10 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int n = (lbv == 0 || abs(la - lbv) > cut) ? 0 : min(lbv, 4 * lb4);
     const uint32_t* col = cand + (b < B ? b : 0);
     uint32_t nxt[kAhead];
-#pragma unroll
-    for (int d = 0; d < kAhead; ++d)
-        nxt[d] = 4 * d < n ? col[(size_t)d * B] : 0u;
-    if (threadIdx.x == 0) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-            asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                         :: "r"(smem_addr(&bars[i])) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        nmax_s = 0;
-    }
+    words_ahead(col, B, n, nxt);
+    ring_setup(rs);
     __syncthreads();
-    const int wmax = __reduce_max_sync(kFull, n);
-    if ((threadIdx.x & 31) == 0 && wmax) atomicMax(&nmax_s, wmax);
+    ring_vote(rs, n);
 
     Band<BW> st;
     const int lo = 32 * BW - 1 - semi;     // VP: top semi + 1 bits set
@@ -278,26 +214,15 @@ lev_band_kernel(const uint32_t* __restrict__ pm, int ws, int la, int cut,
     const int pend = pstart + 32 * BW - 2;
 
     __syncthreads();
-    const int nblk = nmax_s;                  // the block's longest walk
-    if (nblk > 0) stage_rows(ring, pm, ws, off >> 5, R, &bars[0]);
-    for (int c = 0, j0 = 0; j0 < nblk; ++c, j0 += kChunk) {
-        // one barrier a chunk: chunk c has landed, and every thread is done
-        // with chunk c - 1, whose slot is refilled
-        mbar_wait(&bars[c & 1], (uint32_t)(c >> 1) & 1u);
-        __syncthreads();
-        if (j0 + kChunk < nblk)
-            stage_rows(ring + ((c + 1) & 1) * slot, pm, ws,
-                       (j0 + kChunk + off) >> 5, R, &bars[(c + 1) & 1]);
-        const uint32_t* cur = ring + (c & 1) * slot;
-        const int wb = (j0 + off) >> 5;       // first row of chunk c
-        const int jend = min(j0 + kChunk, nblk);
+    ring_walk(rs, ring, pm, ws, off, R, rs.nmax,
+              [&](const uint32_t* cur, int wb, int j0, int jend) {
         if (j0 <= pend && pstart < j0 + kChunk)
             run_chunk<BW, true>(cur, wb, j0, jend, n, off, pstart, col, B,
                                 nxt, st);
         else
             run_chunk<BW, false>(cur, wb, j0, jend, n, off, pstart, col, B,
                                  nxt, st);
-    }
+    });
     if (b >= B) return;
     int d = (lbv == 0) ? la : st.dist - st.top;
     if (abs(la - lbv) > cut) d = kBig;
@@ -311,8 +236,7 @@ cudaError_t launch(const uint32_t* pm, int ws, int la, int cut, int semi,
                    int64_t B, int lb4, int threads, cudaStream_t stream) {
     const int64_t blocks = (B + threads - 1) / threads;
     const int R = ring_rows(BW, semi, 4 * lb4);
-    const int slots = kChunk < 4 * lb4 ? 2 : 1;   // more than one chunk
-    const size_t smem = (size_t)slots * R * kRows * sizeof(uint32_t);
+    const size_t smem = ring_bytes(R, 4 * lb4);
     lev_band_kernel<BW, PINNED><<<(unsigned)blocks, threads, smem, stream>>>(
         pm, ws, la, cut, semi, cand, lb, out, B, lb4, R);
     return cudaGetLastError();

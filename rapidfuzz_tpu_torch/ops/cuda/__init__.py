@@ -93,8 +93,8 @@ _SIGNATURES = {
     "rf_lev_band": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _P],
     # pm, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
     "rf_lcs_scan": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I, _P],
-    # pm, ws, bw, cand, lb, out, B, lb4, stream
-    "rf_lcs_band": [_P, _I, _I, _P, _P, _P, _I64, _I, _P],
+    # pm, ws, la, bw, cand, lb, out, B, lb4, threads, stream
+    "rf_lcs_band": [_P, _I, _I, _I, _P, _P, _P, _I64, _I, _I, _P],
     # pm, las, cand, lb, out, edge, B, b0, nb, lb4, W, nq, stream
     "rf_osa_scan": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _I,
                     _P],

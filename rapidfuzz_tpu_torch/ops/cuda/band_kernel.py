@@ -90,21 +90,26 @@ def table_words(la: int, LB: int) -> int:
     return min(words(la), (LB + 16) // 32 + 2)
 
 
+def fill_threads(B: int, sms: int = SMS) -> int:
+    """The largest of :data:`BLOCKS` that gives ``B`` candidates at least
+    two blocks an SM, else the smallest: K5's block size at every bucket
+    (it walks every text to about the same length, and a 256-thread
+    block beat 64 at both of its rows on an H100, ``PERF.md`` §6) and
+    K3's up to one chunk."""
+    for t in BLOCKS:
+        if -(-B // t) >= 2 * sms:
+            return t
+    return BLOCKS[-1]
+
+
 def block_threads(B: int, LB: int, sms: int = SMS) -> int:
     """K3's block size for ``B`` candidates over an ``LB`` bucket: 64
     threads when the bucket takes more than one chunk (the few texts near
     the query's length that a long bucket walks then spread over more SMs,
     and a block waits on fewer of them at its barriers; with every text
     walked, 0.80 ms over 131,072 texts of up to 8,192 chars against 0.93
-    at 256 on an H100, ``PERF.md`` §6), else the largest of
-    :data:`BLOCKS` that gives at least two blocks an SM, else the
-    smallest."""
-    if LB > CHUNK:
-        return BLOCKS[-1]
-    for t in BLOCKS:
-        if -(-B // t) >= 2 * sms:
-            return t
-    return BLOCKS[-1]
+    at 256 on an H100, ``PERF.md`` §6), else :func:`fill_threads`."""
+    return BLOCKS[-1] if LB > CHUNK else fill_threads(B, sms)
 
 
 @functools.lru_cache(maxsize=None)

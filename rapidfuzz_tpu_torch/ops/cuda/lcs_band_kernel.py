@@ -10,8 +10,8 @@ is pattern row ``j - 16*bw``:
   :data:`~.band_kernel.FAST_MAX_LB`;
 * ``_stream_kernel`` (``_run_stream``, ``lcs_band_long``): the same band
   over buckets of any length (:func:`lcs_banded_stream_1v_many`).  The TPU
-  streamed the text in 512-char chunks to fit VMEM; a CUDA thread walks
-  its candidate's whole text, so nothing is chunked.
+  streamed the text in 512-char chunks to fit VMEM; a CUDA block walks its
+  texts in chunks of its own PM ring at any length.
 
 Results are LCS lengths: exact for candidates whose indel distance is
 within the cutoff, and for the others the band's underestimate, bit for
@@ -22,6 +22,17 @@ read per-step windows pre-shifted on the host
 around its window from the query's ``[W, 256]`` table and joins them with
 a funnel shift, as K3 does, so the wrapper takes the query, not shifted
 tables.
+
+K5 walks a candidate ``min(lb, la + 16*bw)`` steps: from step
+``la + 16*bw`` on every row of the window is past the query, so a step
+there only moves the register's bit 0 into the accumulator and a 1 in at
+the top, which leaves the result as it is (the source's header has the
+argument).  Its design is K3's: a shared-memory PM ring a block, filled
+by one bulk copy a chunk of :data:`~.band_kernel.CHUNK` steps
+(``csrc/band_ring.cuh``, shared with K3), corpus words ahead, longest
+blocks first; its blocks are as large as keep two an SM
+(:func:`~.band_kernel.fill_threads`: it walks every text, where K3 walks
+few over long buckets).
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ import torch
 
 from ..bitpack import popcount
 from . import check, launch
-from .band_kernel import FAST_MAX_LB, band_words, table_words
+from .band_kernel import (FAST_MAX_LB, _sm_count, band_words, fill_threads,
+                          table_words)
 from .lcs_kernel import padded_tables, text_steps
 from .lev_kernel import M32, PM_ROWS, stage_query
 
@@ -39,15 +51,19 @@ MAX_CUTOFF = 47          # 3-word band, as band_kernel.MAX_CUTOFF_FAST
 
 
 def lcs_band_plain(bw: int, tabs: torch.Tensor, cand: torch.Tensor,
-                   lb: torch.Tensor) -> torch.Tensor:
+                   lb: torch.Tensor, la: int | None = None) -> torch.Tensor:
     """Plain PyTorch K5 -> ``[B]`` int32: the sliding-band recurrence of
     ``lcs_band_kernel._kernel`` vectorised over candidates.  ``tabs`` is
-    the query's ``[ws, 256]`` table (rows past it read as zero).  Steps
-    past a candidate's length read an all-zero PM row, so they only move
-    the register's bit 0 into the accumulator and a 1 in at the top,
-    which leaves ``acc + popcount(~s)`` as the kernel's stop at that
-    length does."""
+    the query's ``[ws, 256]`` table (rows past it read as zero) and
+    ``la`` the query's length (``None``: ``32 * ws``, the rows the table
+    holds).  Steps past a candidate's length read an all-zero PM row, and
+    steps from ``la + 16*bw`` on an all-zero window; either only moves the
+    register's bit 0 into the accumulator and a 1 in at the top, which
+    leaves ``acc + popcount(~s)`` as it is.  So the loop ends at the
+    kernel's stop, ``la + 16*bw`` steps, past which every candidate's
+    walk has ended."""
     WS = tabs.shape[0]
+    stop = (32 * WS if la is None else la) + 16 * bw
     # two zero words on each side: every window reads words widx0 ..
     # widx0 + bw with widx0 >= -(bw + 1), all inside the padded table
     zeros = torch.zeros((bw + 1, PM_ROWS + 1), dtype=torch.int64,
@@ -57,6 +73,8 @@ def lcs_band_plain(bw: int, tabs: torch.Tensor, cand: torch.Tensor,
          for _ in range(bw)]
     acc = torch.zeros(lb.shape, dtype=torch.int64, device=lb.device)
     for j, ch in enumerate(text_steps(cand, lb)):
+        if j >= stop:
+            break
         start0 = j - 16 * bw
         widx0, sh = start0 >> 5, start0 & 31
         lo = widx0 + bw + 1
@@ -136,14 +154,16 @@ def _band(q: np.ndarray, cand: torch.Tensor, lb: torch.Tensor, bw: int,
         raise ValueError(f"tabs {tuple(tabs.shape)}, expected [W, 256]")
     # the windows of a bw <= 3 band over LB steps reach pattern rows below
     # LB + 16*bw + 32, inside table_words (band_kernel.table_words)
-    tabs = tabs[: table_words(int(q.size), LB)]
+    la = int(q.size)
+    tabs = tabs[: table_words(la, LB)]
     if dev.type == "cpu":
-        return lcs_band_plain(bw, tabs, cand, lb)
+        return lcs_band_plain(bw, tabs, cand, lb, la)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        launch(name, "rf_lcs_band", dev, tabs.data_ptr(), tabs.shape[0], bw,
-               cand.data_ptr(), lb.data_ptr(), out.data_ptr(), B,
-               cand.shape[0])
+        threads = fill_threads(B, _sm_count(dev.index))
+        launch(name, "rf_lcs_band", dev, tabs.data_ptr(), tabs.shape[0], la,
+               bw, cand.data_ptr(), lb.data_ptr(), out.data_ptr(), B,
+               cand.shape[0], threads)
     return out
