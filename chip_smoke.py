@@ -40,8 +40,9 @@ Phases, each printing one JSON line before the next starts:
    band, and its exact stop and PM ring (``LCS_BAND_CASES``: buckets 128,
    1,024, 2,048 and 8,192, texts one before, at and one past each stop
    la + 16*bw and every chunk edge, a stop at a chunk edge, a 4,001-char
-   query over 8,192 at bw 1 and 2) at 2,048 candidates, K6 (the OSA scan) at W = 1, 2, 4 and 9 (its first tile width)
-   and 16 queries per launch over near copies with adjacent swaps planted
+   query over 8,192 at bw 1 and 2) at 2,048 candidates, K6 (the OSA scan)
+   at W = 1, 2, 4 and 9 (its first tile width) and 16 queries per launch
+   over near copies with adjacent swaps planted
    across query words and packed 4-char rows, and over 2048- and
    8192-char buckets; K7 (weighted Levenshtein) under the tables
    (1, 2, 3), (3, 2, 1) and (2, 2, 3) in its register form at one to four
@@ -527,7 +528,8 @@ BAND_CASES = (
 #: row 14's query length (300), one before the 512 edge (la 495) over
 #: 2,048, at the 2,048 bucket's end (la 2,040), and for the 4,001-char
 #: query over 8,192 (ws 126, past the 48 words the parent kept in shared
-#: memory) at bw 1 and 2
+#: memory) at bw 1 and 2; their generators' salts start at LCS_BAND_SALT
+LCS_BAND_SALT = 19000
 LCS_BAND_CASES = (
     (128, 60, "byte", [("lcs_band", c) for c in (3, 15, 31, 47)]),
     (128, 120, "local", [("lcs_band", 15), ("lcs_band", 47)]),
@@ -967,7 +969,7 @@ class Smoke:
                                                           s)),
                 ("band", lambda s: self.band_cases(rng, alph["byte"], s)),
                 ("lcs", lambda s: self.lcs_kernel_cases(rng, alph, s)),
-                ("lcs_band", lambda s: self.lcs_band_cases(rng, alph, s)),
+                ("lcs_band", lambda s: self.lcs_band_cases(alph, s)),
                 ("osa", lambda s: self.osa_kernel_cases(rng, alph, s)),
                 ("wlev", lambda s: self.wlev_kernel_cases(rng, alph, s)),
                 ("jaro", lambda s: self.jaro_kernel_cases(rng, alph, s)),
@@ -1275,27 +1277,29 @@ class Smoke:
         return self.lk.prepare_corpus(chars.to(torch.int32),
                                       lens.to(torch.int32))
 
-    def lcs_band_cases(self, rng, alph, salt):
+    def lcs_band_cases(self, alph, salt):
         """K5's two launch names against ``lcs_band_plain`` (LCS_BAND_CASES,
         N_KERNEL_LONG candidates each), every call's route checked by its
         launch count and every candidate's value compared, and against
         K4's full LCS: equal where the indel distance is within the
         cutoff, at most it elsewhere, and below it on some row under a
         one-word band (rows far out of band: the query behind 64 chars of
-        its alphabet, the last N_KERNEL_LONG // 256).  The texts copy windows of the query
-        (window_copies); their lengths are 0, 1, the bucket's end and one
-        before, one before, at and one past each call's stop la + 16*bw
-        and every chunk edge (``band_kernel.CHUNK``: the PM ring's chunk
-        plan and barrier), the query's +- 1-17 and +- 40 (the whole query,
-        cut or run on), and near it.  Queries shorter than the bucket read
+        its alphabet, the last N_KERNEL_LONG // 256).  The texts copy
+        windows of the query (window_copies); their lengths are 0, 1, the
+        bucket's end and one before, one before, at and one past each
+        call's stop la + 16*bw and every chunk edge (``band_kernel.CHUNK``:
+        the PM ring's chunk plan and barrier), the query's +- 1-17 and +-
+        40 (the whole query, cut or run on), and near it.  Queries shorter than the bucket read
         rows of ws and above as zero; the 4,001-char query's table (126
         words) is staged chunk by chunk like every other."""
         torch, lk, kc, ck, cbk = self.torch, self.lk, self.kc, self.ck, \
             self.cbk
         B = N_KERNEL_LONG
-        for LBk, la, mode, calls in LCS_BAND_CASES:
-            salt += 1
-            g = self.gen(salt)
+        # a generator and salts of their own, so that the families after
+        # these cases draw the data they drew before them
+        rng = np.random.default_rng(self.seed + 19)
+        for i, (LBk, la, mode, calls) in enumerate(LCS_BAND_CASES):
+            g = self.gen(LCS_BAND_SALT + i)
             a = alph[mode]
             q = rng.choice(a, la)
             qt = torch.from_numpy(q).to(self.dev)

@@ -44,7 +44,7 @@
 // instructions of the band word (the window's funnel shift, and, the or
 // with s ^ u, the slide's funnel shift; the add issues on the FMA lanes),
 // 1.5 of the accumulator, and the char's byte, two shared loads and the
-// address beside them; the corpus loads, 8 words ahead, cost ~5 % of the
+// address beside them; the corpus loads, 8 words ahead, cost 5-6 % of the
 // time (all in the SASS and the probe's figures of PERF.md section 6).
 //
 // Design, as K3 (csrc/lev_band.cu), whose band has the same geometry (bit
@@ -70,7 +70,7 @@
 //   the longest as the scanner sorts by length; the wrapper passes the
 //   block size, as large as keeps two blocks an SM
 //   (band_kernel.fill_threads: 256 threads at both timed shapes, where 64,
-//   K3's over long buckets, lost 16-19 %).
+//   K3's over long buckets, took 11-15 % longer).
 // Corpus offsets are 64-bit (row * B).
 
 #include <cstdint>

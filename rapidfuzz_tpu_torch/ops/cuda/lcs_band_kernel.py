@@ -57,45 +57,45 @@ def lcs_band_plain(bw: int, tabs: torch.Tensor, cand: torch.Tensor,
     the query's ``[ws, 256]`` table (rows past it read as zero) and
     ``la`` the query's length (``None``: ``32 * ws``, the rows the table
     holds).  Steps past a candidate's length read an all-zero PM row, and
-    steps from ``la + 16*bw`` on an all-zero window; either only moves the
-    register's bit 0 into the accumulator and a 1 in at the top, which
-    leaves ``acc + popcount(~s)`` as it is.  So the loop ends at the
-    kernel's stop, ``la + 16*bw`` steps, past which every candidate's
+    steps from ``min(la, 32 * ws) + 16*bw`` on an all-zero window; either
+    only moves the register's bit 0 into the accumulator and a 1 in at the
+    top, which leaves ``acc + popcount(~s)`` as it is.  So the loop ends
+    at the kernel's stop, ``la + 16*bw`` steps (the table holds the
+    query's rows up to the bucket's reach), past which every candidate's
     walk has ended."""
     WS = tabs.shape[0]
-    stop = (32 * WS if la is None else la) + 16 * bw
-    # two zero words on each side: every window reads words widx0 ..
-    # widx0 + bw with widx0 >= -(bw + 1), all inside the padded table
+    stop = min(32 * WS if la is None else la, 32 * WS) + 16 * bw
+    # bw + 1 zero words in front: every window reads words widx0 ..
+    # widx0 + bw with widx0 >= -(bw + 1); rows w and w + 1 side by side,
+    # so that a band word's window is one gather and one shift
     zeros = torch.zeros((bw + 1, PM_ROWS + 1), dtype=torch.int64,
                         device=lb.device)
     tab = torch.cat([zeros, padded_tables(tabs), zeros])
+    tab = tab[:-1] | (tab[1:] << 32)
     s = [torch.full(lb.shape, M32, dtype=torch.int64, device=lb.device)
          for _ in range(bw)]
-    acc = torch.zeros(lb.shape, dtype=torch.int64, device=lb.device)
+    ones = torch.zeros(lb.shape, dtype=torch.int64, device=lb.device)
+    steps = 0
     for j, ch in enumerate(text_steps(cand, lb)):
         if j >= stop:
             break
+        steps += 1
         start0 = j - 16 * bw
-        widx0, sh = start0 >> 5, start0 & 31
-        lo = widx0 + bw + 1
-        if lo > WS + bw:                 # the window is past the table
-            pw = [torch.zeros_like(acc)] * (bw + 1)
-        else:
-            col = tab[lo: lo + bw + 1].index_select(1, ch)  # [bw + 1, B]
-            pw = list(col)
+        lo = (start0 >> 5) + bw + 1
+        pw = tab[lo: lo + bw].index_select(1, ch) >> (start0 & 31)
         ns = []
-        carry = 0
         for k in range(bw):
-            x = pw[k] if sh == 0 else (
-                (pw[k] >> sh) | ((pw[k + 1] << (32 - sh)) & M32))
-            u = s[k] & x
-            t = s[k] + u + carry
-            carry = t >> 32
-            ns.append((t & M32) | (s[k] ^ u))
-        acc = acc + ((M32 ^ ns[0]) & 1)
-        for k in range(bw):
-            hi = ((ns[k + 1] << 31) & M32) if k + 1 < bw else 1 << 31
-            s[k] = (ns[k] >> 1) | hi
+            u = s[k] & pw[k]
+            t = s[k] + u if k == 0 else s[k] + u + (ns[k - 1] >> 32)
+            ns.append(t | (s[k] ^ u))
+        # bit 0 leaves the band: a zero there is one more match
+        ones += ns[0] & 1
+        # the slide; bit 32 of a word is its add's carry, which the next
+        # word took (the top word's is dropped: a 1 enters over it)
+        for k in range(bw - 1):
+            s[k] = ((ns[k] & M32) >> 1) | ((ns[k + 1] << 31) & M32)
+        s[bw - 1] = (ns[bw - 1] >> 1) | (1 << 31)
+    acc = steps - ones
     for k in range(bw):
         acc = acc + popcount(M32 ^ s[k])
     return acc.to(torch.int32)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ..bitpack import popcount
-from . import check
+from . import PLAIN_GRAIN, check
 from .lev_kernel import (LONG_LB, M32, PM_ROWS, stage_queries, stage_query,
                          tile_launches, u32, words)
 from .lev_kernel import tile_plan as lev_tile_plan
@@ -60,17 +60,24 @@ def text_steps(cand: torch.Tensor, lb: torch.Tensor):
     """Yield each text step's chars of every candidate, ``[B]`` int64, up
     to the longest candidate, with :data:`PM_ROWS` (the all-zero row of
     :func:`padded_tables`) past each candidate's own length, so a plain
-    step there matches nothing.  Unpacks one packed row (4 steps) at a
-    time, so no ``[LB, B]`` copy of the corpus is made."""
+    step there matches nothing.  Unpacks up to 16 packed rows (4 steps
+    each) at a time, as many as keep the block under
+    :data:`~rapidfuzz_tpu_torch.ops.cuda.PLAIN_GRAIN` elements (one row
+    at least), so no ``[LB, B]`` copy of the corpus is made."""
     LB = cand.shape[0] * 4
+    B = lb.numel()
     lb64 = lb.to(torch.int64)
-    steps = int(lb64.max().clamp(max=LB)) if lb.numel() else 0
-    shifts = torch.arange(0, 32, 8, device=cand.device)[:, None]
-    for r in range(-(-steps // 4)):
-        row = (u32(cand[r])[None, :] >> shifts) & 0xFF           # [4, B]
-        pos = torch.arange(4 * r, 4 * r + 4, device=cand.device)[:, None]
-        row = torch.where(pos < lb64[None, :], row, PM_ROWS)
-        yield from row[: steps - 4 * r]
+    steps = int(lb64.max().clamp(max=LB)) if B else 0
+    rows = -(-steps // 4)
+    per = max(1, min(16, PLAIN_GRAIN // (4 * max(B, 1))))
+    shifts = torch.arange(0, 32, 8, device=cand.device)[None, :, None]
+    pos = torch.arange(4 * per, device=cand.device)[:, None]
+    for r0 in range(0, rows, per):
+        n = min(per, rows - r0)
+        blk = (u32(cand[r0: r0 + n])[:, None, :] >> shifts) & 0xFF
+        blk = torch.where(pos[: 4 * n] < lb64[None, :] - 4 * r0,
+                          blk.reshape(4 * n, B), PM_ROWS)     # [4n, B]
+        yield from blk[: steps - 4 * r0]
 
 
 def padded_tables(tabs: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ CPU = torch.device("cpu")
 ALPHA = {"byte": np.array([32, 97, 98, 99, 100, 101, 200, 255]),
          "local": np.array([1, 2, 3, 4, 5, 6, 7])}
 CHUNK = bk.CHUNK    # the kernel's kChunk
-AHEAD = 4           # the kernel's kAhead
+AHEAD = 8           # the kernel's kAhead
 
 
 def ring_plan(bw, walk):
@@ -154,6 +154,12 @@ def _texts(rng, q, lens, a, exact=2):
     return out + [t[i, :n] for i, n in enumerate(lens)]
 
 
+def _to_bucket(tabs, LB):
+    """``tabs`` with zero words up to an ``LB`` bucket's rows."""
+    pad = -(-LB // 32) - tabs.shape[0]
+    return torch.cat([tabs, tabs.new_zeros((max(pad, 0), PM_ROWS))])
+
+
 def _corpus(texts, LB):
     lens = np.array([t.size for t in texts])
     chars = np.full((len(texts), LB), -1, dtype=np.int32)
@@ -194,6 +200,10 @@ def test_ring_walk_stops_exactly(case):
     lens += list(la + rng.integers(-20, 21, 40))
     lens = sorted(min(max(int(n), 0), LB) for n in lens)
     texts = sorted(_texts(rng, q, lens, a), key=len)
+    # the query behind 16*bw chars: it matches along the band's lower
+    # edge, the last match at the last step before the stop
+    texts += [np.r_[rng.choice(a, 16 * bw), q][:LB].astype(np.int64)
+              for bw in bws]
     # rows far out of band: the query behind 64 chars of the alphabet
     far = np.r_[rng.choice(a, 64), q][:LB].astype(np.int64)
     texts += [far] * 4
@@ -206,8 +216,9 @@ def test_ring_walk_stops_exactly(case):
     for bw in bws:
         ref = cbk.lcs_band_plain(bw, tabs, cand, lb, la)
         got = _ring_lcs(bw, tabs, cand, lb, la, threads)
-        # the walk to each text's whole length: a stop past every text
-        whole = cbk.lcs_band_plain(bw, tabs, cand, lb, LB)
+        # the walk to each text's whole length: a table of zero words up
+        # to the bucket and no stop before it
+        whole = cbk.lcs_band_plain(bw, _to_bucket(tabs, LB), cand, lb, LB)
         assert torch.equal(got, ref), bw
         assert torch.equal(ref, whole), bw
         # exact within the band (indel <= 16*bw - 1), under it elsewhere
@@ -234,8 +245,9 @@ def test_wrapper_stops_at_the_query():
     _, tabs = lk.stage_query(q, "byte", CPU)
     tabs = tabs[: cbk.table_words(40, 1056)]
     assert torch.equal(got, cbk.lcs_band_plain(1, tabs, cand, lb, 40))
-    assert torch.equal(got, cbk.lcs_band_plain(1, tabs, cand, lb, 1056))
     assert torch.equal(got, cbk.lcs_band_plain(1, tabs, cand, lb))
+    assert torch.equal(got, cbk.lcs_band_plain(
+        1, _to_bucket(tabs, 1056), cand, lb, 1056))
 
 
 @pytest.mark.parametrize("B,threads", [(1, 64), (2048, 64), (16384, 64),
